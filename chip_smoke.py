@@ -15,13 +15,22 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    time (CUDA events);
 3. the main path: ``run_stream`` on zipfian traffic at R=64 remotes,
    L=4096 lines of B=32 fp32 words (128-byte lines), MOESI, issue width
-   W=1 and W=4, the ``WorkloadSpec`` default of 128 ops per remote with
-   the default step budget, each run validated by the port's own
-   ``validate_run`` against its own ``MultiNodeRef``, with the launch
-   count of every kernel in that run;
-4. a small stream (R=8, L=16, B=4, 32 ops, MESI and MOESI) on the card
-   through the kernels and on the CPU through the plain versions:
-   counters, message counts and retirement trace bit-identical.
+   W=1 at the ``WorkloadSpec`` default of 128 ops per remote and W=4 at
+   32 (``W4_OPS``), each with the default step budget for its ops and
+   validated by the port's own ``validate_run`` against its own
+   ``MultiNodeRef``, with the launch count of every kernel in that run;
+4. small streams (L=16, B=4) on the card through the kernels and on the
+   CPU through the plain versions — dense R=8 MESI and MOESI, packed
+   two-home R=33 MESI and R=64 MOESI, two homes with ``home_bw=1``,
+   shared credits: counters, message counts and retirement trace
+   bit-identical, and each packed run equal to the dense run of the same
+   configuration;
+5. the packed two-home path at the main path's width: ``EngineConfig(
+   remotes=64, lines=4096, block=32, homes=2, packed=True)``, MOESI,
+   zipfian, W=1, 128 ops per remote, validated against the two-home
+   oracle, with its own launch table (``packed_any`` and
+   ``packed_fanout`` run only here) and the directory-state bytes of
+   both layouts.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -46,6 +55,14 @@ HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 
 R, L, B, P = 64, 4096, 32, 65
+#: ops per remote of the dense W=4 run, cut from the ``WorkloadSpec``
+#: default of 128 so that the script keeps a margin under its 1200 s
+#: limit on a slow host (see PERF.md, section 4); the dense W=1 run and
+#: the packed two-home run are not cut.
+W4_OPS = 32
+
+#: the packed two-home path: homes, words per line at R=64.
+HOMES, NW = 2, 2
 
 #: the Pallas kernel each CUDA kernel replaces (file:line of pallas_call).
 REPLACES = {
@@ -53,10 +70,18 @@ REPLACES = {
     "arb_winner": "src/repro/kernels/coherency_step.py:144",
     "count_fold": "src/repro/kernels/coherency_step.py:193",
     "lat_hist": "src/repro/kernels/coherency_step.py:234",
+    "packed_any": "src/repro/kernels/coherency_step.py:269",
+    "packed_fanout": "src/repro/kernels/coherency_step.py:320",
 }
 #: launches per engine step on the main path (dense, one home).
 PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
-            "lat_hist": 1}
+            "lat_hist": 1, "packed_any": 0, "packed_fanout": 0}
+#: launches per engine step on the packed two-home path: absorb's
+#: no-sharers test in phases 2 and 3, the pending test in phase 4 and
+#: the two grant-precondition tests in phase 6 are ``packed_any``; the
+#: fan-out words of phase 5 are ``packed_fanout``.
+PACKED_PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
+                   "lat_hist": 1, "packed_any": 5, "packed_fanout": 1}
 SOURCE = "src/repro_torch/csrc/coherency_step.cu"
 
 
@@ -244,25 +269,74 @@ def phase_kernels(dev):
            lambda: ref.lat_hist_ref(lat, ret, edges),
            lambda: torch.bucketize(lat, edges_t, right=True),
            nbytes=5 * R * L + 4 * R * 10, nops=20 * R * L)
+
+    # -- packed_any / packed_fanout: the packed two-home path's word
+    #    planes, [H, L/H, W] int32 words with [H, L/H] per-line inputs ----
+    from repro_torch.core import directory_mn as dmn
+    Lh = L // HOMES
+    pres = dmn.pack_mask(rand_bool((HOMES, R, Lh), 0.3))
+    excl = pres & dmn.pack_mask(rand_bool((HOMES, R, Lh), 0.5))
+    if tuple(pres.shape) != (HOMES, Lh, NW):
+        fail(f"packed words of shape {tuple(pres.shape)}")
+    sparse = pres & dmn.pack_mask(rand_bool((HOMES, R, Lh), 0.01))
+    edge_words = {
+        "W=1 (R=8)": dmn.pack_mask(rand_bool((8, L), 0.1)),
+        "ragged W=2 (R=33)": dmn.pack_mask(rand_bool((33, L), 0.05)),
+        "bit 31": torch.full((Lh, NW), -2 ** 31, dtype=torch.int32,
+                             device=dev),
+        "all zero": torch.zeros((HOMES, Lh, NW), dtype=torch.int32,
+                                device=dev),
+        "all ones": torch.full((HOMES, Lh, NW), -1, dtype=torch.int32,
+                               device=dev),
+    }
+    cases = [("[2, 2048, 2]", K.packed_any(sparse),
+              ref.packed_any_ref(sparse))]
+    for what, w_ in edge_words.items():
+        cases.append((what, K.packed_any(w_), ref.packed_any_ref(w_)))
+    n_lines = HOMES * Lh
+    record("packed_any", cases, lambda: K.packed_any(sparse),
+           lambda: ref.packed_any_ref(sparse),
+           lambda: torch.any(sparse, dim=-1),
+           nbytes=4 * n_lines * NW + n_lines, nops=2 * n_lines * NW)
+
+    node = torch.randint(0, R, (HOMES, Lh), generator=g,
+                         dtype=torch.int32).to(dev)
+    node[:, :4] = torch.tensor([0, 31, 32, 63], dtype=torch.int32,
+                               device=dev)
+    sh = rand_bool((HOMES, Lh), 0.3)
+    ex = rand_bool((HOMES, Lh), 0.3) & ~sh
+    cases = [("[2, 2048, 2]", K.packed_fanout(pres, excl, node, sh, ex),
+              ref.packed_fanout_ref(pres, excl, node, sh, ex))]
+    for what, w_ in edge_words.items():
+        wl = w_.shape[-2]
+        lead = tuple(w_.shape[:-2])
+        n_ = torch.randint(0, 32 * w_.shape[-1], lead + (wl,), generator=g,
+                           dtype=torch.int32).to(dev)
+        s_ = rand_bool(lead + (wl,), 0.5)
+        x_ = ~s_
+        e_ = w_ & torch.roll(w_, 1, dims=-2)
+        cases.append((what, K.packed_fanout(w_, e_, n_, s_, x_),
+                      ref.packed_fanout_ref(w_, e_, n_, s_, x_)))
+    ones = torch.ones((HOMES, Lh), dtype=torch.bool, device=dev)
+    cases.append(("all lines requesting", K.packed_fanout(
+        pres, excl, node, ones, ones), ref.packed_fanout_ref(
+        pres, excl, node, ones, ones)))
+    hot = ref.node_hot(node, NW)
+    record("packed_fanout", cases,
+           lambda: K.packed_fanout(pres, excl, node, sh, ex),
+           lambda: ref.packed_fanout_ref(pres, excl, node, sh, ex),
+           lambda: torch.where(sh[..., None], excl & ~hot, 0),
+           nbytes=16 * n_lines * NW + 6 * n_lines,
+           nops=8 * n_lines * NW)
     return {r["name"]: r for r in rows}
 
 
-def phase_main_path(dev, rows):
-    """Phase 3: the closed-loop stream at R=64, L=4096, B=32."""
+def check_no_host_sync(eng, ops: int, width: int, label: str) -> None:
+    """The step loop makes no host synchronisation: the synchronising
+    calls counted by CUDA's sync debug mode do not grow with the step
+    count."""
     import torch
-    from repro_torch.kernels import coherency_step as K
-    from repro_torch.traffic import (EngineConfig, StreamConfig,
-                                     WorkloadSpec, default_steps,
-                                     run_stream, summarize, validate_run)
-
-    ops = WorkloadSpec().ops
-    steps = default_steps(ops, R)
-    print(f"main path: zipfian R={R} L={L} B={B} (fp32, "
-          f"{4 * B}-byte lines) MOESI, {ops} ops per remote, "
-          f"{steps} steps (default budget); nothing cut")
-    # the step loop makes no host synchronisation: the synchronising calls
-    # counted by CUDA's sync debug mode do not grow with the step count.
-    eng = EngineConfig(remotes=R, lines=L, block=B).build(dev)
+    from repro_torch.traffic import StreamConfig, WorkloadSpec, run_stream
     syncs = []
     for n in (2, 8, 24):        # the first run builds the cached constants
         with warnings.catch_warnings(record=True) as caught:
@@ -271,81 +345,157 @@ def phase_main_path(dev, rows):
             try:
                 run_stream(eng, StreamConfig(
                     workload=WorkloadSpec("zipfian", ops=ops, seed=0),
-                    width=4, steps=n, collect_trace=True))
+                    width=width, steps=n, collect_trace=True))
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         syncs.append(sum("synchroniz" in str(w.message) for w in caught))
     if syncs[2] == 0:
         fail("CUDA's sync debug mode reported no synchronisation at all")
     if syncs[1] != syncs[2]:
-        fail(f"the step loop synchronises with the host: {syncs[1]} "
-             f"syncs in 8 steps, {syncs[2]} in 24")
-    print(f"main path: {syncs[2]} host syncs per run outside the step "
-          f"loop, none inside (runs of 8 and 24 steps)")
-    for width in (1, 4):
-        eng = EngineConfig(remotes=R, lines=L, block=B).build(dev)
-        cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=ops,
-                                                 seed=0),
-                           width=width, collect_trace=True)
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        run = run_stream(eng, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(K.launches)
-        s = summarize(run.counters, run.msg_count, run.payload_msgs)
-        t1 = time.perf_counter()
-        validate_run(run)
-        t_val = time.perf_counter() - t1
-        print(f"main path W={width}: completed={run.completed} "
-              f"ops_retired={s['ops_retired']} "
-              f"ops_per_step={float(s['ops_per_step']):.6f} "
-              f"steps={s['steps']} active_steps={s['active_steps']} "
-              f"wall_s={wall:.3f} steps_per_s={steps / wall:.1f} "
-              f"msgs={int(run.msg_count.sum())} "
-              f"oracle_validate_s={t_val:.1f}")
-        print(f"main path W={width}: launches {json.dumps(counts)}")
-        for name, n in counts.items():
-            if n == 0:
-                fail(f"kernel {name} was not launched on the main path")
-            if n != PER_STEP[name] * steps:
-                fail(f"kernel {name}: {n} launches, expected "
-                     f"{PER_STEP[name]} x {steps}")
-            rows[name]["launches"] += n
-        if s["ops_retired"] != R * ops:
-            fail(f"W={width}: retired {s['ops_retired']} of {R * ops}")
+        fail(f"{label}: the step loop synchronises with the host: "
+             f"{syncs[1]} syncs in 8 steps, {syncs[2]} in 24")
+    print(f"{label}: {syncs[2]} host syncs per run outside the step loop, "
+          f"none inside (runs of 8 and 24 steps)")
+
+
+def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
+          label: str) -> None:
+    """One run of ``ops`` per remote and the default step budget through
+    ``run_stream``, with every launch count set to 0 just before it and
+    read just after; oracle-validated, all ops retired, launches exactly
+    ``per_step`` times the step count."""
+    import torch
+    from repro_torch.kernels import coherency_step as K
+    from repro_torch.traffic import (StreamConfig, WorkloadSpec,
+                                     default_steps, run_stream, summarize,
+                                     validate_run)
+    steps = default_steps(ops, cfg_engine.remotes)
+    eng = cfg_engine.build(dev)
+    cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=ops, seed=0),
+                       width=width, collect_trace=True)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    run = run_stream(eng, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    s = summarize(run.counters, run.msg_count, run.payload_msgs)
+    t1 = time.perf_counter()
+    validate_run(run, moesi=cfg_engine.moesi, n_homes=cfg_engine.homes)
+    t_val = time.perf_counter() - t1
+    print(f"{label}: completed={run.completed} "
+          f"ops_retired={s['ops_retired']} "
+          f"ops_per_step={float(s['ops_per_step']):.6f} "
+          f"steps={s['steps']} active_steps={s['active_steps']} "
+          f"wall_s={wall:.3f} steps_per_s={steps / wall:.1f} "
+          f"msgs={int(run.msg_count.sum())} "
+          f"oracle_validate_s={t_val:.1f}")
+    print(f"{label}: launches {json.dumps(counts)}")
+    for name, n in counts.items():
+        if n != per_step[name] * steps:
+            fail(f"{label}: kernel {name}: {n} launches, expected "
+                 f"{per_step[name]} x {steps}")
+        rows[name]["launches"] += n
+    if s["ops_retired"] != cfg_engine.remotes * ops:
+        fail(f"{label}: retired {s['ops_retired']} of "
+             f"{cfg_engine.remotes * ops}")
+
+
+def phase_main_path(dev, rows):
+    """Phase 3: the closed-loop stream at R=64, L=4096, B=32."""
+    from repro_torch.traffic import EngineConfig, WorkloadSpec, \
+        default_steps
+    ops = WorkloadSpec().ops
+    print(f"main path: zipfian R={R} L={L} B={B} (fp32, "
+          f"{4 * B}-byte lines) MOESI, W=1 at {ops} ops per remote "
+          f"({default_steps(ops, R)} steps, the default budget), W=4 cut "
+          f"to {W4_OPS} ({default_steps(W4_OPS, R)} steps)")
+    cfg = EngineConfig(remotes=R, lines=L, block=B)
+    check_no_host_sync(cfg.build(dev), ops, 4, "main path")
+    for width, n_ops in ((1, ops), (4, W4_OPS)):
+        drive(dev, cfg, width, n_ops, PER_STEP, rows,
+              f"main path W={width}")
+    for name in ("credit_rank", "arb_winner", "count_fold", "lat_hist"):
+        if rows[name]["launches"] == 0:
+            fail(f"kernel {name} was not launched on the main path")
+
+
+def phase_packed_path(dev, rows):
+    """Phase 5: the packed two-home path at R=64, L=4096, B=32."""
+    from repro_torch.traffic import EngineConfig, WorkloadSpec, \
+        default_steps
+    ops = WorkloadSpec().ops
+    print(f"packed path: zipfian R={R} L={L} B={B} H={HOMES} packed "
+          f"MOESI W=1, {ops} ops per remote, {default_steps(ops, R)} "
+          f"steps (default budget); nothing cut")
+    cfg = EngineConfig(remotes=R, lines=L, block=B, homes=HOMES,
+                       packed=True)
+    dense, packed = (EngineConfig(remotes=R, lines=L, block=B,
+                                  packed=p).build(dev).init()
+                     for p in (False, True))
+    nbytes = [x.hreq_pending.nbytes + x.dir.view.nbytes
+              for x in (dense, packed)]
+    print(f"packed path: directory state (view + pending mask) "
+          f"{nbytes[0]} bytes dense (2*R*L) against {nbytes[1]} packed "
+          f"(16*L*W), {nbytes[0] / nbytes[1]:g}x")
+    if nbytes != [2 * R * L, 16 * L * NW]:
+        fail(f"directory state bytes {nbytes}")
+    check_no_host_sync(cfg.build(dev), ops, 1, "packed path")
+    drive(dev, cfg, 1, ops, PACKED_PER_STEP, rows, "packed path W=1")
+    for name in ("packed_any", "packed_fanout"):
+        if rows[name]["launches"] == 0:
+            fail(f"kernel {name} was not launched on the packed path")
+
+
+def _same_run(a, b) -> bool:
+    import numpy as np
+    import torch
+    return (np.array_equal(a.msg_count, b.msg_count)
+            and a.payload_msgs == b.payload_msgs
+            and np.array_equal(a.trace.retire_step, b.trace.retire_step)
+            and all(torch.equal(x.cpu(), y.cpu())
+                    for x, y in zip(a.counters, b.counters)))
 
 
 def phase_small_stream(dev):
-    """Phase 4: the card's kernel run equals the CPU's plain run."""
-    import numpy as np
-    import torch
+    """Phase 4: the card's kernel runs equal the CPU's plain runs, and
+    each packed run equals the dense run of its configuration."""
     from repro_torch.traffic import (EngineConfig, StreamConfig,
                                      WorkloadSpec, run_stream,
                                      validate_run)
 
-    for moesi in (False, True):
-        cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=32, seed=3),
+    # (ops per remote, engine options); the wide packed streams take 8
+    # ops, since their step budget grows with R * ops and each runs three
+    # times (card, CPU, and dense on the card).
+    cases = [
+        (32, dict(remotes=8, moesi=False)),
+        (32, dict(remotes=8, moesi=True)),
+        (8, dict(remotes=33, homes=2, packed=True, moesi=False)),
+        (8, dict(remotes=64, homes=2, packed=True, moesi=True)),
+        (32, dict(remotes=8, homes=2, home_bw=1)),
+        (32, dict(remotes=8, shared_credits=True, credits=4)),
+    ]
+    for ops, kw in cases:
+        cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=ops, seed=3),
                            width=2, collect_trace=True)
-        runs = []
-        for d in (dev, "cpu"):
-            eng = EngineConfig(remotes=8, lines=16, block=4,
-                               moesi=moesi).build(d)
-            runs.append(run_stream(eng, cfg))
-        gpu, cpu = runs
-        same = (np.array_equal(gpu.msg_count, cpu.msg_count)
-                and gpu.payload_msgs == cpu.payload_msgs
-                and np.array_equal(gpu.trace.retire_step,
-                                   cpu.trace.retire_step)
-                and all(torch.equal(a, b) for a, b in
-                        zip(gpu.counters, cpu.counters)))
-        if not same:
-            fail(f"small stream (moesi={moesi}): card and CPU differ")
-        validate_run(gpu, moesi=moesi)
-        print(f"small stream moesi={moesi}: card == CPU (counters, "
-              f"msg_count {int(gpu.msg_count.sum())}, payload "
-              f"{gpu.payload_msgs}, trace), oracle-validated")
+        gpu, cpu = (run_stream(EngineConfig(lines=16, block=4, **kw)
+                               .build(d), cfg) for d in (dev, "cpu"))
+        if not _same_run(gpu, cpu):
+            fail(f"small stream {kw}: card and CPU differ")
+        if kw.get("packed"):
+            dense_kw = dict(kw, packed=False)
+            dense = run_stream(EngineConfig(lines=16, block=4, **dense_kw)
+                               .build(dev), cfg)
+            if not _same_run(gpu, dense):
+                fail(f"small stream {kw}: packed and dense runs differ")
+        validate_run(gpu, moesi=kw.get("moesi", True),
+                     n_homes=kw.get("homes", 1))
+        print(f"small stream {json.dumps(kw)} ops={ops}: card == CPU "
+              f"(counters, msg_count {int(gpu.msg_count.sum())}, payload "
+              f"{gpu.payload_msgs}, trace)"
+              f"{', == dense' if kw.get('packed') else ''}, "
+              f"oracle-validated")
 
 
 def main() -> int:
@@ -372,6 +522,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     phase_main_path(dev, rows)
     phase_small_stream(dev)
+    phase_packed_path(dev, rows)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

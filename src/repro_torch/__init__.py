@@ -4,7 +4,7 @@ A port of ``repro`` (the JAX package beside it, which stays the
 reference) that mirrors its layout: ``core/`` holds the protocol tables,
 the transport, the agents, the sharer-vector directory and the N-remote
 engine; ``traffic/`` the streaming driver, its workloads and its
-counters; ``kernels/`` the four hand-written kernels of the per-step
+counters; ``kernels/`` the six hand-written kernels of the per-step
 inner plane (CUDA C++ under ``csrc/``) beside their plain PyTorch
 versions.
 

@@ -4,9 +4,15 @@
 arrays (``jax.tree_util.tree_map(np.asarray, x)``), become the port's
 tensors on a device, and back.  Nothing here imports ``repro``: the
 reference trees are read by their field names, which the port's
-NamedTuples share.  The one difference is the counters' accumulators:
-the reference keeps hi/lo int32 pairs (``occ_sum_hi``/``occ_sum_lo``,
-``mshr_sum_hi``/``mshr_sum_lo``), the port one int64 each.
+NamedTuples share.  Two representations differ:
+
+* the counters' accumulators: the reference keeps hi/lo int32 pairs
+  (``occ_sum_hi``/``occ_sum_lo``, ``mshr_sum_hi``/``mshr_sum_lo``), the
+  port one int64 each;
+* the packed directory words (``dir.view`` and ``hreq_pending`` of a
+  packed state): uint32 in the reference, int32 with the same bits in the
+  port — ``.view(np.int32)`` on the way in, ``.view(np.uint32)`` on the
+  way out.  Dense states keep their int8 planes.
 
     st_t = engine_state_to_torch(np_state, "cpu")     # port state
     flat = flatten(engine_state_to_numpy(st_t))       # path -> array
@@ -35,7 +41,10 @@ _NESTED = {"dir": DirectoryMNState, "agents": AgentState,
 
 
 def _to_tensor(x, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.array(x, copy=True)).to(device)
+    x = np.array(x, copy=True)
+    if x.dtype == np.uint32:           # packed words: same bits as int32
+        x = x.view(np.int32)
+    return torch.as_tensor(x).to(device)
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -44,8 +53,9 @@ def _to_numpy(x) -> np.ndarray:
 
 
 def engine_state_to_torch(st, device=None) -> EngineMNState:
-    """A reference ``EngineMNState`` (numpy leaves, dense layout) as the
-    port's state on ``device``, dtype for dtype."""
+    """A reference ``EngineMNState`` (numpy leaves, dense or packed) as
+    the port's state on ``device``, dtype for dtype but uint32 words as
+    int32."""
     dev = resolve_device(device)
     fields = {}
     for name in EngineMNState._fields:
@@ -59,13 +69,17 @@ def engine_state_to_torch(st, device=None) -> EngineMNState:
 
 def engine_state_to_numpy(st: EngineMNState) -> EngineMNState:
     """The port's state with numpy leaves (the reference's field names
-    and dtypes)."""
+    and dtypes: a packed state's int32 words come back as uint32)."""
     fields = {}
     for name in EngineMNState._fields:
         src = getattr(st, name)
         cls = _NESTED.get(name)
         fields[name] = (cls(*(_to_numpy(x) for x in src))
                         if cls is not None else _to_numpy(src))
+    if fields["hreq_pending"].dtype == np.int32:          # packed layout
+        fields["hreq_pending"] = fields["hreq_pending"].view(np.uint32)
+        fields["dir"] = fields["dir"]._replace(
+            view=fields["dir"].view.view(np.uint32))
     return EngineMNState(**fields)
 
 

@@ -1,12 +1,11 @@
 """The vectorized N-remote coherency engine (paper §4.1, R <= 64), on tensors.
 
-The port of ``repro.core.engine_mn`` for one home, dense directory planes
-and per-row credits: ``R`` caching remotes, each a 4-state agent
-(``core.agent``) over one ``[R, L]`` slab, a sharer-vector home
-(``core.directory_mn``) and four ``[R, L]`` virtual-channel planes
+The port of ``repro.core.engine_mn``: ``R`` caching remotes, each a
+4-state agent (``core.agent``) over one ``[R, L]`` slab, a sharer-vector
+home (``core.directory_mn``) and four ``[R, L]`` virtual-channel planes
 (``core.transport``).  ``step_mn`` is one step over all remotes and
 lines, phase for phase the reference's, and bit-identical to it on the
-same inputs (``tests/test_torch_engine.py``).
+same inputs (``tests/test_torch_engine.py``, ``tests/test_torch_packed.py``).
 
 Transaction discipline: the home parks ONE request per line, chosen among
 the ready remote requests and the home's own pending access (participant
@@ -15,15 +14,30 @@ R, parked as ``HOME_TXN``) by a per-line rotating priority pointer
 and grants once every reply has arrived and no voluntary downgrade is in
 flight on the line.
 
-Three of the step's inner planes run as CUDA kernels on the card (their
-plain versions on the CPU): the credit ranks of the two credited submits
-(``credit_rank``), the arbitration winner (``arb_winner``) and the five
-message-counter folds (``count_fold``).
+Options, as in the reference:
 
-Not ported yet (they raise ``NotImplementedError``): several homes
-(``n_homes``/``home_bw``) and the shared credit pool (ROADMAP Queue 1
-item 8), bit-packed planes (item 9), wire-event emission (item 11) and
-the fleet's home emulation (item 12).
+* ``n_homes = H > 1`` — line ownership interleaves across H homes by
+  address (``line % H``); the step folds the flat ``[R, L]`` state into
+  the home-major ``[H, R, L/H]`` layout at entry and unfolds at exit, so
+  each home has its own arbitration, transaction and MSHR plane and its
+  own credit pools.  ``home_bw > 0`` caps the new transactions each home
+  parks per step;
+* ``hreq_shared`` — the home's fan-out submits rank against one shared
+  credit pool across all R rows;
+* bit-packed planes — the directory view and the pending home-downgrade
+  mask are ``[2, L, W]`` int32 words (``W = ceil(R/32)``) instead of
+  ``[R, L]`` int8; the state's dtype tells the layouts apart (int8 dense,
+  int32 packed).
+
+Of the step's inner planes, six run as CUDA kernels on the card (their
+plain versions on the CPU): the credit ranks of the credited submits
+(``credit_rank``), the arbitration winner (``arb_winner``), the five
+message-counter folds (``count_fold``) and, on packed planes, the five
+any-bit reductions (``packed_any``) and the fan-out words
+(``packed_fanout``).
+
+Not ported yet (they raise ``NotImplementedError``): wire-event emission
+(ROADMAP Queue 1 item 11) and the fleet's home emulation (item 12).
 """
 from __future__ import annotations
 
@@ -69,6 +83,8 @@ class EngineMNState(NamedTuple):
     ch_hreq: tp.Channel          # [R, L] home -> remote downgrades (fan-out)
     ch_hresp: tp.Channel         # [R, L] remote -> home downgrade replies
     hreq_pending: torch.Tensor   # [R, L] int8: outstanding HOME_DOWNGRADE_*
+    #                              (packed: [2, L, W] int32 words — plane 0
+    #                              = HD_S pending, plane 1 = HD_I pending)
     txn_msg: torch.Tensor        # [L] int8: parked request type (NOP = none)
     txn_node: torch.Tensor       # [L] int32: parked requester id
     arb_rr: torch.Tensor         # [L] int32: rotating arbitration pointer
@@ -88,9 +104,119 @@ class StepMNOutput(NamedTuple):
     accepted: torch.Tensor       # [R, L] bool — caller ops taken this step
 
 
-def make_engine_mn_state(backing: torch.Tensor, n_remotes: int
-                         ) -> EngineMNState:
-    """A quiescent engine over ``backing`` ([L, B], on its device)."""
+# ---------------------------------------------------------------------------
+# Multi-home fold: the [R, L] <-> [H, R, L/H] layout change.
+#
+# Global line ``l = q*H + h`` lands at ``[h, ..., q]``: a reshape of the
+# line axis and a move of the home axis to the front.  Every transport,
+# agent and directory function is polymorphic over leading batch axes, so
+# the same step body runs the folded layout.  The folded tensors are made
+# contiguous: the kernel wrappers take contiguous tensors only.
+# ---------------------------------------------------------------------------
+
+
+def _f_l(x: torch.Tensor, H: int) -> torch.Tensor:
+    """[L, ...] -> [H, L/H, ...]."""
+    return x.reshape((x.shape[0] // H, H) + tuple(x.shape[1:])) \
+        .movedim(1, 0).contiguous()
+
+
+def _u_l(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_f_l``: [H, L/H, ...] -> [L, ...]."""
+    return x.movedim(0, 1).reshape(
+        (x.shape[0] * x.shape[1],) + tuple(x.shape[2:])).contiguous()
+
+
+def _f_rl(x: torch.Tensor, H: int) -> torch.Tensor:
+    """[R, L, ...] -> [H, R, L/H, ...]; a packed ``[2, L, W]`` word
+    array folds the same way, to ``[H, 2, L/H, W]``."""
+    r, l = x.shape[:2]
+    return x.reshape((r, l // H, H) + tuple(x.shape[2:])) \
+        .movedim(2, 0).contiguous()
+
+
+def _u_rl(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_f_rl``: [H, R, L/H, ...] -> [R, L, ...]."""
+    return x.movedim(0, 2).reshape(
+        (x.shape[1], x.shape[2] * x.shape[0]) + tuple(x.shape[3:])
+    ).contiguous()
+
+
+def _fold_state_mn(st: EngineMNState, H: int) -> EngineMNState:
+    """Flat [R, L] state -> home-major [H, R, L/H] layout.
+
+    The agents' per-remote tallies (``illegal``/``hits``/``misses``, [R])
+    have no line axis: the folded state carries [H, R] zeros and
+    ``_unfold_state_mn`` adds the per-home deltas onto the flat totals."""
+    chf = lambda ch: tp.Channel(*(_f_rl(a, H) for a in ch))  # noqa: E731
+    zr = st.agents.illegal.new_zeros((H,) + tuple(st.agents.illegal.shape))
+    return EngineMNState(
+        dir=st.dir._replace(
+            home_state=_f_l(st.dir.home_state, H),
+            view=_f_rl(st.dir.view, H),
+            backing=_f_l(st.dir.backing, H),
+            home_buf=_f_l(st.dir.home_buf, H)),
+        agents=st.agents._replace(
+            remote_state=_f_rl(st.agents.remote_state, H),
+            cache=_f_rl(st.agents.cache, H),
+            pending_req=_f_rl(st.agents.pending_req, H),
+            pending_op=_f_rl(st.agents.pending_op, H),
+            pending_val=_f_rl(st.agents.pending_val, H),
+            illegal=zr, hits=zr, misses=zr),
+        ch_req=chf(st.ch_req), ch_resp=chf(st.ch_resp),
+        ch_hreq=chf(st.ch_hreq), ch_hresp=chf(st.ch_hresp),
+        hreq_pending=_f_rl(st.hreq_pending, H),
+        txn_msg=_f_l(st.txn_msg, H),
+        txn_node=_f_l(st.txn_node, H),
+        arb_rr=_f_l(st.arb_rr, H),
+        want_read=_f_l(st.want_read, H),
+        want_write=_f_l(st.want_write, H),
+        want_wval=_f_l(st.want_wval, H),
+        msg_count=st.msg_count, payload_msgs=st.payload_msgs,
+        step_no=st.step_no)
+
+
+def _unfold_state_mn(st: EngineMNState, flat: EngineMNState
+                     ) -> EngineMNState:
+    """Home-major [H, R, L/H] state -> flat [R, L]; ``flat`` supplies the
+    pre-fold per-remote tallies the folded zeros started from."""
+    chu = lambda ch: tp.Channel(*(_u_rl(a) for a in ch))  # noqa: E731
+    ag_in = flat.agents
+    return EngineMNState(
+        dir=st.dir._replace(
+            home_state=_u_l(st.dir.home_state),
+            view=_u_rl(st.dir.view),
+            backing=_u_l(st.dir.backing),
+            home_buf=_u_l(st.dir.home_buf)),
+        agents=st.agents._replace(
+            remote_state=_u_rl(st.agents.remote_state),
+            cache=_u_rl(st.agents.cache),
+            pending_req=_u_rl(st.agents.pending_req),
+            pending_op=_u_rl(st.agents.pending_op),
+            pending_val=_u_rl(st.agents.pending_val),
+            illegal=ag_in.illegal + st.agents.illegal.sum(
+                0, dtype=torch.int32),
+            hits=ag_in.hits + st.agents.hits.sum(0, dtype=torch.int32),
+            misses=ag_in.misses + st.agents.misses.sum(
+                0, dtype=torch.int32)),
+        ch_req=chu(st.ch_req), ch_resp=chu(st.ch_resp),
+        ch_hreq=chu(st.ch_hreq), ch_hresp=chu(st.ch_hresp),
+        hreq_pending=_u_rl(st.hreq_pending),
+        txn_msg=_u_l(st.txn_msg),
+        txn_node=_u_l(st.txn_node),
+        arb_rr=_u_l(st.arb_rr),
+        want_read=_u_l(st.want_read),
+        want_write=_u_l(st.want_write),
+        want_wval=_u_l(st.want_wval),
+        msg_count=st.msg_count, payload_msgs=st.payload_msgs,
+        step_no=st.step_no)
+
+
+def make_engine_mn_state(backing: torch.Tensor, n_remotes: int,
+                         packed: bool = False) -> EngineMNState:
+    """A quiescent engine over ``backing`` ([L, B], on its device);
+    ``packed`` keeps the directory view and the pending home-downgrade
+    mask as ``[2, L, W]`` int32 word planes."""
     L, B = backing.shape
     R = n_remotes
     dev = backing.device
@@ -98,11 +224,14 @@ def make_engine_mn_state(backing: torch.Tensor, n_remotes: int
     def mk():
         return tp.make_channel(L, B, backing.dtype, dev, lead=(R,))
 
+    hreq = (torch.zeros((2, L, dmn.n_words(R)), dtype=torch.int32,
+                        device=dev) if packed else
+            torch.zeros((R, L), dtype=torch.int8, device=dev))
     return EngineMNState(
-        dir=dmn.make_directory_mn(backing, R),
+        dir=dmn.make_directory_mn(backing, R, packed=packed),
         agents=ag.make_agent(L, B, backing.dtype, dev, lead=(R,)),
         ch_req=mk(), ch_resp=mk(), ch_hreq=mk(), ch_hresp=mk(),
-        hreq_pending=torch.zeros((R, L), dtype=torch.int8, device=dev),
+        hreq_pending=hreq,
         txn_msg=torch.zeros(L, dtype=torch.int8, device=dev),
         txn_node=torch.zeros(L, dtype=torch.int32, device=dev),
         arb_rr=torch.zeros(L, dtype=torch.int32, device=dev),
@@ -116,33 +245,39 @@ def make_engine_mn_state(backing: torch.Tensor, n_remotes: int
 
 
 class _Consts(NamedTuple):
-    """Per-(R, L, device) constants of the step, built once; never written."""
+    """Per-(lead, R, L, device) constants of the step, built once; never
+    written.  ``lead`` is ``()`` for one home and ``(H,)`` under the fold,
+    where R and L are the folded plane's (L/H lines per home)."""
 
     rids: torch.Tensor      # [R] int64
+    lines: torch.Tensor     # [L] int64
     vc4: torch.Tensor       # [4, L] int64 VC of each line, per message class
-    zero_rl: torch.Tensor   # [R, L] bool
-    zero_l: torch.Tensor    # [L] bool
-    vol_kind: torch.Tensor  # [R, L] int8, MnAbsorb.VOL_I everywhere
+    zero_rl: torch.Tensor   # [*lead, R, L] bool
+    zero_l: torch.Tensor    # [*lead, L] bool
+    vol_kind: torch.Tensor  # [*lead, R, L] int8, MnAbsorb.VOL_I everywhere
     reply_s: torch.Tensor   # [] int8 MnAbsorb.REPLY_S
     reply_i: torch.Tensor   # [] int8 MnAbsorb.REPLY_I
     zero_f: torch.Tensor    # [] float32
 
 
 @functools.lru_cache(maxsize=None)
-def _consts(R: int, L: int, device: str) -> _Consts:
+def _consts(lead: Tuple[int, ...], R: int, L: int, device: str) -> _Consts:
     def i8(v):
-        return torch.tensor(v, dtype=torch.int8, device=device)
+        return torch.tensor(int(v), dtype=torch.int8, device=device)
 
+    # VC parity follows the step's OWN line axis: the parity of the
+    # plane-local line ``l // H`` under the fold, as in the reference.
     classes = (tp.CLASS_REMOTE_REQ, tp.CLASS_HOME_RESP, tp.CLASS_HOME_REQ,
                tp.CLASS_REMOTE_RESP)
     return _Consts(
         rids=torch.arange(R, device=device),
+        lines=torch.arange(L, device=device),
         vc4=torch.stack([tp.vc_index(L, k, device) for k in classes]),
-        zero_rl=torch.zeros((R, L), dtype=torch.bool, device=device),
-        zero_l=torch.zeros(L, dtype=torch.bool, device=device),
-        vol_kind=torch.full((R, L), int(MnAbsorb.VOL_I), dtype=torch.int8,
-                            device=device),
-        reply_s=i8(int(MnAbsorb.REPLY_S)), reply_i=i8(int(MnAbsorb.REPLY_I)),
+        zero_rl=torch.zeros(lead + (R, L), dtype=torch.bool, device=device),
+        zero_l=torch.zeros(lead + (L,), dtype=torch.bool, device=device),
+        vol_kind=torch.full(lead + (R, L), int(MnAbsorb.VOL_I),
+                            dtype=torch.int8, device=device),
+        reply_s=i8(MnAbsorb.REPLY_S), reply_i=i8(MnAbsorb.REPLY_I),
         zero_f=torch.zeros((), dtype=torch.float32, device=device))
 
 
@@ -154,6 +289,13 @@ def _ready(ch: tp.Channel, delay_l: torch.Tensor) -> torch.Tensor:
 def _pop(ch: tp.Channel, mask: torch.Tensor) -> tp.Channel:
     """Free the slots in ``mask``."""
     return ch._replace(msg=ch.msg.masked_fill(mask, _NOP))
+
+
+def _pend_or(hp: torch.Tensor) -> torch.Tensor:
+    """OR of the two packed pending word planes ([..., 2, L, W] ->
+    [..., L, W]): "any HOME_DOWNGRADE_* outstanding" per (remote bit,
+    line)."""
+    return hp[..., 0, :, :] | hp[..., 1, :, :]
 
 
 def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
@@ -168,20 +310,50 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     ``tables`` come from ``protocol.device_tables`` on the state's
     device; ``op`` is the ``[R, L]`` int8 LocalOp plane, ``op_val`` its
     ``[R, L, B]`` store values, ``want_read``/``want_write``/``wval`` the
-    home-side accesses.  The step makes no host synchronisation."""
-    if hreq_shared:
-        _not_ported("the shared home-request credit pool (hreq_shared)", 8)
-    if n_homes != 1 or home_bw:
-        _not_ported("several homes (n_homes/home_bw)", 8)
+    home-side accesses.  ``hreq_shared`` ranks the fan-out submits
+    against one shared credit pool; ``n_homes``/``home_bw`` run H
+    address-interleaved homes, each parking at most ``home_bw`` new
+    transactions per step (0 = unbounded): the flat state is folded
+    into the home-major layout, stepped by ``step_folded`` and unfolded
+    again.  The state's layout (dense int8 or packed int32 planes) is
+    read from ``hreq_pending``'s dtype.  The step makes no host
+    synchronisation."""
     if emit_events:
         _not_ported("wire-event emission (emit_events)", 11)
     if home_group is not None or home_bw_t is not None:
         _not_ported("the fleet's home emulation (home_group/home_bw_t)", 12)
-    if st.hreq_pending.dtype != torch.int8:
-        _not_ported("bit-packed directory planes", 9)
+    if n_homes == 1:
+        return step_folded(tables, st, op, op_val, want_read, want_write,
+                           wval, delays, credits, hreq_shared=hreq_shared,
+                           home_bw=home_bw)
+    H = n_homes
+    new, out = step_folded(
+        tables, _fold_state_mn(st, H), _f_rl(op, H), _f_rl(op_val, H),
+        _f_l(want_read, H), _f_l(want_write, H), _f_l(wval, H), delays,
+        credits, hreq_shared=hreq_shared, home_bw=home_bw)
+    return _unfold_state_mn(new, st), StepMNOutput(
+        load_done=_u_rl(out.load_done), load_val=_u_rl(out.load_val),
+        hread_done=_u_l(out.hread_done), hread_val=_u_l(out.hread_val),
+        accepted=_u_rl(out.accepted))
 
+
+def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
+                op_val: torch.Tensor, want_read: torch.Tensor,
+                want_write: torch.Tensor, wval: torch.Tensor,
+                delays: torch.Tensor, credits: torch.Tensor,
+                hreq_shared: bool = False, home_bw: int = 0
+                ) -> Tuple[EngineMNState, StepMNOutput]:
+    """The step body over a home-major state: the flat ``[R, L]`` layout
+    of one home, or the ``[H, R, L/H]`` fold of H homes (``_fold_state_mn``;
+    the inputs folded alike), whose leading axis batches every phase.
+    The outputs keep the state's layout.  ``run_stream`` keeps a
+    multi-home state folded across its whole loop and calls this."""
+    # R/L come from the (always dense) agent plane: the directory and
+    # MSHR slabs change layout under the packed planes.
     R, L = ag.plane_shape(st.agents)
-    c = _consts(R, L, str(st.txn_msg.device))
+    packed = st.hreq_pending.dtype == torch.int32
+    lead = tuple(st.txn_msg.shape[:-1])
+    c = _consts(lead, R, L, str(st.txn_msg.device))
     rids = c.rids
     msg_count, payload_msgs = st.msg_count, st.payload_msgs
     # one gather of the per-line delays of the four classes.
@@ -201,12 +373,24 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     ch_hresp_in = ch_hresp
     ch_hresp, hr_arr = tp.deliver(ch_hresp, tp.CLASS_REMOTE_RESP, delays,
                                   delay_l=dly_hresp)
-    rep_kind = torch.where(
-        st.hreq_pending == int(MsgType.HOME_DOWNGRADE_S), c.reply_s,
-        c.reply_i)
+    if packed:
+        # plane 0 of the packed MSHR mask is "HOME_DOWNGRADE_S pending";
+        # a reply arrives only for a sent (= pending) downgrade, so the
+        # bit IS the reply's kind wherever absorb reads it.
+        rep_kind = torch.where(
+            dmn.unpack_mask(st.hreq_pending[..., 0, :, :], R), c.reply_s,
+            c.reply_i)
+    else:
+        rep_kind = torch.where(
+            st.hreq_pending == int(MsgType.HOME_DOWNGRADE_S), c.reply_s,
+            c.reply_i)
     dstate = dmn.absorb(tables, st.dir, hr_arr, rep_kind, ch_hresp_in.dirty,
                         ch_hresp_in.payload)
-    hreq_pending = st.hreq_pending.masked_fill(hr_arr, _NOP)
+    if packed:
+        hreq_pending = st.hreq_pending & \
+            ~dmn.pack_mask(hr_arr)[..., None, :, :]
+    else:
+        hreq_pending = st.hreq_pending.masked_fill(hr_arr, _NOP)
     msg_count, payload_msgs = _count(msg_count, payload_msgs, hr_arr,
                                      ch_hresp_in.msg, ch_hresp_in.dirty)
 
@@ -224,23 +408,37 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     # a line is free for a new transaction only when no downgrade round
     # trip is outstanding AND no grant response is still in flight.
     resp_in_flight = tp.any_in_flight(ch_resp)
-    pend_any = (hreq_pending != _NOP).any(dim=-2)
+    if packed:
+        pend_any = dmn.any_bits(_pend_or(hreq_pending))
+    else:
+        pend_any = (hreq_pending != _NOP).any(dim=-2)
     line_free = (st.txn_msg == _NOP) & ~pend_any & ~resp_in_flight
     home_ready = want_read | want_write
     any_req = req_ready.any(dim=-2) | home_ready
     # rotating priority: participant p ranks (p - arb_rr) mod (R+1); the
     # pointer advances past each winner, a bounded wait for every
     # participant (the home is participant R).
-    ready_all = torch.cat([req_ready, home_ready[None, :]], dim=0)
+    ready_all = torch.cat([req_ready, home_ready[..., None, :]], dim=-2)
     winner = K.arb_winner(ready_all, st.arb_rr)
     accept_line = any_req & line_free
+    if home_bw:
+        # each home parks at most ``home_bw`` NEW transactions per step
+        # (in-flight ones proceed); the priority order's origin line
+        # rotates every step, so a saturated low range cannot starve the
+        # tail.  Rank = accepted lines before this one in rotated order.
+        off = st.step_no % L
+        rolled = accept_line.index_select(-1, (c.lines + off) % L) \
+            .to(torch.int32)
+        rank = (torch.cumsum(rolled, -1, dtype=torch.int32) - rolled) \
+            .index_select(-1, (c.lines - off) % L)
+        accept_line = accept_line & (rank < home_bw)
     home_win = accept_line & (winner == R)
     arb_rr = torch.where(accept_line, (winner + 1) % (R + 1), st.arb_rr)
     win_node = torch.clamp(winner, max=R - 1)
     win_msg = dmn._take_remote(ch_req.msg, win_node).masked_fill(home_win,
                                                                   HOME_TXN)
-    pop_req = (accept_line & ~home_win)[None, :] & \
-        (rids[:, None] == winner[None, :])
+    pop_req = (accept_line & ~home_win)[..., None, :] & \
+        (rids[:, None] == winner[..., None, :])
     ch_req = _pop(ch_req, pop_vol | (pop_req & req_ready))
     txn_msg = torch.where(accept_line, win_msg, st.txn_msg)
     txn_node = torch.where(accept_line, winner, st.txn_node)
@@ -257,18 +455,46 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     req_view_now = dmn.view_of(dstate, node_c)
     doomed = active_txn & (txn_msg == int(MsgType.REQ_UPGRADE)) & \
         (req_view_now != int(RemoteView.S))
-    needed_r = dmn.needed_downgrades(
-        dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c, rids)
-    # a parked HOME transaction fans out through the SAME machinery.
-    needed_h = dmn.home_needed_downgrades(
-        dstate, want_read & is_home_txn, want_write & is_home_txn)
-    needed = torch.where(is_home_txn[None, :], needed_h, needed_r)
-    send_h = (needed != _NOP) & (hreq_pending == _NOP)
+    if packed:
+        # recall (HD_S) / invalidate (HD_I) targets as word planes, then
+        # widened to the dense [R, L] lane mask the transport submit
+        # takes.  The planes are disjoint per line, so the HD_S-first
+        # combine matches the dense expression.
+        ns_w, ni_w = dmn.needed_words(
+            dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c)
+        nsh_w, nih_w = dmn.home_needed_words(
+            dstate, want_read & is_home_txn, want_write & is_home_txn)
+        iht = is_home_txn[..., None]
+        need_s_w = torch.where(iht, nsh_w, ns_w)
+        need_i_w = torch.where(iht, nih_w, ni_w)
+        needed = (dmn.unpack_mask(need_i_w, R).to(torch.int8)
+                  * int(MsgType.HOME_DOWNGRADE_I)).masked_fill(
+            dmn.unpack_mask(need_s_w, R), int(MsgType.HOME_DOWNGRADE_S))
+        send_h = (needed != _NOP) & \
+            ~dmn.unpack_mask(_pend_or(hreq_pending), R)
+    else:
+        needed_r = dmn.needed_downgrades(
+            dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c,
+            rids)
+        # a parked HOME transaction fans out through the SAME machinery.
+        needed_h = dmn.home_needed_downgrades(
+            dstate, want_read & is_home_txn, want_write & is_home_txn)
+        needed = torch.where(is_home_txn[..., None, :], needed_h, needed_r)
+        send_h = (needed != _NOP) & (hreq_pending == _NOP)
     # home downgrades carry no data: a zero payload, broadcast (a 0-dim
     # tensor takes the channel's dtype under type promotion).
     ch_hreq, acc_h = tp.submit(ch_hreq, tp.CLASS_HOME_REQ, send_h, needed,
-                               c.zero_rl, c.zero_f, credits)
-    hreq_pending = torch.where(acc_h, needed, hreq_pending)
+                               c.zero_rl, c.zero_f, credits,
+                               shared=hreq_shared)
+    if packed:
+        # acc_h lies inside send_h, so on pending-free lanes, and each
+        # accepted lane sits in exactly one plane: OR-in is the store.
+        acc_w = dmn.pack_mask(acc_h)
+        hreq_pending = torch.stack(
+            [hreq_pending[..., 0, :, :] | (acc_w & need_s_w),
+             hreq_pending[..., 1, :, :] | (acc_w & need_i_w)], dim=-3)
+    else:
+        hreq_pending = torch.where(acc_h, needed, hreq_pending)
 
     # ---- 6. grant parked requests whose preconditions now hold -----------
     in_flight_vol = ((ch_req.msg == _VOL_I) | (ch_req.msg == _VOL_S)
@@ -276,8 +502,14 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     in_flight_h = tp.any_in_flight(ch_hreq) | tp.any_in_flight(ch_hresp)
     # `needed` must be EMPTY, not merely pending-free: a fan-out refused
     # for credit leaves the sharer's view intact.
-    complete = active_txn & ~(needed != _NOP).any(dim=-2) & \
-        ~(hreq_pending != _NOP).any(dim=-2) & ~in_flight_vol & ~in_flight_h
+    if packed:
+        complete = active_txn & ~dmn.any_bits(need_s_w | need_i_w) & \
+            ~dmn.any_bits(_pend_or(hreq_pending)) & ~in_flight_vol & \
+            ~in_flight_h
+    else:
+        complete = active_txn & ~(needed != _NOP).any(dim=-2) & \
+            ~(hreq_pending != _NOP).any(dim=-2) & ~in_flight_vol & \
+            ~in_flight_h
     complete_r = complete & ~is_home_txn
     dstate, resp, resp_pay = dmn.grant(tables, dstate, complete_r, txn_msg,
                                        node_c, rids)
@@ -290,9 +522,11 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     want_read2 = want_read & ~complete_h
     want_write2 = want_write & ~complete_h
     txn_msg = txn_msg.masked_fill(complete, _NOP)
-    send_resp = (rids[:, None] == txn_node[None, :]) & (resp != _NOP)[None, :]
+    send_resp = (rids[:, None] == txn_node[..., None, :]) & \
+        (resp != _NOP)[..., None, :]
     ch_resp, _ = tp.submit(ch_resp, tp.CLASS_HOME_RESP, send_resp,
-                           resp[None, :], c.zero_rl, resp_pay[None], credits,
+                           resp[..., None, :], c.zero_rl,
+                           resp_pay[..., None, :, :], credits,
                            unbounded=True)
     carries = (resp == int(MsgType.RESP_DATA)) | \
         (resp == int(MsgType.RESP_DATA_DIRTY))
@@ -322,7 +556,11 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
                             unbounded=True)
 
     # ---- 9. remotes submit local ops (fresh + parked retries) ------------
-    locked = (hreq_pending != _NOP) | (ch_hreq.msg != _NOP)
+    if packed:
+        locked = dmn.unpack_mask(_pend_or(hreq_pending), R) | \
+            (ch_hreq.msg != _NOP)
+    else:
+        locked = (hreq_pending != _NOP) | (ch_hreq.msg != _NOP)
     parked = (agents.pending_op != int(LocalOp.NOP)) & \
         (agents.pending_req == _NOP)
     eff_op = torch.where(parked, agents.pending_op, op)
@@ -360,30 +598,36 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
         msg_count=msg_count, payload_msgs=payload_msgs,
         step_no=st.step_no + 1,
     )
-    out = StepMNOutput(load_done, load_val, hread_done, hread_val,
-                       accepted & ~parked)
-    return new, out
+    return new, StepMNOutput(load_done, load_val, hread_done, hread_val,
+                             accepted & ~parked)
 
 
 def busy_flag_mn(st: EngineMNState) -> torch.Tensor:
     """[] bool tensor: any transaction, channel slot or home want is
-    still in flight (stays on the device; no host synchronisation)."""
+    still in flight (stays on the device; no host synchronisation).
+    Works on both layouts of ``hreq_pending``."""
     # the [R, L] int8 code planes are non-zero exactly where busy, so one
     # OR of them carries every per-lane test.
-    lanes = (st.agents.pending_req | st.agents.pending_op | st.hreq_pending
-             | st.ch_req.msg | st.ch_resp.msg | st.ch_hreq.msg
-             | st.ch_hresp.msg)
-    return (lanes.any() | st.txn_msg.any() | st.want_read.any()
-            | st.want_write.any())
+    lanes = (st.agents.pending_req | st.agents.pending_op | st.ch_req.msg
+             | st.ch_resp.msg | st.ch_hreq.msg | st.ch_hresp.msg)
+    return (lanes.any() | st.hreq_pending.any() | st.txn_msg.any()
+            | st.want_read.any() | st.want_write.any())
 
 
 class EngineMN:
-    """Binds a protocol subset, delays, credits and a device to the step.
+    """Binds a protocol subset, delays, credits, a home plan, a directory
+    layout and a device to the step.
 
     ``moesi`` picks the full protocol (``True`` → FULL_MOESI, ``False`` →
-    ENHANCED_MESI) unless an explicit ``subset`` is given.  ``device``
-    defaults to ``"cuda"``; with no GPU present that raises — pass
-    ``device="cpu"`` for the plain path."""
+    ENHANCED_MESI) unless an explicit ``subset`` is given.
+    ``shared_credits`` ranks the home's fan-out against one credit pool
+    across all R rows; ``n_homes`` interleaves line ownership across that
+    many homes (it must divide the line count) and ``home_bw`` caps each
+    home's new transactions per step (0 = unbounded); ``packed`` keeps
+    the directory view and the pending home-downgrade mask as
+    ``[2, L, ceil(R/32)]`` int32 word planes.  ``device`` defaults to
+    ``"cuda"``; with no GPU present that raises — pass ``device="cpu"``
+    for the plain path."""
 
     def __init__(self, backing, n_remotes: int, moesi: bool = True,
                  delays: Optional[np.ndarray] = None,
@@ -395,23 +639,25 @@ class EngineMN:
         if not 1 <= n_remotes <= MAX_REMOTES:
             raise ValueError(f"EWF v2 carries 6-bit node ids "
                              f"(n_remotes={n_remotes})")
-        if shared_credits:
-            _not_ported("the shared home-request credit pool", 8)
-        if n_homes != 1 or home_bw:
-            _not_ported("several homes (n_homes/home_bw)", 8)
-        if packed:
-            _not_ported("bit-packed directory planes", 9)
         self.device = resolve_device(device)
         self.n_remotes = n_remotes
         self.subset = subset if subset is not None else \
             (FULL_MOESI if moesi else ENHANCED_MESI)
         self.moesi = self.subset.tables.moesi
         self.tables = device_tables(self.subset, self.device)
-        self.shared_credits = False
-        self.n_homes = 1
-        self.home_bw = 0
         self._backing = torch.as_tensor(backing).to(self.device)
         self.n_lines, self.block = self._backing.shape
+        if n_homes < 1 or self.n_lines % n_homes:
+            raise ValueError(
+                f"n_homes={n_homes} must divide n_lines={self.n_lines} "
+                f"(the address-interleaved fold reshapes the line axis)")
+        if home_bw < 0:
+            raise ValueError(f"home_bw={home_bw} must be >= 0 (0 = "
+                             f"unbounded acceptance)")
+        self.shared_credits = bool(shared_credits)
+        self.n_homes = n_homes
+        self.home_bw = home_bw
+        self.packed = bool(packed)
         self.delays = torch.as_tensor(
             delays if delays is not None else tp.DEFAULT_DELAYS,
             dtype=torch.int32).to(self.device)
@@ -437,7 +683,8 @@ class EngineMN:
 
     def init(self) -> EngineMNState:
         """A quiescent state over a fresh copy of the backing data."""
-        return make_engine_mn_state(self._backing.clone(), self.n_remotes)
+        return make_engine_mn_state(self._backing.clone(), self.n_remotes,
+                                    packed=self.packed)
 
     def step(self, st: EngineMNState, op=None, op_val=None,
              want_read=None, want_write=None, wval=None
@@ -455,7 +702,9 @@ class EngineMN:
         if wval is None:
             wval = torch.zeros((L, B), dtype=dt, device=dev)
         return step_mn(self.tables, st, op, op_val, want_read, want_write,
-                       wval, self.delays, self.credits)
+                       wval, self.delays, self.credits,
+                       hreq_shared=self.shared_credits,
+                       n_homes=self.n_homes, home_bw=self.home_bw)
 
     def quiescent(self, st: EngineMNState) -> bool:
         return not bool(busy_flag_mn(st))
@@ -471,5 +720,6 @@ class EngineMN:
         if strict and not self.quiescent(st):
             raise RuntimeError(
                 f"EngineMN.drain: engine still busy after {max_steps} "
-                f"steps (R={self.n_remotes}, L={self.n_lines})")
+                f"steps (R={self.n_remotes}, L={self.n_lines}, "
+                f"H={self.n_homes})")
         return st

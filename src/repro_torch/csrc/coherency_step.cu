@@ -1,7 +1,7 @@
 // Coherency-step kernels for Hopper (sm_90a): the per-step inner plane of
 // the N-remote engine (repro_torch.core.engine_mn, traffic.counters).
 //
-// Four integer kernels with a plain C interface, built by nvcc into a
+// Six integer kernels with a plain C interface, built by nvcc into a
 // shared library and bound with ctypes (repro_torch/kernels/build.py,
 // repro_torch/kernels/coherency_step.py).  Every entry point launches on
 // the caller's stream, allocates nothing, does not synchronise, and
@@ -11,10 +11,11 @@
 // Those were shaped for the TPU's matrix unit (a cumsum as two integer
 // matmuls against iota masks, an argmin as encode/min/decode); here they
 // are what the planes are: scans, per-line selects and histograms over
-// small integer planes.  All four move a few bytes per element and do a
-// handful of integer operations on each, so each is bound by memory
-// traffic — and at the engine's per-step sizes (at most [64, 4096]) by
-// launch latency first.  The designs below keep every input read once
+// small integer planes, and bitwise passes over the packed directory
+// words.  All six move a few bytes per element and do a handful of
+// integer operations on each, so each is bound by memory traffic — and
+// at the engine's per-step sizes (at most [64, 4096]) by launch latency
+// first.  The designs below keep every input read once
 // and use shared memory for the partial results.
 
 #include <cuda_runtime.h>
@@ -234,6 +235,61 @@ __global__ void lat_hist_kernel(const int32_t* __restrict__ lat,
     out[(size_t)row * kLatBins + threadIdx.x] = hist[threadIdx.x];
 }
 
+// --------------------------------------------------------------------------
+// packed_any (replaces packed_any, coherency_step.py:257)
+//
+// out[l] = any bit set in the W int32 words of line l (the reference's
+// popcount-over-words > 0; an OR of the words gives the same verdict).
+// The words are the reference's uint32 bits held as int32.
+//
+// One thread per line: W <= 2 words at R <= 64, so the W loads of a
+// thread are one 4- or 8-byte read, and neighbouring threads read
+// neighbouring lines.  Bound: 4W bytes in, 1 byte out per line.
+// --------------------------------------------------------------------------
+
+__global__ void packed_any_kernel(const int32_t* __restrict__ words,
+                                  bool* __restrict__ out, int64_t n, int W) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int32_t* w = words + i * W;
+  int32_t acc = 0;
+  for (int k = 0; k < W; ++k) acc |= w[k];
+  out[i] = acc != 0;
+}
+
+// --------------------------------------------------------------------------
+// packed_fanout (replaces packed_fanout, coherency_step.py:298)
+//
+// hot     = the one-bit word of remote node[l] in word w (zero elsewhere)
+// rec[l,w] = shared_req[l] ? excl[l,w] & ~hot : 0   (HOME_DOWNGRADE_S)
+// inv[l,w] = excl_req[l]   ? pres[l,w] & ~hot : 0   (HOME_DOWNGRADE_I)
+//
+// One thread per (line, word), so the word planes are read and written
+// coalesced.  The hot bit is built by shifting an unsigned 1 (a signed
+// 1 << 31 would overflow) and then read as int32; node >> 5 and node & 31
+// are the reference's floor division and modulo by 32.  Bound: 8 bytes
+// in and 8 out per word, 6 bytes in per line.
+// --------------------------------------------------------------------------
+
+__global__ void packed_fanout_kernel(const int32_t* __restrict__ pres,
+                                     const int32_t* __restrict__ excl,
+                                     const int32_t* __restrict__ node,
+                                     const bool* __restrict__ shared_req,
+                                     const bool* __restrict__ excl_req,
+                                     int32_t* __restrict__ rec,
+                                     int32_t* __restrict__ inv,
+                                     int64_t n_lines, int W) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_lines * W) return;
+  const int64_t l = i / W;
+  const int w = (int)(i - l * W);
+  const int nd = node[l];
+  const unsigned hot_u = (w == (nd >> 5)) ? (1u << (nd & 31)) : 0u;
+  const int32_t keep = ~(int32_t)hot_u;
+  rec[i] = shared_req[l] ? (excl[i] & keep) : 0;
+  inv[i] = excl_req[l] ? (pres[i] & keep) : 0;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -281,6 +337,35 @@ int coh_lat_hist(const void* lat, const void* retired, void* out, int rows,
   if (rows > 0)
     lat_hist_kernel<<<rows, 256, 0, (cudaStream_t)stream>>>(
         (const int32_t*)lat, (const bool*)retired, (int32_t*)out, L);
+  return (int)cudaGetLastError();
+}
+
+int coh_packed_any(const void* words, void* out, long long n, int W,
+                   void* stream) {
+  if (n > 0 && W > 0) {
+    const int threads = 256;
+    const long long blocks = (n + threads - 1) / threads;
+    packed_any_kernel<<<(unsigned)blocks, threads, 0,
+                        (cudaStream_t)stream>>>(
+        (const int32_t*)words, (bool*)out, (int64_t)n, W);
+  }
+  return (int)cudaGetLastError();
+}
+
+int coh_packed_fanout(const void* pres, const void* excl, const void* node,
+                      const void* shared_req, const void* excl_req,
+                      void* rec, void* inv, long long n_lines, int W,
+                      void* stream) {
+  const long long total = n_lines * (long long)W;
+  if (total > 0) {
+    const int threads = 256;
+    const long long blocks = (total + threads - 1) / threads;
+    packed_fanout_kernel<<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(
+        (const int32_t*)pres, (const int32_t*)excl, (const int32_t*)node,
+        (const bool*)shared_req, (const bool*)excl_req, (int32_t*)rec,
+        (int32_t*)inv, (int64_t)n_lines, W);
+  }
   return (int)cudaGetLastError();
 }
 

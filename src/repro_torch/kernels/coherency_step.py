@@ -1,4 +1,4 @@
-"""The coherency step's four kernels: wrappers over ``csrc/coherency_step.cu``.
+"""The coherency step's six kernels: wrappers over ``csrc/coherency_step.cu``.
 
 Each wrapper replaces one Pallas kernel of ``repro.kernels.coherency_step``:
 
@@ -7,7 +7,11 @@ Each wrapper replaces one Pallas kernel of ``repro.kernels.coherency_step``:
   (``core.engine_mn.step_mn`` phase 4);
 * ``count_fold``  — the delivered-message counter fold (``core.engine._count``);
 * ``lat_hist``    — the retirement-latency histogram
-  (``traffic.counters.update_counters``).
+  (``traffic.counters.update_counters``);
+* ``packed_any``  — any bit set per line of a packed word plane
+  (``core.directory_mn.any_bits``);
+* ``packed_fanout`` — the packed fan-out target words
+  (``core.directory_mn.needed_words``).
 
 Dispatch is by the device of the tensors given: on the CPU a wrapper runs
 its plain version (``kernels.ref``); on a CUDA device it checks device,
@@ -33,7 +37,8 @@ LAT_EDGES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 #: kernel launches per wrapper since the last ``reset_launches()``.
 launches: Dict[str, int] = {"credit_rank": 0, "arb_winner": 0,
-                            "count_fold": 0, "lat_hist": 0}
+                            "count_fold": 0, "lat_hist": 0,
+                            "packed_any": 0, "packed_fanout": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +47,9 @@ _SIGS = {
     "coh_arb_winner": (_P, _P, _P, _I, _I, _I, _P),
     "coh_count_fold": (_P, _P, _P, _P, ctypes.c_longlong, _P),
     "coh_lat_hist": (_P, _P, _P, _I, _I, _P),
+    "coh_packed_any": (_P, _P, ctypes.c_longlong, _I, _P),
+    "coh_packed_fanout": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                          _I, _P),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -161,3 +169,48 @@ def lat_hist(lat: torch.Tensor, retired: torch.Tensor) -> torch.Tensor:
     _launch("lat_hist", "coh_lat_hist", lat.data_ptr(), retired.data_ptr(),
             out.data_ptr(), R, L)
     return out
+
+
+def packed_any(words: torch.Tensor) -> torch.Tensor:
+    """[..., L] bool: any bit set in the line's ``[..., L, W]`` int32
+    words."""
+    if words.device.type == "cpu":
+        return ref.packed_any_ref(words)
+    _check("packed_any", words, torch.int32, words.device)
+    W = words.shape[-1]
+    out = torch.empty(words.shape[:-1], dtype=torch.bool,
+                      device=words.device)
+    _launch("packed_any", "coh_packed_any", words.data_ptr(),
+            out.data_ptr(), out.numel(), W)
+    return out
+
+
+def packed_fanout(pres: torch.Tensor, excl: torch.Tensor,
+                  node: torch.Tensor, shared_req: torch.Tensor,
+                  excl_req: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(recall_w, inval_w) ``[..., L, W]`` int32: ``excl & ~hot(node)``
+    on the lines of ``shared_req`` and ``pres & ~hot(node)`` on those of
+    ``excl_req``, zero elsewhere."""
+    if pres.device.type == "cpu":
+        return ref.packed_fanout_ref(pres, excl, node, shared_req, excl_req)
+    lines = tuple(pres.shape[:-1])
+    if tuple(excl.shape) != tuple(pres.shape) or not (
+            tuple(node.shape) == tuple(shared_req.shape)
+            == tuple(excl_req.shape) == lines):
+        raise ValueError(f"packed_fanout: word planes {tuple(pres.shape)} "
+                         f"and {tuple(excl.shape)} need per-line inputs "
+                         f"of shape {lines}")
+    dev = pres.device
+    _check("packed_fanout", pres, torch.int32, dev)
+    _check("packed_fanout", excl, torch.int32, dev)
+    _check("packed_fanout", node, torch.int32, dev)
+    _check("packed_fanout", shared_req, torch.bool, dev)
+    _check("packed_fanout", excl_req, torch.bool, dev)
+    recall = torch.empty_like(pres)
+    inval = torch.empty_like(pres)
+    _launch("packed_fanout", "coh_packed_fanout", pres.data_ptr(),
+            excl.data_ptr(), node.data_ptr(), shared_req.data_ptr(),
+            excl_req.data_ptr(), recall.data_ptr(), inval.data_ptr(),
+            node.numel(), pres.shape[-1])
+    return recall, inval

@@ -4,14 +4,48 @@ Each function mirrors its twin in ``repro.kernels.ref`` (the engine's
 own expressions there) on tensors.  The wrappers in
 ``kernels.coherency_step`` run these for tensors on the CPU — the path
 the tests hold against ``repro`` — and ``chip_smoke.py`` compares every
-CUDA kernel with its plain version on the card.  All four are integer
+CUDA kernel with its plain version on the card.  All six are integer
 arithmetic, so the contract is bit-exact equality.
+
+Packed directory words are int32 tensors holding the reference's uint32
+bits (bit 31 is the sign bit): torch has no ``>>`` or ``~`` for uint32
+on the CPU and no popcount, and every packed operation is a bitwise
+AND/OR/NOT or a compare with zero, which the sign does not change.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
+
+
+#: ``_BITS[s]`` is the int32 word with bit ``s`` set; ``1 << 31`` is written
+#: as its two's-complement value, where a shift would overflow.
+_BITS = [1 << s for s in range(31)] + [-(1 << 31)]
+
+
+@functools.lru_cache(maxsize=None)
+def bit_table(device: str) -> torch.Tensor:
+    """[32] int32: the one-bit words, indexed by bit position (built once
+    per device: a host-to-card copy inside the step loop would make the
+    host wait)."""
+    return torch.tensor(_BITS, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def arange_cached(n: int, device: str, dtype=torch.int64) -> torch.Tensor:
+    """``torch.arange(n)`` on ``device``, built once (read-only)."""
+    return torch.arange(n, dtype=dtype, device=device)
+
+
+def node_hot(node: torch.Tensor, W: int) -> torch.Tensor:
+    """``[..., L, W]`` int32 one-hot word mask of per-line remote id
+    ``node`` (``[..., L]``, non-negative)."""
+    node = node.long()
+    dev = str(node.device)
+    sel = arange_cached(W, dev) == (node // 32)[..., None]
+    return torch.where(sel, bit_table(dev)[node % 32][..., None], 0)
 
 
 def _parity_odd(L: int, device) -> torch.Tensor:
@@ -75,3 +109,29 @@ def lat_hist_ref(lat: torch.Tensor, retired: torch.Tensor,
     bucket = torch.bucketize(lat.to(torch.int32), e, right=True)
     onehot = bucket[..., None] == torch.arange(nb, device=lat.device)
     return (onehot & retired[..., None]).sum(1, dtype=torch.int32)
+
+
+def packed_any_ref(words: torch.Tensor) -> torch.Tensor:
+    """[..., L] bool — any bit set per line of a packed ``[..., L, W]``
+    int32 plane (``directory_mn.any_bits``: the packed ``no_sharers`` and
+    pending-home-downgrade reductions)."""
+    return (words != 0).any(dim=-1)
+
+
+def packed_fanout_ref(pres: torch.Tensor, excl: torch.Tensor,
+                      node: torch.Tensor, shared_req: torch.Tensor,
+                      excl_req: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed fan-out target sets (``directory_mn.needed_words``).
+
+    ``pres``/``excl`` are the ``[..., L, W]`` presence/exclusive word
+    planes, ``node`` the per-line requester id, ``shared_req`` /
+    ``excl_req`` the per-line request-kind masks.  Returns ``(recall_w,
+    inval_w)``: recall (HOME_DOWNGRADE_S) goes to the EM holders other
+    than the requester on a shared read, invalidate (HOME_DOWNGRADE_I)
+    to every non-I holder other than the requester on an exclusive or
+    upgrade request."""
+    hot = node_hot(node, pres.shape[-1])
+    recall_w = torch.where(shared_req[..., None], excl & ~hot, 0)
+    inval_w = torch.where(excl_req[..., None], pres & ~hot, 0)
+    return recall_w, inval_w

@@ -75,7 +75,8 @@ def update_counters(ctr: Counters, st, *, retired: torch.Tensor,
                     step_active: torch.Tensor) -> Counters:
     """Fold one engine step's events into the counters (on the device).
 
-    ``st`` is the post-step ``EngineMNState``; ``retired``/``lat``/
+    ``st`` is the post-step ``EngineMNState``, flat or in the home-major
+    fold (only its channel occupancy is read); ``retired``/``lat``/
     ``outstanding`` are ``[R, L]``, ``head_wait`` ``[R]`` and
     ``step_active`` a [] bool tensor.  The latency histogram is the
     ``lat_hist`` kernel (its plain version on the CPU)."""
@@ -86,7 +87,7 @@ def update_counters(ctr: Counters, st, *, retired: torch.Tensor,
     max_wait = torch.maximum(ctr.max_wait, torch.maximum(live, head_wait))
     msgs = torch.stack([st.ch_req.msg, st.ch_resp.msg, st.ch_hreq.msg,
                         st.ch_hresp.msg])
-    occ = (msgs != int(MsgType.NOP)).sum((1, 2), dtype=torch.int32)
+    occ = (msgs != int(MsgType.NOP)).flatten(1).sum(1, dtype=torch.int32)
     mshr = outstanding.sum(dtype=torch.int32)
     return Counters(
         lat_hist=hist,

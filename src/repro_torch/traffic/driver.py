@@ -15,7 +15,13 @@ transactions are still in flight.
   budget here.  The loop makes no host synchronisation: issue,
   bookkeeping, the retirement trace and the counters are all tensor
   operations queued on the device, and the host reads the results once,
-  after the last step.
+  after the last step;
+* with several homes the engine state stays in the home-major
+  ``[H, R, L/H]`` fold for the whole loop (``engine_mn.step_folded``):
+  each step folds only its op planes and unfolds only the planes the
+  driver reads (``accepted`` and the MSHR-clear mask), and the final
+  state is unfolded once — the same result as ``step_mn`` folding and
+  unfolding the whole state every step.
 
 An accepted op retires once the agent's MSHR for its line is clear again
 (hits the same step, misses when the grant lands).  The retirement TRACE
@@ -29,7 +35,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.engine_mn import EngineMN, EngineMNState, busy_flag_mn, step_mn
+from ..core.engine_mn import (EngineMN, EngineMNState, _f_l, _f_rl,
+                              _fold_state_mn, _u_rl, _unfold_state_mn,
+                              busy_flag_mn, step_folded)
 from ..core.messages import MsgType
 from ..core.protocol import LocalOp
 from .config import StreamConfig, WorkloadSpec
@@ -75,16 +83,20 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
             f"workload op stream outside subset '{engine.subset.name}' "
             f"guarantee (allowed ops: "
             f"{sorted(engine.subset.allowed_ops(engine.n_remotes))})")
-    T, R = op_np.shape
-    if R != engine.n_remotes:
-        raise ValueError(f"workload has {R} remotes, engine "
+    T = op_np.shape[0]
+    if op_np.shape[1] != engine.n_remotes:
+        raise ValueError(f"workload has {op_np.shape[1]} remotes, engine "
                          f"{engine.n_remotes}")
-    steps = cfg.steps or default_steps(T, R)
     W = int(cfg.width)
-    L, B = engine.n_lines, engine.block
     dev = engine.device
 
     st0 = engine.init() if st is None else st
+    H = engine.n_homes
+    # the agent plane is dense under both directory layouts (a packed
+    # state carries [2, L, W] int32 words instead of [R, L] int8).
+    R, L = st0.agents.remote_state.shape
+    B = st0.dir.backing.shape[1]
+    steps = cfg.steps or default_steps(T, R)
     base_msgs = st0.msg_count.cpu().numpy().astype(np.int64)
     base_payload = int(st0.payload_msgs)
 
@@ -100,7 +112,15 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
     zb = torch.zeros(L, dtype=torch.bool, device=dev)
     zwv = torch.zeros((L, B), dtype=st0.dir.backing.dtype, device=dev)
 
-    stt = st0
+    def fold(x):
+        return _f_rl(x, H) if H > 1 else x
+
+    def unfold(x):
+        return _u_rl(x) if H > 1 else x
+
+    if H > 1:
+        zb, zwv = _f_l(zb, H), _f_l(zwv, H)
+    stt = _fold_state_mn(st0, H) if H > 1 else st0
     cursor = torch.zeros(R, dtype=torch.int64, device=dev)
     issued = torch.zeros((R, W), dtype=torch.bool, device=dev)
     slot_born = torch.zeros((R, W), dtype=torch.int32, device=dev)
@@ -143,15 +163,17 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         born_d = plane(tgt, slot_born, torch.int32)
 
         # ---- one engine step under sustained traffic --------------------
-        st2, out = step_mn(engine.tables, stt, opd, vald, zb, zb, zwv,
-                           engine.delays, engine.credits)
+        st2, out = step_folded(engine.tables, stt, fold(opd), fold(vald),
+                               zb, zb, zwv, engine.delays, engine.credits,
+                               hreq_shared=engine.shared_credits,
+                               home_bw=engine.home_bw)
 
         # ---- adopt newly accepted ops, detect retirements ---------------
-        newly = out.accepted
+        newly = unfold(out.accepted)
         outstanding = outstanding | newly
         born = torch.where(newly, born_d, born)
-        mshr_free = (st2.agents.pending_op == int(LocalOp.NOP)) & \
-            (st2.agents.pending_req == int(MsgType.NOP))
+        mshr_free = unfold((st2.agents.pending_op == int(LocalOp.NOP))
+                           & (st2.agents.pending_req == int(MsgType.NOP)))
         retired = outstanding & mshr_free
         outstanding = outstanding & ~retired
 
@@ -184,6 +206,8 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         stt, cursor = st2, cursor + shift
         issued, slot_born = issued2, slot_born2
 
+    if H > 1:
+        stt = _unfold_state_mn(stt, st0)
     completed = bool((cursor >= T).all() & ~outstanding.any()
                      & ~busy_flag_mn(stt))
     trace = None

@@ -133,18 +133,6 @@ def test_drain_and_quiescence():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(shared_credits=True), "item 8"),
-    (dict(n_homes=2), "item 8"),
-    (dict(home_bw=1), "item 8"),
-    (dict(packed=True), "item 9")])
-def test_unported_engine_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        EngineMN(np.zeros((8, 2), np.float32), n_remotes=2, device="cpu",
-                 **kwargs)
-
-
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(hreq_shared=True), "item 8"), (dict(n_homes=2), "item 8"),
     (dict(emit_events=True), "item 11"), (dict(home_group=2), "item 12")])
 def test_unported_step_options_raise(kwargs, item):
     te = EngineMN(np.zeros((8, 2), np.float32), n_remotes=2, device="cpu")

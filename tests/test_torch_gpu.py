@@ -81,6 +81,42 @@ def test_lat_hist_kernel(cuda, R, L):
     assert torch.equal(got, ref.lat_hist_ref(lat, ret, K.LAT_EDGES))
 
 
+def _words(rng, shape):
+    w = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+    w = np.where(rng.random(shape) < 0.5, w, 0).astype(np.int32)
+    edge = [-2 ** 31, -1, 0, 1]          # bit 31, all ones, none, bit 0
+    flat = w.reshape(-1)
+    flat[:len(edge)] = edge[:flat.size]
+    return torch.as_tensor(w)
+
+
+@pytest.mark.parametrize("shape", [(16, 1), (8, 2), (3, 16, 2), (64, 3),
+                                   (2, 2048, 2), (4096, 1), (1, 1)])
+def test_packed_any_kernel(cuda, shape):
+    w = _words(np.random.default_rng(SEED), shape)
+    got = K.packed_any(w.to(cuda)).cpu()
+    assert torch.equal(got, ref.packed_any_ref(w))
+
+
+@pytest.mark.parametrize("lead,L,W", [((), 16, 1), ((), 8, 2),
+                                      ((2,), 2048, 2), ((2,), 7, 3),
+                                      ((), 1, 1)])
+def test_packed_fanout_kernel(cuda, lead, L, W):
+    rng = np.random.default_rng(SEED + L)
+    pres = _words(rng, lead + (L, W))
+    excl = pres & _words(rng, lead + (L, W))
+    node = rng.integers(0, 32 * W, lead + (L,)).astype(np.int32)
+    edge = [0, 31, 32 * W - 1, 32 * (W - 1)]
+    node.reshape(-1)[:len(edge)] = edge[:node.size]
+    node = torch.as_tensor(node)
+    sh = _bools(rng, lead + (L,), 0.5)
+    ex = _bools(rng, lead + (L,), 0.5) & ~sh
+    got = K.packed_fanout(pres.to(cuda), excl.to(cuda), node.to(cuda),
+                          sh.to(cuda), ex.to(cuda))
+    for g, w in zip(got, ref.packed_fanout_ref(pres, excl, node, sh, ex)):
+        assert torch.equal(g.cpu(), w)
+
+
 def test_kernels_refuse_wrong_inputs(cuda):
     b = torch.zeros((4, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(TypeError):
@@ -91,6 +127,13 @@ def test_kernels_refuse_wrong_inputs(cuda):
         K.arb_winner(b, torch.zeros(7, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         K.count_fold(b, b.to(torch.int8).cpu(), b)
+    w = torch.zeros((4, 8, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        K.packed_any(w.to(torch.int64))
+    with pytest.raises(ValueError):
+        K.packed_any(w.transpose(0, 1))        # not contiguous
+    with pytest.raises(ValueError):
+        K.packed_fanout(w, w, b[:, :7].to(torch.int32), b[:, :7], b[:, :7])
 
 
 @pytest.mark.parametrize("moesi", [True, False])
@@ -100,7 +143,10 @@ def test_stream_card_equals_cpu(cuda, moesi):
     K.reset_launches()
     gpu = run_stream(EngineConfig(remotes=8, lines=16, block=4,
                                   moesi=moesi).build(cuda), cfg)
-    assert all(n > 0 for n in K.launches.values())
+    # the dense path launches the four dense kernels, not the packed two.
+    assert all(K.launches[n] > 0 for n in ("credit_rank", "arb_winner",
+                                           "count_fold", "lat_hist"))
+    assert K.launches["packed_any"] == K.launches["packed_fanout"] == 0
     cpu = run_stream(EngineConfig(remotes=8, lines=16, block=4,
                                   moesi=moesi).build("cpu"), cfg)
     np.testing.assert_array_equal(gpu.msg_count, cpu.msg_count)
@@ -112,8 +158,51 @@ def test_stream_card_equals_cpu(cuda, moesi):
     validate_run(gpu, moesi=moesi)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(remotes=33, homes=2, packed=True, moesi=False),
+    dict(remotes=64, homes=2, packed=True),
+    dict(remotes=8, homes=2, home_bw=1),
+    dict(remotes=8, shared_credits=True, credits=4)],
+    ids=["packed_r33_h2", "packed_r64_h2", "h2_home_bw1", "shared"])
+def test_option_stream_card_equals_cpu(cuda, kw):
+    cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=16, seed=4),
+                       width=2, collect_trace=True)
+    K.reset_launches()
+    gpu = run_stream(EngineConfig(lines=16, block=4, **kw).build(cuda), cfg)
+    if kw.get("packed"):
+        assert K.launches["packed_any"] > 0
+        assert K.launches["packed_fanout"] > 0
+    cpu = run_stream(EngineConfig(lines=16, block=4, **kw).build("cpu"), cfg)
+    np.testing.assert_array_equal(gpu.msg_count, cpu.msg_count)
+    assert gpu.payload_msgs == cpu.payload_msgs
+    np.testing.assert_array_equal(gpu.trace.retire_step,
+                                  cpu.trace.retire_step)
+    for a, b in zip(gpu.counters, cpu.counters):
+        assert torch.equal(a, b)
+    validate_run(gpu, moesi=kw.get("moesi", True),
+                 n_homes=kw.get("homes", 1))
+
+
 def test_step_loop_makes_no_host_sync(cuda):
     eng = EngineConfig(remotes=8, lines=64, block=4).build(cuda)
+    counts = []
+    for steps in (2, 5, 15):    # the first run builds the cached constants
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_stream(eng, StreamConfig(
+                    workload=WorkloadSpec("zipfian", ops=16), width=2,
+                    steps=steps, collect_trace=True))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("synchroniz" in str(w.message) for w in caught))
+    assert counts[2] > 0 and counts[1] == counts[2]
+
+
+def test_packed_two_home_step_loop_makes_no_host_sync(cuda):
+    eng = EngineConfig(remotes=64, lines=64, block=4, homes=2,
+                       packed=True, home_bw=2).build(cuda)
     counts = []
     for steps in (2, 5, 15):    # the first run builds the cached constants
         with warnings.catch_warnings(record=True) as caught:

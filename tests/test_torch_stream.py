@@ -1,7 +1,8 @@
 """The port's closed-loop ``run_stream`` against the reference.
 
 * It reproduces the deterministic keys of ``benchmarks/BENCH_baseline.json``
-  for the seven closed-loop ``streaming.*`` configs, fed the reference's
+  for the eight closed-loop ``streaming.*`` configs (``r8_h2`` with two
+  homes), fed the reference's
   ``[T, R]`` workload arrays, and passes its own oracle validation.
 * On one small config per case it matches ``repro``'s ``run_stream``
   directly: counters, message counts and the retirement trace,
@@ -34,15 +35,17 @@ BASELINE = json.loads((pathlib.Path(__file__).resolve().parents[1]
                        / "benchmarks" / "BENCH_baseline.json").read_text())
 KEYS = ("ops_per_step", "inval_per_excl_grant", "max_wait",
         "mean_mshr_occupancy", "ops_retired", "steps")
-#: baseline key -> (workload, remotes, width); all at 16 lines, 32 ops.
+#: baseline key -> (workload, remotes, width, homes); all at 16 lines,
+#: 32 ops.
 CONFIGS = {
-    "r2": ("zipfian", 2, 1),
-    "r8": ("zipfian", 8, 1),
-    "r32": ("zipfian", 32, 1),
-    "r8_w2": ("zipfian", 8, 2),
-    "producer_consumer_r8": ("producer_consumer", 8, 1),
-    "migratory_r8": ("migratory", 8, 1),
-    "false_sharing_r8": ("false_sharing", 8, 1),
+    "r2": ("zipfian", 2, 1, 1),
+    "r8": ("zipfian", 8, 1, 1),
+    "r32": ("zipfian", 32, 1, 1),
+    "r8_w2": ("zipfian", 8, 2, 1),
+    "producer_consumer_r8": ("producer_consumer", 8, 1, 1),
+    "migratory_r8": ("migratory", 8, 1, 1),
+    "false_sharing_r8": ("false_sharing", 8, 1, 1),
+    "r8_h2": ("zipfian", 8, 1, 2),
 }
 
 
@@ -58,10 +61,10 @@ def _reference_workload(name, R, L, ops, seed=0, legacy_bits=True):
 
 @pytest.mark.parametrize("key", list(CONFIGS))
 def test_baseline_deterministic_keys(key):
-    name, R, W = CONFIGS[key]
+    name, R, W, H = CONFIGS[key]
     ops, L = 32, 16
     steps = default_steps(ops, R)
-    run = run_stream(EngineConfig(remotes=R, lines=L).build("cpu"),
+    run = run_stream(EngineConfig(remotes=R, lines=L, homes=H).build("cpu"),
                      StreamConfig(workload=_reference_workload(name, R, L,
                                                                ops),
                                   width=W, steps=steps, collect_trace=True))
@@ -76,7 +79,7 @@ def test_baseline_deterministic_keys(key):
         "steps": steps,
     }
     assert got == {k: BASELINE["streaming"][key][k] for k in KEYS}
-    validate_run(run)
+    validate_run(run, n_homes=H)
 
 
 @pytest.mark.parametrize("width,moesi", [(2, True), (4, False)])
