@@ -8,24 +8,35 @@ Runs from the root of a checkout (it imports ``repro_torch`` from
 or of the ``repro`` package.  Phases, each of which fails the script:
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/csrc`` and time the build;
-2. each kernel against its plain PyTorch version on the card, bit-exact
-   (``torch.equal``), at the main path's shapes and at edge cases, with
-   the kernel's, the plain version's and a one-call PyTorch yardstick's
-   time (CUDA events);
-3. the main path: ``run_stream`` on zipfian traffic at R=64 remotes,
+   ``src/repro_torch/csrc``, one ``nvcc`` per source, all at once, and
+   time the build;
+2. each coherency-step kernel against its plain PyTorch version on the
+   card, bit-exact (``torch.equal``), at the main path's shapes and at
+   edge cases, with the kernel's, the plain version's and a one-call
+   PyTorch yardstick's device time (the profiler's CUDA trace);
+3. the near-memory operators at the paper's §5 sizes, through
+   ``core.pushdown`` on one shard: SELECT over 16 Mi 128-byte rows and
+   regex over 16 Mi rows with a 62-byte string field, each at 1%, 10% and
+   100% selectivity, and a KVS of 65,536 buckets at chain lengths 1, 8,
+   32 and 128 under 1 Mi queries — each run checked against its oracle
+   (the predicate, python ``re``, the plain lookup), each call launching
+   its kernel exactly once; ``select_scan``, ``regex_dfa`` and
+   ``hash_probe`` held against their plain versions bit for bit on the
+   path's data and on edge cases, timed, with a bound fixed per kernel
+   (10% selectivity, chain 32);
+4. the main path: ``run_stream`` on zipfian traffic at R=64 remotes,
    L=4096 lines of B=32 fp32 words (128-byte lines), MOESI, issue width
    W=1 at the ``WorkloadSpec`` default of 128 ops per remote and W=4 at
    32 (``W4_OPS``), each with the default step budget for its ops and
    validated by the port's own ``validate_run`` against its own
    ``MultiNodeRef``, with the launch count of every kernel in that run;
-4. small streams (L=16, B=4) on the card through the kernels and on the
+5. small streams (L=16, B=4) on the card through the kernels and on the
    CPU through the plain versions — dense R=8 MESI and MOESI, packed
    two-home R=33 MESI and R=64 MOESI, two homes with ``home_bw=1``,
    shared credits: counters, message counts and retirement trace
    bit-identical, and each packed run equal to the dense run of the same
    configuration;
-5. the packed two-home path at the main path's width: ``EngineConfig(
+6. the packed two-home path at the main path's width: ``EngineConfig(
    remotes=64, lines=4096, block=32, homes=2, packed=True)``, MOESI,
    zipfian, W=1, 128 ops per remote, validated against the two-home
    oracle, with its own launch table (``packed_any`` and
@@ -44,6 +55,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -64,6 +76,21 @@ W4_OPS = 32
 #: the packed two-home path: homes, words per line at R=64.
 HOMES, NW = 2, 2
 
+#: the near-memory phase, at the sizes of the paper's §5 (PERF.md §4):
+#: SELECT over 16 Mi rows of 32 fp32 (128-byte rows, 2 GiB) and regex over
+#: 16 Mi rows of 128 bytes with a 62-byte string field, each at three
+#: selectivities; a KVS of 65,536 buckets at four chain lengths, 1 Mi
+#: queries with about 11% misses (keys 1..n, queries in [1, 1.125 n)).
+NMP_ROWS, SEL_W = 16_777_216, 32
+SELECTIVITIES = (0.01, 0.1, 1.0)
+REGEX_W, STR_LO, STR_HI, PATTERN = 128, 8, 70, "xyzzy"
+KVS_BUCKETS, KVS_QUERIES, V_WIDTH, MISS = 65_536, 1_048_576, 28, 0.125
+CHAINS = (1, 8, 32, 128)
+#: the one selectivity and chain length each kernel's bound is taken at.
+BOUND_SEL, BOUND_CHAIN = 0.1, 32
+#: pushdown calls per run (the best is reported) and timed kernel calls.
+NMP_REPS, NMP_ITERS = 3, 20
+
 #: the Pallas kernel each CUDA kernel replaces (file:line of pallas_call).
 REPLACES = {
     "credit_rank": "src/repro/kernels/coherency_step.py:99",
@@ -72,6 +99,9 @@ REPLACES = {
     "lat_hist": "src/repro/kernels/coherency_step.py:234",
     "packed_any": "src/repro/kernels/coherency_step.py:269",
     "packed_fanout": "src/repro/kernels/coherency_step.py:320",
+    "select_scan": "src/repro/kernels/select_scan.py:62",
+    "regex_dfa": "src/repro/kernels/regex_dfa.py:56",
+    "hash_probe": "src/repro/kernels/hash_probe.py:66",
 }
 #: launches per engine step on the main path (dense, one home).
 PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
@@ -82,7 +112,10 @@ PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
 #: fan-out words of phase 5 are ``packed_fanout``.
 PACKED_PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
                    "lat_hist": 1, "packed_any": 5, "packed_fanout": 1}
-SOURCE = "src/repro_torch/csrc/coherency_step.cu"
+#: the CUDA source of each kernel.
+SOURCES = dict.fromkeys(PER_STEP, "src/repro_torch/csrc/coherency_step.cu")
+SOURCES.update(dict.fromkeys(("select_scan", "regex_dfa", "hash_probe"),
+                             "src/repro_torch/csrc/nmp.cu"))
 
 
 def fail(msg: str) -> None:
@@ -107,11 +140,10 @@ def wall_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 100):
-    """(mean device time per call of ``fn`` in ms, device operations per
-    call): the summed durations of the kernels and memsets it runs, from
-    the profiler's CUDA trace.  Only the trace's device entries are
-    summed: the entry of an aten op also carries the time of the kernels
+def device_entries(fn, iters: int = 100):
+    """The profiler's device entries (kernels and memsets) over ``iters``
+    calls of ``fn``, after one call to warm up.  Only device entries
+    count: the entry of an aten op also carries the time of the kernels
     it launched, which have entries of their own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -124,10 +156,32 @@ def device_ms(fn, iters: int = 100):
         torch.cuda.synchronize()
     on_card = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(ev.self_device_time_total for ev in on_card)
-    if total_us <= 0:
+    if sum(ev.self_device_time_total for ev in on_card) <= 0:
         fail("the profiler recorded no device time")
+    return on_card
+
+
+def device_ms(fn, iters: int = 100):
+    """(mean device time per call of ``fn`` in ms, device operations per
+    call): the summed durations of the kernels and memsets it runs, from
+    the profiler's CUDA trace."""
+    on_card = device_entries(fn, iters)
+    total_us = sum(ev.self_device_time_total for ev in on_card)
     return total_us / iters / 1e3, sum(ev.count for ev in on_card) / iters
+
+
+def where_the_time_goes(label: str, fn, wall_s: float, iters: int = 3):
+    """Print the device time of one call of ``fn`` against its wall time
+    (the device's idle share) and its four longest device entries."""
+    on_card = device_entries(fn, iters)
+    total = sum(ev.self_device_time_total for ev in on_card) / iters / 1e3
+    top = sorted(on_card, key=lambda ev: -ev.self_device_time_total)[:4]
+    longest = "; ".join(
+        f"{ev.key[:48]} {ev.self_device_time_total / iters / 1e3:.3f} ms"
+        for ev in top)
+    print(f"{label}: device {total:.3f} ms of {wall_s * 1e3:.3f} ms wall "
+          f"(idle {100 * (1 - total / (wall_s * 1e3)):.1f}%); longest: "
+          f"{longest}")
 
 
 def max_abs_err(got, want) -> int:
@@ -139,8 +193,62 @@ def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def bits(t):
+    """A float tensor as the integers of its bits (so ``-0.0`` and ``+0.0``
+    differ and a NaN equals itself); other tensors as they are."""
+    import torch
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return t
+
+
+def record_kernel(rows, name, check_cases, kernel, plain, library, nbytes,
+                  nops, iters=100):
+    """Hold ``kernel``'s results against its plain version's on every
+    ``(what, got, want)`` case, bit for bit, then time the kernel, the
+    plain version and the library call (``None``: no one PyTorch call
+    computes the function) at the path's shape, and add the kernel's row
+    to ``rows`` with its bound: ``nbytes`` at the HBM rate or ``nops`` at
+    the CUDA-core rate, whichever is longer."""
+    import torch
+    err = 0
+    for what, got, want in check_cases:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(a.shape == b.shape and torch.equal(bits(a), bits(b))
+                   for a, b in zip(got, want))
+        e = max(max_abs_err(bits(a).reshape(-1), bits(b).reshape(-1))
+                for a, b in zip(got, want))
+        if not same:
+            fail(f"{name} differs from its plain version ({what}), "
+                 f"max abs err {e}")
+        err = max(err, e)
+    ms, n_ops = device_ms(kernel, iters)
+    plain_ms, plain_ops = device_ms(plain, iters)
+    lib_ms, lib_ops = (device_ms(library, iters) if library is not None
+                       else (None, 0))
+    call_ms = wall_ms(kernel, iters)
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = nops / CUDA_CORE_OPS_PER_S * 1e3
+    rows[name] = {
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": 0,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bound_b, bound_o),
+        "bound_by": "bytes" if bound_b >= bound_o else "operations",
+        "library_ms": lib_ms}
+    print(f"kernel {name}: bit-exact on {len(check_cases)} cases; "
+          f"device {ms * 1e3:.3f} us in {n_ops:g} ops (plain "
+          f"{plain_ms * 1e3:.3f} us in {plain_ops:g}, library "
+          f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.3f}'} us in "
+          f"{lib_ops:g}, bound {max(bound_b, bound_o) * 1e3:.3f} us); "
+          f"{call_ms * 1e3:.2f} us per call back to back")
+
+
 def phase_kernels(dev):
-    """Phase 2: every kernel against its plain version; timings."""
+    """Phase 2: every coherency-step kernel against its plain version;
+    timings."""
     import torch
     from repro_torch.kernels import coherency_step as K
     from repro_torch.kernels import ref
@@ -150,42 +258,11 @@ def phase_kernels(dev):
     def rand_bool(shape, p):
         return (torch.rand(shape, generator=g) < p).to(dev)
 
-    rows = []
+    rows = {}
 
     def record(name, check_cases, kernel, plain, library, nbytes, nops):
-        err = 0
-        for what, got, want in check_cases:
-            if isinstance(got, tuple):
-                same = all(torch.equal(a, b) for a, b in zip(got, want))
-                e = max(max_abs_err(a.reshape(-1), b.reshape(-1))
-                        for a, b in zip(got, want))
-            else:
-                same = torch.equal(got, want)
-                e = max_abs_err(got, want)
-            if not same:
-                fail(f"{name} differs from its plain version ({what}), "
-                     f"max abs err {e}")
-            err = max(err, e)
-        ms, n_ops = device_ms(kernel)
-        plain_ms, plain_ops = device_ms(plain)
-        lib_ms, lib_ops = (device_ms(library) if library is not None
-                           else (None, 0))
-        call_ms = wall_ms(kernel)
-        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_o = nops / CUDA_CORE_OPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": 0,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_b, bound_o),
-            "bound_by": "bytes" if bound_b >= bound_o else "operations",
-            "library_ms": lib_ms})
-        print(f"kernel {name}: bit-exact on {len(check_cases)} cases; "
-              f"device {ms * 1e3:.3f} us in {n_ops:g} ops (plain "
-              f"{plain_ms * 1e3:.3f} us in {plain_ops:g}, library "
-              f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.3f}'} us in "
-              f"{lib_ops:g}, bound {max(bound_b, bound_o) * 1e3:.3f} us); "
-              f"{call_ms * 1e3:.2f} us per call back to back")
+        record_kernel(rows, name, check_cases, kernel, plain, library,
+                      nbytes, nops)
 
     # -- credit_rank: [R, L] bool planes (the two credited submits) -------
     act = rand_bool((R, L), 0.4)
@@ -328,7 +405,375 @@ def phase_kernels(dev):
            lambda: torch.where(sh[..., None], excl & ~hot, 0),
            nbytes=16 * n_lines * NW + 6 * n_lines,
            nops=8 * n_lines * NW)
-    return {r["name"]: r for r in rows}
+    return rows
+
+
+def drive_nmp(name: str, call, reps: int, path):
+    """``reps`` calls of a pushdown entry point, with every near-memory
+    launch count set to 0 just before and read just after: the call's
+    kernel must have launched once per call (one shard), the others not at
+    all.  Returns the last result and the best wall time in s."""
+    import torch
+    from repro_torch.kernels import nmp as NK
+    torch.cuda.synchronize()
+    NK.reset_launches()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    counts = dict(NK.launches)
+    want = {k: reps if k == name else 0 for k in counts}
+    if counts != want:
+        fail(f"nmp {name}: launches {counts}, expected {want}")
+    path[name] += counts[name]
+    return out, best
+
+
+def nmp_select(dev, rows, path):
+    """SELECT pushdown (paper Fig. 5) over 16 Mi 128-byte rows."""
+    import torch
+    from repro_torch.core import pushdown as PD
+    from repro_torch.kernels import nmp as NK
+    from repro_torch.kernels import ref
+    from repro_torch.nmp.select import select_scan
+    n, w = NMP_ROWS, SEL_W
+    g = torch.Generator(device=dev).manual_seed(51)
+    table = torch.randn((n, w), generator=g, device=dev)
+    u = torch.rand(n, generator=g, device=dev)
+    print(f"nmp SELECT: {n} rows x {w} fp32 ({4 * w}-byte rows, "
+          f"{n * w * 4 / 2 ** 30:g} GiB), a > 0 AND b < 1, pushdown_select "
+          f"over [{dev}], capacity {n}, best of {NMP_REPS}")
+    for sel in SELECTIVITIES:
+        match = u < sel
+        table[:, 0] = torch.where(match, 1.0, -1.0)
+        table[:, 1] = torch.where(match, 0.0, 2.0)
+        res, t = drive_nmp("select_scan", lambda: PD.pushdown_select(
+            [dev], n, table, 0.0, 1.0), NMP_REPS, path)
+        want, count, _ = select_scan(table, 0.0, 1.0, n)
+        m = int(match.sum())
+        if not (int(res.counts[0]) == int(count) == int(res.moved_rows)
+                == m and torch.equal(bits(res.rows[0]), bits(want))):
+            fail(f"nmp SELECT sel={sel}: pushdown differs from the "
+                 f"predicate's oracle")
+        print(f"nmp SELECT sel={sel}: {m} matches, oracle-exact; "
+              f"{t * 1e3:.3f} ms per pushdown_select, {n / t:.4e} rows/s; "
+              f"moved {PD.pushdown_bytes(res, w, 4)} of "
+              f"{PD.bulk_transfer_bytes(table)} bytes")
+        del res, want
+        if sel != BOUND_SEL:
+            continue
+        where_the_time_goes("nmp SELECT sel=0.1 pushdown_select", lambda: PD.
+                            pushdown_select([dev], n, table, 0.0, 1.0), t)
+        nb = n // 256
+        nbytes = 32 * n + (4 * w - 32) * m + 4 * n * w + 4 * nb
+        print(f"kernel select_scan bound at sel={sel}: {m} of {n} rows "
+              f"match; {nbytes} bytes (the 32-byte sector of columns 0-1 "
+              f"of every row, the other {4 * w - 32} bytes of each "
+              f"matching row, the {4 * n * w}-byte output, the counts)")
+        cases = [("16 Mi rows, sel 0.1", NK.select_scan(table, 0.0, 1.0),
+                  ref.select_scan_ref(table, 0.0, 1.0, 256))]
+        gc = torch.Generator(device=dev).manual_seed(53)
+        for what, rows_, width, br, x in (
+                ("ragged 1000 rows padded, x=-inf", 1000, w, 256, "-inf"),
+                ("all-match and zero-match blocks", 1024, w, 256, 0.0),
+                ("w=6 (no 16-byte copy), block 64", 640, 6, 64, 0.0),
+                ("block 1024", 4096, w, 1024, 0.0),
+                ("block 32, -0.0 and NaN payloads", 512, w, 32, 0.0)):
+            t_ = torch.randn((rows_, width), generator=gc, device=dev)
+            t_[:, 0] = torch.where(torch.rand(rows_, generator=gc,
+                                              device=dev) < 0.3, 1.0, -1.0)
+            t_[:, 1] = torch.where(t_[:, 0] > 0, 0.0, 2.0)
+            if what.startswith("all"):
+                t_[:256, :2] = torch.tensor([1.0, 0.0], device=dev)
+                t_[256:512, :2] = torch.tensor([-1.0, 2.0], device=dev)
+            if "NaN" in what:
+                t_[::3, 3] = -0.0
+                t_[::5, 4] = float("nan")
+            if what.startswith("ragged"):
+                fill = torch.full((24, width), torch.finfo(t_.dtype).min,
+                                  device=dev)
+                t_ = torch.cat([t_, fill])
+            xv = float(x)
+            cases.append((what, NK.select_scan(t_, xv, 1.0, br),
+                          ref.select_scan_ref(t_, xv, 1.0, br)))
+        record_kernel(rows, "select_scan", cases,
+                      lambda: NK.select_scan(table, 0.0, 1.0),
+                      lambda: ref.select_scan_ref(table, 0.0, 1.0, 256),
+                      None, nbytes, 0, iters=NMP_ITERS)
+        del cases
+
+
+def regex_oracle(field):
+    """Python ``re`` over the ``[n, width]`` uint8 string field, one row per
+    line: (match [n] bool, index [n] of the last byte of each row's first
+    match, -1 where none)."""
+    import re
+
+    import numpy as np
+    n, width = field.shape
+    blob = np.concatenate([field, np.full((n, 1), 10, np.uint8)],
+                          axis=1).tobytes()
+    pat = re.compile(PATTERN.encode())
+    starts = np.fromiter((m.start() for m in pat.finditer(blob)), np.int64)
+    row, col = np.divmod(starts, width + 1)
+    first_row, first = np.unique(row, return_index=True)
+    match = np.zeros(n, bool)
+    match[first_row] = True
+    last = np.full(n, -1, np.int64)
+    last[first_row] = col[first] + len(PATTERN) - 1
+    return match, last
+
+
+def read_sectors(last, width: int) -> int:
+    """32-byte sectors of a contiguous ``[n, width]`` byte array that hold
+    bytes 0..last[r] of each row r (the whole row where ``last`` is -1),
+    each sector counted once."""
+    import numpy as np
+    n = last.shape[0]
+    start = np.arange(n, dtype=np.int64) * width
+    end = start + np.where(last < 0, width - 1, last)
+    lo, hi = start // 32, end // 32
+    prev = np.concatenate([[-1], hi[:-1]])
+    return int(np.maximum(0, hi - np.maximum(lo, prev + 1) + 1).sum())
+
+
+def nmp_regex(dev, rows, path):
+    """REGEXP_LIKE pushdown (paper Fig. 7) over 16 Mi 128-byte rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pushdown as PD
+    from repro_torch.kernels import nmp as NK
+    from repro_torch.kernels import ref
+    from repro_torch.nmp.dfa import dfa_tables
+    from repro_torch.nmp.regex import compile_regex
+    n, width = NMP_ROWS, STR_HI - STR_LO
+    dfa = compile_regex(PATTERN)
+    trans, accept = dfa_tables(dfa, dev)
+    g = torch.Generator(device=dev).manual_seed(52)
+    table = torch.randint(ord("a"), ord("z") + 1, (n, REGEX_W), generator=g,
+                          device=dev, dtype=torch.uint8)
+    u = torch.rand(n, generator=g, device=dev)
+    pos = torch.randint(0, width - len(PATTERN) + 1, (n,), generator=g,
+                        device=dev)
+    print(f"nmp regex: '{PATTERN}' ({dfa.n_states} DFA states) over {n} "
+          f"rows of {REGEX_W} random lowercase bytes, string field "
+          f"[{STR_LO}, {STR_HI}), pushdown_regex over [{dev}], capacity "
+          f"{n}, best of {NMP_REPS}")
+    seeded_below = 0.0
+    for sel in SELECTIVITIES:
+        new = ((u < sel) & (u >= seeded_below)).nonzero().squeeze(1)
+        seeded_below = sel
+        for j, c in enumerate(PATTERN.encode()):
+            table[new, STR_LO + pos[new] + j] = c
+        res, t = drive_nmp("regex_dfa", lambda: PD.pushdown_regex(
+            [dev], n, dfa, table, STR_LO, STR_HI), NMP_REPS, path)
+        t0 = time.perf_counter()
+        match, last = regex_oracle(table[:, STR_LO:STR_HI].cpu().numpy())
+        t_oracle = time.perf_counter() - t0
+        m = int(match.sum())
+        seeded = int((u < sel).sum())
+        mt = torch.as_tensor(match).to(dev)
+        c = int(res.counts[0])
+        if not (c == m == int(res.moved_rows)
+                and torch.equal(res.rows[0][:c], table[mt])
+                and not bool(res.rows[0][c:].any())):
+            fail(f"nmp regex sel={sel}: pushdown differs from python re")
+        print(f"nmp regex sel={sel}: {m} matches ({seeded} seeded, "
+              f"{m - seeded} by chance), equal to python re "
+              f"({t_oracle:.1f} s); {t * 1e3:.3f} ms per pushdown_regex, "
+              f"{n / t:.4e} rows/s")
+        del res, mt
+        if sel != BOUND_SEL:
+            continue
+        where_the_time_goes("nmp regex sel=0.1 pushdown_regex", lambda: PD.
+                            pushdown_regex([dev], n, dfa, table, STR_LO,
+                                           STR_HI), t)
+        sectors = read_sectors(last, width)
+        tbl_bytes = trans.numel() * 4 + accept.numel()
+        nbytes = 32 * sectors + n + tbl_bytes
+        print(f"kernel regex_dfa bound at sel={sel}: {sectors} 32-byte "
+              f"sectors of the {n}x{width} string bytes up to each row's "
+              f"first accept byte, {tbl_bytes} bytes of tables, {n} "
+              f"written: {nbytes} bytes")
+        strings = table[:, STR_LO:STR_HI].contiguous()
+        cases = [("16 Mi rows, sel 0.1", NK.regex_dfa(trans, accept, strings),
+                  ref.regex_dfa_ref(trans, accept, strings))]
+        gc = torch.Generator(device=dev).manual_seed(54)
+        big = compile_regex("(a|b)*a(a|b)(a|b)(a|b)(a|b)(a|b)(a|b)")
+        if big.n_states <= 64:
+            fail(f"the large DFA has only {big.n_states} states")
+        ab = torch.randint(ord("a"), ord("c") + 1, (5000, 40), generator=gc,
+                           device=dev, dtype=torch.uint8)
+        rnd_t = torch.randint(0, 20, (20, 256), generator=gc, device=dev,
+                              dtype=torch.int32)
+        rnd_a = torch.rand(20, generator=gc, device=dev) < 0.5
+        raw = torch.randint(0, 256, (3000, 17), generator=gc, device=dev,
+                            dtype=torch.uint8)
+        nul = strings[:1000].clone()
+        nul[::2, 20:] = 0
+        wide = table[:3000, :1].expand(3000, 200).contiguous()
+        wide[:, 50:150] = table[:3000, :100]
+        skew = torch.empty(1000 * width + 1, dtype=torch.uint8,
+                           device=dev)[1:].view(1000, width)
+        skew.copy_(strings[:1000])        # one byte into its storage
+        for what, (tr, ac), s_ in (
+                (f"{big.n_states}-state DFA (table read through L1)",
+                 dfa_tables(big, dev), ab),
+                ("random 20-state table, no state absorbs", (rnd_t, rnd_a),
+                 raw),
+                ("ragged 1000 rows with NUL tails", (trans, accept), nul),
+                ("rows of 200 bytes (read through L1)", (trans, accept),
+                 wide),
+                ("rows not 16-byte aligned", (trans, accept), skew),
+                ("one row of one byte", (trans, accept),
+                 strings[:1, :1].contiguous())):
+            cases.append((what, NK.regex_dfa(tr, ac, s_),
+                          ref.regex_dfa_ref(tr, ac, s_)))
+        record_kernel(rows, "regex_dfa", cases,
+                      lambda: NK.regex_dfa(trans, accept, strings),
+                      lambda: ref.regex_dfa_ref(trans, accept, strings),
+                      None, nbytes, 0, iters=NMP_ITERS)
+        del cases, strings
+
+
+def probe_bound_bytes(heads, keys, nxt, q, max_chain: int) -> int:
+    """Bytes a probe must move at least: the queries read, ``found`` and
+    ``steps`` written, and each 32-byte sector of ``heads``, ``keys`` and
+    ``nxt`` that the walk reads (keys of the entries it visits, next
+    pointers of those it leaves), counted once however often it is read."""
+    import torch
+    from repro_torch.nmp.kvstore import fib_hash
+
+    def sectors(hit):
+        pad = (-hit.numel()) % 8          # 8 int32 per 32-byte sector
+        hit = torch.cat([hit, hit.new_zeros(pad)])
+        return int(hit.view(-1, 8).any(1).sum())
+
+    bucket = fib_hash(q, heads.shape[0]).to(torch.int64)
+    seen_h = torch.zeros(heads.shape[0], dtype=torch.bool, device=q.device)
+    seen_h[bucket] = True
+    seen_k = torch.zeros(keys.shape[0], dtype=torch.bool, device=q.device)
+    seen_n = torch.zeros_like(seen_k)
+    ptr = heads[bucket]
+    found = torch.full_like(ptr, -1)
+    for _ in range(max_chain):
+        live = (ptr >= 0) & (found < 0)
+        safe = ptr.clamp(min=0).to(torch.int64)
+        seen_k[safe[live]] = True
+        hit = live & (keys[safe] == q)
+        seen_n[safe[live & ~hit]] = True
+        found = torch.where(hit, ptr, found)
+        ptr = torch.where(live & ~hit, nxt[safe], ptr)
+    return (32 * (sectors(seen_h) + sectors(seen_k) + sectors(seen_n))
+            + 12 * q.numel())
+
+
+def nmp_kvs(dev, rows, path):
+    """KVS pointer chase (paper Fig. 6): 65,536 buckets, chains of 1 to 128
+    entries, 1 Mi uniform queries."""
+    import torch
+    from repro_torch.core import pushdown as PD
+    from repro_torch.kernels import nmp as NK
+    from repro_torch.kernels import ref
+    from repro_torch.nmp.kvstore import (KVStore, build_kvs, fib_hash,
+                                         kvs_lookup)
+    g = torch.Generator(device=dev).manual_seed(55)
+    print(f"nmp KVS: {KVS_BUCKETS} buckets x chain {CHAINS} entries "
+          f"(4-byte key, {4 * V_WIDTH}-byte value, 4-byte next), "
+          f"{KVS_QUERIES} queries uniform in [1, {1 + MISS:g} n), "
+          f"max_chain = longest chain + 4, pushdown_lookup over [{dev}], "
+          f"best of {NMP_REPS}")
+    for chain in CHAINS:
+        n = KVS_BUCKETS * chain
+        keys = torch.arange(1, n + 1, device=dev)
+        vals = torch.randn((n, V_WIDTH), generator=g, device=dev)
+        t0 = time.perf_counter()
+        kvs = PD.build_sharded_kvs(keys, vals, KVS_BUCKETS, 1, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        longest = int(torch.bincount(fib_hash(keys, KVS_BUCKETS).long(),
+                                     minlength=KVS_BUCKETS).max())
+        max_chain = longest + 4
+        q = torch.randint(1, int(n * (1 + MISS)), (KVS_QUERIES,),
+                          generator=g, device=dev).to(torch.int32)
+        (v, found, steps), t = drive_nmp("hash_probe", lambda: PD.
+                                         pushdown_lookup([dev], kvs, q,
+                                                         max_chain),
+                                         NMP_REPS, path)
+        one = KVStore(kvs.heads[0], kvs.keys[0], kvs.values[0], kvs.nxt[0])
+        wv, wf, ws = kvs_lookup(one, q, max_chain)
+        hit = q <= n                        # keys are 1..n, each once
+        qi = (q.long() - 1).clamp(0, n - 1)
+        if not (torch.equal(bits(v), bits(wv)) and torch.equal(found, wf)
+                and torch.equal(steps, ws) and torch.equal(found, hit)
+                and torch.equal(v[hit], vals[qi[hit]])):
+            fail(f"nmp KVS chain={chain}: pushdown differs from the plain "
+                 f"lookup")
+        print(f"nmp KVS chain={chain}: {n} entries, longest chain "
+              f"{longest}, built in {t_build:.3f} s; {int(found.sum())} "
+              f"found, {int((~found).sum())} missed, mean steps "
+              f"{float(steps.double().mean()):.3f}, oracle-exact; "
+              f"{t * 1e3:.3f} ms per pushdown_lookup, "
+              f"{KVS_QUERIES / t:.4e} keys/s")
+        if chain != BOUND_CHAIN:
+            continue
+        where_the_time_goes("nmp KVS chain=32 pushdown_lookup", lambda: PD.
+                            pushdown_lookup([dev], kvs, q, max_chain), t)
+        heads, keys_b, nxt = one.heads, one.keys, one.nxt
+        nbytes = probe_bound_bytes(heads, keys_b, nxt, q, max_chain)
+        print(f"kernel hash_probe bound at chain={chain}: {nbytes} bytes "
+              f"(queries read, found and steps written, each 32-byte "
+              f"sector of heads, keys and nxt the walk reads, once)")
+        cases = [("chain 32, 1 Mi queries", NK.hash_probe(
+            heads, keys_b, nxt, q, max_chain), ref.hash_probe_ref(
+            heads, keys_b, nxt, q, max_chain)),
+            ("max_chain 5, below the longest chain", NK.hash_probe(
+                heads, keys_b, nxt, q, 5), ref.hash_probe_ref(
+                heads, keys_b, nxt, q, 5)),
+            ("max_chain 0", NK.hash_probe(heads, keys_b, nxt, q, 0),
+             ref.hash_probe_ref(heads, keys_b, nxt, q, 0))]
+        gc = torch.Generator(device=dev).manual_seed(56)
+        dup = (2 ** 32 - torch.randint(1, 500, (3000,), generator=gc,
+                                       device=dev))     # near 2^32, repeats
+        for what, nbk, mc in (("duplicate keys near 2^32, 7 buckets", 7,
+                               600), ("one bucket", 1, 4000)):
+            kv = build_kvs(dup, torch.ones((3000, 1), device=dev), nbk,
+                           device=dev)
+            qq = torch.cat([kv.keys[::3], kv.keys[:77] ^ 0x5555])
+            cases.append((what, NK.hash_probe(kv.heads, kv.keys, kv.nxt,
+                                              qq, mc),
+                          ref.hash_probe_ref(kv.heads, kv.keys, kv.nxt,
+                                             qq, mc)))
+        record_kernel(rows, "hash_probe", cases,
+                      lambda: NK.hash_probe(heads, keys_b, nxt, q,
+                                            max_chain),
+                      lambda: ref.hash_probe_ref(heads, keys_b, nxt, q,
+                                                 max_chain),
+                      None, nbytes, 0, iters=NMP_ITERS)
+        del cases
+
+
+def phase_nmp(dev, rows):
+    """Phase 3: the near-memory operators' pushdown at the paper's §5
+    sizes on one shard (one card), oracle-checked, with each kernel held
+    against its plain version and timed."""
+    import torch
+    t0 = time.perf_counter()
+    path = {"select_scan": 0, "regex_dfa": 0, "hash_probe": 0}
+    for run in (nmp_select, nmp_regex, nmp_kvs):
+        run(dev, rows, path)
+        torch.cuda.empty_cache()
+    want = {"select_scan": NMP_REPS * len(SELECTIVITIES),
+            "regex_dfa": NMP_REPS * len(SELECTIVITIES),
+            "hash_probe": NMP_REPS * len(CHAINS)}
+    print(f"nmp path: launches {json.dumps(path)}")
+    if path != want:
+        fail(f"nmp path launches {path}, expected {want}")
+    for name, n in path.items():
+        rows[name]["launches"] = n
+    print(f"nmp phase {time.perf_counter() - t0:.1f} s")
 
 
 def check_no_host_sync(eng, ops: int, width: int, label: str) -> None:
@@ -403,7 +848,7 @@ def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
 
 
 def phase_main_path(dev, rows):
-    """Phase 3: the closed-loop stream at R=64, L=4096, B=32."""
+    """Phase 4: the closed-loop stream at R=64, L=4096, B=32."""
     from repro_torch.traffic import EngineConfig, WorkloadSpec, \
         default_steps
     ops = WorkloadSpec().ops
@@ -422,7 +867,7 @@ def phase_main_path(dev, rows):
 
 
 def phase_packed_path(dev, rows):
-    """Phase 5: the packed two-home path at R=64, L=4096, B=32."""
+    """Phase 6: the packed two-home path at R=64, L=4096, B=32."""
     from repro_torch.traffic import EngineConfig, WorkloadSpec, \
         default_steps
     ops = WorkloadSpec().ops
@@ -459,7 +904,7 @@ def _same_run(a, b) -> bool:
 
 
 def phase_small_stream(dev):
-    """Phase 4: the card's kernel runs equal the CPU's plain runs, and
+    """Phase 5: the card's kernel runs equal the CPU's plain runs, and
     each packed run equals the dense run of its configuration."""
     from repro_torch.traffic import (EngineConfig, StreamConfig,
                                      WorkloadSpec, run_stream,
@@ -516,10 +961,14 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    lib = build.build("coherency_step")
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    sources = ("coherency_step", "nmp")
+    with ThreadPoolExecutor(len(sources)) as pool:    # one nvcc per source
+        libs = list(pool.map(build.build, sources))
+    print(f"build: {', '.join(lib.name for lib in libs)} in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     rows = phase_kernels(dev)
+    phase_nmp(dev, rows)
     phase_main_path(dev, rows)
     phase_small_stream(dev)
     phase_packed_path(dev, rows)

@@ -4,9 +4,11 @@ A port of ``repro`` (the JAX package beside it, which stays the
 reference) that mirrors its layout: ``core/`` holds the protocol tables,
 the transport, the agents, the sharer-vector directory and the N-remote
 engine; ``traffic/`` the streaming driver, its workloads and its
-counters; ``kernels/`` the six hand-written kernels of the per-step
-inner plane (CUDA C++ under ``csrc/``) beside their plain PyTorch
-versions.
+counters; ``nmp/`` the near-memory operators (SELECT, regex, KVS pointer
+chase) that ``core/pushdown.py`` runs at the data's home; ``kernels/``
+the nine hand-written kernels — six of the per-step inner plane, three of
+the near-memory operators (CUDA C++ under ``csrc/``) — beside their plain
+PyTorch versions.
 
 The package imports ``torch`` and ``numpy`` only — never ``jax`` and
 nothing of ``repro``: the protocol tables and the atomic oracle are kept

@@ -16,10 +16,16 @@ NamedTuples share.  Two representations differ:
 
     st_t = engine_state_to_torch(np_state, "cpu")     # port state
     flat = flatten(engine_state_to_numpy(st_t))       # path -> array
+
+The near-memory operators' data crosses the same way: a reference
+``KVStore`` or ``ShardedKVS`` (numpy leaves) becomes the port's, its uint32
+keys int32 with the same bits, and a reference ``DFA`` becomes the port's
+transition and accept tensors — the counterpart of carrying weights
+across.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +33,11 @@ import torch
 from .core.agent import AgentState
 from .core.directory_mn import DirectoryMNState
 from .core.engine_mn import EngineMNState
+from .core.pushdown import ShardedKVS
 from .core.transport import Channel
 from .device import resolve_device
+from .nmp.dfa import dfa_tables
+from .nmp.kvstore import KVStore
 from .traffic.counters import Counters
 
 #: the reference's hi/lo accumulator split (``repro.traffic.counters``).
@@ -133,3 +142,36 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             out[path] = _to_numpy(v)
     return out
+
+
+def kvstore_to_torch(kvs, device=None) -> KVStore:
+    """A reference ``KVStore`` (numpy leaves) as the port's on
+    ``device``: keys int32 with the uint32 bits."""
+    dev = resolve_device(device)
+    return KVStore(*(_to_tensor(getattr(kvs, f), dev)
+                     for f in KVStore._fields))
+
+
+def sharded_kvs_to_torch(skvs, device=None) -> ShardedKVS:
+    """A reference ``ShardedKVS`` (numpy leaves) as the port's on
+    ``device``."""
+    dev = resolve_device(device)
+    return ShardedKVS(*(_to_tensor(getattr(skvs, f), dev)
+                        for f in ShardedKVS._fields[:-1]),
+                      int(skvs.n_buckets))
+
+
+def kvs_to_numpy(kvs) -> Dict[str, np.ndarray]:
+    """A port ``KVStore`` or ``ShardedKVS`` as numpy arrays in the
+    reference's dtypes (keys back to uint32), by field name."""
+    out = {f: _to_numpy(getattr(kvs, f)) for f in kvs._fields
+           if f != "n_buckets"}
+    out["keys"] = out["keys"].view(np.uint32)
+    return out
+
+
+def dfa_to_torch(dfa, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(transitions [n_states, 256] int32, accept [n_states] bool) of a
+    reference ``DFA`` on ``device`` — what ``kernels.ops.regex_match``
+    takes."""
+    return dfa_tables(dfa, resolve_device(device))

@@ -1,5 +1,6 @@
 """The coherency core on tensors: protocol tables, transport, agents, the
-sharer-vector directory and the N-remote engine (see ``engine_mn``)."""
+sharer-vector directory and the N-remote engine (see ``engine_mn``), and
+distributed operator pushdown (``pushdown``)."""
 from .engine_mn import EngineMN, EngineMNState, step_mn  # noqa: F401
 from .messages import MsgType  # noqa: F401
 from .multinode import MultiNodeRef  # noqa: F401

@@ -1,0 +1,149 @@
+"""The near-memory operators' three kernels: wrappers over ``csrc/nmp.cu``.
+
+Each wrapper replaces one Pallas kernel of ``repro.kernels``:
+
+* ``select_scan`` — the SELECT predicate and per-block compaction
+  (``repro.kernels.select_scan``);
+* ``regex_dfa``   — the table-driven DFA walk (``repro.kernels.regex_dfa``);
+* ``hash_probe``  — the Fibonacci-hash chained probe
+  (``repro.kernels.hash_probe``).
+
+Dispatch is by the device of the tensors given, as in
+``kernels.coherency_step``: on the CPU a wrapper runs its plain version
+(``kernels.ref``); on a CUDA device it checks device, dtype, shape and
+contiguity, launches its kernel on the current stream (adding one to
+``launches[name]``) and raises if the launch fails.  There is no fallback
+from the card to the plain version.
+
+What bounds each kernel on the card, and how its design answers it, is
+noted beside each kernel in ``csrc/nmp.cu``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from ..nmp.select import scalar
+from . import ref
+from .coherency_step import _check
+
+#: kernel launches per wrapper since the last ``reset_launches()``.
+launches: Dict[str, int] = {"select_scan": 0, "regex_dfa": 0,
+                            "hash_probe": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGS = {
+    "nmp_select_scan": (_P, ctypes.c_float, ctypes.c_float, _LL, _I, _I,
+                        _P, _P),
+    "nmp_regex_dfa": (_P, _I, _P, _LL, _I, _P),
+    "nmp_hash_probe": (_P, _I, _P, _P, _P, _LL, _I, _P, _P),
+}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _fn(name: str):
+    f = _fns.get(name)
+    if f is None:
+        from .build import load
+        lib = load("nmp")
+        for sym, argtypes in _SIGS.items():
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes + (_P,)          # ... , stream
+            fn.restype = ctypes.c_int
+            _fns[sym] = fn
+        f = _fns[name]
+    return f
+
+
+def _launch(kernel: str, sym: str, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _fn(sym)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+    launches[kernel] += 1
+
+
+def select_scan(table: torch.Tensor, x, y, block_rows: int = 256
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(packed [n/block_rows, block_rows, w], counts [n/block_rows]
+    int32): per block of rows of ``table`` [n, w], the rows with
+    ``col0 > x & col1 < y`` first in row order, zeros after.  On the card
+    the table is float32 and ``block_rows`` a multiple of 32 up to 1024."""
+    if table.device.type == "cpu":
+        return ref.select_scan_ref(table, x, y, block_rows)
+    if table.dim() != 2 or table.shape[1] < 2:
+        raise ValueError(f"select_scan: table of shape "
+                         f"{tuple(table.shape)}, expected [n, w >= 2]")
+    n, w = table.shape
+    if block_rows % 32 or not 32 <= block_rows <= 1024 or n % block_rows:
+        raise ValueError(f"select_scan: block_rows={block_rows} must be a "
+                         f"multiple of 32 in [32, 1024] dividing n={n}")
+    _check("select_scan", table, torch.float32, table.device)
+    nb = n // block_rows
+    packed = torch.empty((nb, block_rows, w), dtype=table.dtype,
+                         device=table.device)
+    counts = torch.empty(nb, dtype=torch.int32, device=table.device)
+    xf, yf = (float(scalar(v, torch.float32)) for v in (x, y))
+    _launch("select_scan", "nmp_select_scan", table.data_ptr(), xf, yf,
+            nb, block_rows, w, packed.data_ptr(), counts.data_ptr())
+    return packed, counts
+
+
+def regex_dfa(trans: torch.Tensor, accept: torch.Tensor,
+              strings: torch.Tensor) -> torch.Tensor:
+    """[rows] bool: ``accept`` of the state each row of ``strings``
+    ([rows, width] uint8) ends in, walking ``trans`` ([n_states, 256]
+    int32) from state 0.  The kernel writes the final states."""
+    if strings.device.type == "cpu":
+        return ref.regex_dfa_ref(trans, accept, strings)
+    dev = strings.device
+    if trans.dim() != 2 or trans.shape[1] != 256 or \
+            tuple(accept.shape) != (trans.shape[0],) or strings.dim() != 2:
+        raise ValueError(f"regex_dfa: trans {tuple(trans.shape)}, accept "
+                         f"{tuple(accept.shape)}, strings "
+                         f"{tuple(strings.shape)}; expected [S, 256], [S], "
+                         f"[rows, width]")
+    _check("regex_dfa", trans, torch.int32, dev)
+    _check("regex_dfa", accept, torch.bool, dev)
+    _check("regex_dfa", strings, torch.uint8, dev)
+    final = torch.empty(strings.shape[0], dtype=torch.int32, device=dev)
+    _launch("regex_dfa", "nmp_regex_dfa", trans.data_ptr(), trans.shape[0],
+            strings.data_ptr(), strings.shape[0], strings.shape[1],
+            final.data_ptr())
+    return accept[final]
+
+
+def hash_probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
+               queries: torch.Tensor, max_chain: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(found_idx [q] int32, -1 on a miss; steps [q] int32): each query's
+    bucket ``fib_hash(query) % len(heads)`` and at most ``max_chain``
+    entries of its chain.  Keys and queries are int32 with the uint32
+    bits."""
+    if queries.device.type == "cpu":
+        return ref.hash_probe_ref(heads, keys, nxt, queries, max_chain)
+    dev = queries.device
+    if heads.dim() != 1 or heads.shape[0] == 0 or keys.dim() != 1 or \
+            tuple(nxt.shape) != tuple(keys.shape) or queries.dim() != 1:
+        raise ValueError(f"hash_probe: heads {tuple(heads.shape)}, keys "
+                         f"{tuple(keys.shape)}, nxt {tuple(nxt.shape)}, "
+                         f"queries {tuple(queries.shape)}; expected "
+                         f"[n_buckets > 0], [n], [n], [q]")
+    for t in (heads, keys, nxt, queries):
+        _check("hash_probe", t, torch.int32, dev)
+    found = torch.empty(queries.shape, dtype=torch.int32, device=dev)
+    steps = torch.empty(queries.shape, dtype=torch.int32, device=dev)
+    _launch("hash_probe", "nmp_hash_probe", heads.data_ptr(),
+            heads.shape[0], keys.data_ptr(), nxt.data_ptr(),
+            queries.data_ptr(), queries.shape[0], int(max_chain),
+            found.data_ptr(), steps.data_ptr())
+    return found, steps

@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the coherency-step kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each function mirrors its twin in ``repro.kernels.ref`` (the engine's
-own expressions there) on tensors.  The wrappers in
-``kernels.coherency_step`` run these for tensors on the CPU — the path
-the tests hold against ``repro`` — and ``chip_smoke.py`` compares every
-CUDA kernel with its plain version on the card.  All six are integer
-arithmetic, so the contract is bit-exact equality.
+Each function mirrors its twin in ``repro.kernels.ref`` on tensors: the
+six coherency-step kernels (the engine's own expressions there) and the
+three near-memory operators (``select_scan_ref``, ``regex_dfa_ref``,
+``hash_probe_ref``).  The wrappers in ``kernels.coherency_step`` and
+``kernels.nmp`` run these for tensors on the CPU — the path the tests
+hold against ``repro`` — and ``chip_smoke.py`` compares every CUDA kernel
+with its plain version on the card.  All nine are integer arithmetic or
+copies of bits, so the contract is bit-exact equality.
 
 Packed directory words are int32 tensors holding the reference's uint32
 bits (bit 31 is the sign bit): torch has no ``>>`` or ``~`` for uint32
@@ -18,6 +20,9 @@ import functools
 from typing import Tuple
 
 import torch
+
+from ..nmp.kvstore import walk_chains
+from ..nmp.select import scalar
 
 
 #: ``_BITS[s]`` is the int32 word with bit ``s`` set; ``1 << 31`` is written
@@ -135,3 +140,44 @@ def packed_fanout_ref(pres: torch.Tensor, excl: torch.Tensor,
     recall_w = torch.where(shared_req[..., None], excl & ~hot, 0)
     inval_w = torch.where(excl_req[..., None], pres & ~hot, 0)
     return recall_w, inval_w
+
+
+def select_scan_ref(table: torch.Tensor, x, y, block_rows: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise SELECT: in each block of ``block_rows`` rows the rows
+    with ``col0 > x & col1 < y`` (``x``, ``y`` cast to the table's dtype)
+    are packed to the front in row order, zeros after.  Returns (packed
+    [n_blocks, block_rows, w], counts [n_blocks] int32)."""
+    x, y = scalar(x, table.dtype), scalar(y, table.dtype)
+    n, w = table.shape
+    if n % block_rows:
+        raise ValueError(f"select_scan: {n} rows are not a multiple of "
+                         f"block_rows={block_rows}")
+    blocks = table.reshape(n // block_rows, block_rows, w)
+    mask = (blocks[..., 0] > x) & (blocks[..., 1] < y)
+    counts = mask.sum(dim=1, dtype=torch.int32)
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
+    packed = torch.gather(blocks, 1, order[..., None].expand(-1, -1, w))
+    keep = torch.arange(block_rows, device=table.device) < counts[:, None]
+    return torch.where(keep[..., None], packed, 0), counts
+
+
+def regex_dfa_ref(trans: torch.Tensor, accept: torch.Tensor,
+                  strings: torch.Tensor) -> torch.Tensor:
+    """[rows] bool: ``accept`` of the state each NUL-padded row of
+    ``strings`` ([rows, width] uint8) ends in, walking ``trans``
+    ([n_states, 256] int32) from state 0 (accept states absorb, so that
+    is whether the row matches)."""
+    state = torch.zeros(strings.shape[0], dtype=torch.int64,
+                        device=strings.device)
+    flat = trans.reshape(-1)
+    chars = strings.to(torch.int64)
+    for pos in range(strings.shape[1]):
+        state = flat[state * 256 + chars[:, pos]].to(torch.int64)
+    return accept[state]
+
+
+#: (found_idx [q] int32, -1 on a miss; steps [q] int32) of a chained
+#: probe: the bucket of each query's ``fib_hash`` and at most
+#: ``max_chain`` entries of its chain (``nmp.kvstore.walk_chains``).
+hash_probe_ref = walk_chains

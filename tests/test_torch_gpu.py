@@ -15,8 +15,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import pushdown as PD  # noqa: E402
 from repro_torch.kernels import coherency_step as K  # noqa: E402
+from repro_torch.kernels import nmp as NK  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.nmp import kvstore as nkv  # noqa: E402
+from repro_torch.nmp.dfa import dfa_tables  # noqa: E402
+from repro_torch.nmp.regex import compile_regex  # noqa: E402
+from repro_torch.nmp.select import make_table  # noqa: E402
 from repro_torch.traffic import (EngineConfig, StreamConfig,  # noqa: E402
                                  WorkloadSpec, run_stream, validate_run)
 
@@ -216,3 +223,177 @@ def test_packed_two_home_step_loop_makes_no_host_sync(cuda):
                 torch.cuda.set_sync_debug_mode("default")
         counts.append(sum("synchroniz" in str(w.message) for w in caught))
     assert counts[2] > 0 and counts[1] == counts[2]
+
+
+# -- the near-memory kernels -------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("n,w,block,sel,x", [
+    (1024, 32, 256, 0.1, 0.0), (1024, 32, 256, 1.0, 0.0),
+    (1024, 32, 256, 0.0, 0.0), (640, 6, 64, 0.5, 0.0),
+    (4096, 32, 1024, 0.3, 0.0), (512, 8, 32, 0.3, float("-inf")),
+    (256, 2, 256, 0.5, 0.0)])
+def test_select_scan_kernel(cuda, n, w, block, sel, x):
+    t = make_table(SEED + n, n, w, sel, device="cpu")
+    if w > 4:
+        t[::3, 3] = -0.0                 # bits are copied, not summed
+        t[::5, 4] = float("nan")
+    t[:block, :2] = torch.tensor([1.0, 0.0])          # an all-match block
+    got = NK.select_scan(t.to(cuda), x, 1.0, block)
+    want = ref.select_scan_ref(t, x, 1.0, block)
+    assert torch.equal(_bits(got[0].cpu()), _bits(want[0]))
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("n", [1000, 77, 256])
+def test_ops_select_ragged_minus_inf(cuda, n):
+    t = make_table(SEED, n, 32, 0.4, device="cpu")
+    got = ops.select(t.to(cuda), float("-inf"), 1.0)
+    want = ops.select(t, float("-inf"), 1.0)
+    assert torch.equal(_bits(got[0].cpu()), _bits(want[0]))
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def _strings(rng, n, width, alphabet=b"xyzab01"):
+    arr = rng.choice(np.frombuffer(alphabet, np.uint8), (n, width))
+    arr[rng.random(n) < 0.3, width // 2:] = 0
+    return torch.as_tensor(arr.astype(np.uint8))
+
+
+@pytest.mark.parametrize("pattern,n,width", [
+    ("xyzzy", 1000, 62), ("a(b|x)+0", 4096, 24), ("[0-9]+", 5, 1),
+    ("(a|b)*a(a|b)(a|b)(a|b)(a|b)(a|b)(a|b)", 3000, 40), ("a*", 64, 8),
+    ("xyzzy", 300, 200)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_regex_dfa_kernel(cuda, pattern, n, width, aligned):
+    dfa = compile_regex(pattern)
+    if pattern.startswith("(a|b)*"):
+        assert dfa.n_states > 64         # the table read through the L1
+    s = _strings(np.random.default_rng(SEED), n, width)
+    trans, accept = dfa_tables(dfa, "cpu")
+    # unaligned: a view one byte into its storage, so no 16-byte loads
+    flat = torch.zeros(n * width + 1, dtype=torch.uint8, device=cuda)
+    on_card = flat[int(not aligned):][:n * width].view(n, width)
+    on_card.copy_(s)
+    got = NK.regex_dfa(trans.to(cuda), accept.to(cuda), on_card)
+    assert torch.equal(got.cpu(), ref.regex_dfa_ref(trans, accept, s))
+
+
+@pytest.mark.parametrize("n_states", [20, 64, 100])
+def test_regex_dfa_kernel_table_without_absorbing_states(cuda, n_states):
+    rng = np.random.default_rng(n_states)
+    trans = torch.as_tensor(rng.integers(0, n_states, (n_states, 256))
+                            .astype(np.int32))
+    trans[3] = 3                        # one absorbing state
+    accept = torch.as_tensor(rng.random(n_states) < 0.5)
+    s = torch.as_tensor(rng.integers(0, 256, (2000, 17)).astype(np.uint8))
+    got = NK.regex_dfa(trans.to(cuda), accept.to(cuda), s.to(cuda))
+    assert torch.equal(got.cpu(), ref.regex_dfa_ref(trans, accept, s))
+
+
+@pytest.mark.parametrize("n,key_hi,n_buckets,max_chain", [
+    (3000, 500, 7, 600), (5000, 10 ** 9, 64, 8), (300, 2 ** 32, 1, 400),
+    (4096, 2 ** 32, 4096, 0), (1000, 50, 16, 3)])
+def test_hash_probe_kernel(cuda, n, key_hi, n_buckets, max_chain):
+    rng = np.random.default_rng(n)
+    keys = (2 ** 32 - rng.integers(1, key_hi, n, dtype=np.uint64)
+            ).astype(np.uint32)                 # near 2^32, duplicates
+    kv = nkv.build_kvs(keys, np.ones((n, 1), np.float32), n_buckets,
+                       device="cpu")
+    q = torch.cat([kv.keys[::2], kv.keys[:333] ^ 0x5A5A])
+    got = NK.hash_probe(kv.heads.to(cuda), kv.keys.to(cuda),
+                        kv.nxt.to(cuda), q.to(cuda), max_chain)
+    want = ref.hash_probe_ref(kv.heads, kv.keys, kv.nxt, q, max_chain)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_nmp_kernels_refuse_wrong_inputs(cuda):
+    t = torch.zeros((256, 8), device=cuda)
+    with pytest.raises(TypeError):
+        NK.select_scan(t.to(torch.bfloat16), 0.0, 1.0)
+    with pytest.raises(ValueError):
+        NK.select_scan(t, 0.0, 1.0, block_rows=100)
+    with pytest.raises(ValueError):
+        NK.select_scan(torch.zeros((8, 256), device=cuda).t(), 0.0, 1.0)
+    trans = torch.zeros((2, 256), dtype=torch.int32, device=cuda)
+    acc = torch.zeros(2, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        NK.regex_dfa(trans, acc, t.to(torch.int32))
+    with pytest.raises(ValueError):
+        NK.regex_dfa(trans[:, :100].contiguous(), acc,
+                     t.to(torch.uint8))
+    i = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        NK.hash_probe(i, i.to(torch.int64), i, i, 4)
+    with pytest.raises(ValueError):
+        NK.hash_probe(i[:0], i, i, i, 4)
+
+
+def test_ops_launch_their_kernel_once(cuda):
+    t = make_table(SEED, 1000, 32, 0.3, device=cuda)
+    dfa = compile_regex("ab")
+    trans, accept = dfa_tables(dfa, cuda)
+    kv = nkv.build_kvs(np.arange(1, 500, dtype=np.uint32),
+                       np.ones((499, 1), np.float32), 64, device=cuda)
+    for name, call in (
+            ("select_scan", lambda: ops.select(t, 0.0, 1.0)),
+            ("regex_dfa", lambda: ops.regex_match(
+                trans, accept, t[:, :8].to(torch.uint8).contiguous())),
+            ("hash_probe", lambda: ops.probe(kv.heads, kv.keys, kv.nxt,
+                                             kv.keys[:300], max_chain=9))):
+        NK.reset_launches()
+        call()
+        assert NK.launches == {k: int(k == name) for k in NK.launches}
+
+
+def test_pushdown_card_equals_cpu(cuda):
+    """Each pushdown entry point on the card equals the CPU's, and
+    launches its kernel once per call."""
+    t = make_table(SEED, 3000, 32, 0.2, device="cpu")
+    NK.reset_launches()
+    got = PD.pushdown_select([cuda], 3000, t.to(cuda), float("-inf"), 1.0)
+    assert NK.launches == {"select_scan": 1, "regex_dfa": 0,
+                           "hash_probe": 0}
+    want = PD.pushdown_select(["cpu"], 3000, t, float("-inf"), 1.0)
+    assert torch.equal(_bits(got.rows.cpu()), _bits(want.rows))
+    assert torch.equal(got.counts.cpu(), want.counts)
+
+    s = _strings(np.random.default_rng(1), 3000, 40, b"xyzzy ")
+    table = torch.cat([torch.arange(3000)[:, None] % 256,
+                       s.to(torch.int64)], 1).to(torch.int32)
+    dfa = compile_regex("xyzzy")
+    NK.reset_launches()
+    got = PD.pushdown_regex(None, 500, dfa, table.to(cuda), 1, 41)
+    assert NK.launches["regex_dfa"] == 1
+    want = PD.pushdown_regex(["cpu"], 500, dfa, table, 1, 41)
+    assert torch.equal(got.rows.cpu(), want.rows)
+    assert torch.equal(got.counts.cpu(), want.counts)
+
+    keys = np.arange(1, 20001, dtype=np.uint32)
+    vals = np.random.default_rng(2).standard_normal((20000, 4)).astype(
+        np.float32)
+    q = np.random.default_rng(3).integers(1, 22500, 5000).astype(np.uint32)
+    NK.reset_launches()
+    got = PD.pushdown_lookup([cuda], PD.build_sharded_kvs(
+        keys, vals, 1024, 1, device=cuda), q, 40)
+    assert NK.launches["hash_probe"] == 1
+    want = PD.pushdown_lookup(["cpu"], PD.build_sharded_kvs(
+        keys, vals, 1024, 1, device="cpu"), q, 40)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g.cpu()), _bits(w))
+
+
+def test_build_kvs_card_equals_cpu(cuda):
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 3000, 10000).astype(np.uint32)
+    vals = np.ones((10000, 2), np.float32)
+    for a, b in zip(nkv.build_kvs(keys, vals, 256, device=cuda),
+                    nkv.build_kvs(keys, vals, 256, device="cpu")):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(PD.build_sharded_kvs(keys, vals, 256, 4, device=cuda),
+                    PD.build_sharded_kvs(keys, vals, 256, 4, device="cpu")):
+        assert a == b if isinstance(a, int) else torch.equal(a.cpu(), b)

@@ -1,0 +1,262 @@
+"""Operator pushdown in the port against ``repro.core.pushdown``, bit for bit.
+
+With one shard, ``repro``'s ``shard_map`` runs on a one-device ``Mesh``
+and the port on ``["cpu"]``; the gathered rows, counts, moved rows and
+the lookup's values, found flags and steps must be identical.  With
+S ∈ {4, 8} shards over ``["cpu"] * S`` the port's combine is held against
+what ``shard_map`` computes — the per-shard ``repro.nmp.select_scan`` and
+``dfa_select`` stacked, and ``kvs_lookup`` over the whole table — as
+``tests/test_multidevice.py`` checks for select and lookup.  Each shard's
+hot loop runs through the port's ``kernels.ops``, whose plain versions
+run on the CPU, so the stitch of per-block matches is what is tested.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax.sharding import Mesh
+
+torch = pytest.importorskip("torch")
+
+from repro.core import pushdown as jpd  # noqa: E402
+from repro.nmp import dfa as jdfa  # noqa: E402
+from repro.nmp import kvstore as jkv  # noqa: E402
+from repro.nmp import regex as jregex  # noqa: E402
+from repro.nmp import select as jsel  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import pushdown as tpd  # noqa: E402
+from repro_torch.kernels import nmp as K  # noqa: E402
+from repro_torch.nmp import regex as tregex  # noqa: E402
+from repro_torch.nmp import select as tsel  # noqa: E402
+
+SEED = 2024
+
+
+@pytest.fixture(scope="module")
+def mesh1():
+    return Mesh(np.array(jax.devices()[:1]), ("x",))
+
+
+def _np(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _same_result(got, want):
+    np.testing.assert_array_equal(_bits(_np(got.rows)),
+                                  _bits(np.asarray(want.rows)))
+    np.testing.assert_array_equal(_np(got.counts), np.asarray(want.counts))
+    assert int(got.moved_rows) == int(want.moved_rows)
+    assert got.counts.dtype == got.moved_rows.dtype == torch.int32
+
+
+def _table(n, w, sel):
+    t = tsel.make_table(SEED + n, n, w, sel, device="cpu")
+    t[::5, w - 1] = -0.0                      # bits are copied, not summed
+    return t
+
+
+def _regex_table(n, width=40, lo=4, seed=SEED):
+    """int32 rows with a string field in columns [lo, lo + 24): a planted
+    ``xyzzy`` in every fourth row, random lowercase elsewhere."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 256, (n, width)).astype(np.int32)
+    t[:, lo:lo + 24] = rng.choice(np.frombuffer(b"xyzab ", np.uint8),
+                                  (n, 24))
+    for i in range(0, n, 4):
+        at = lo + rng.integers(0, 20)
+        t[i, at:at + 5] = np.frombuffer(b"xyzzy", np.uint8)
+    return t, lo, lo + 24
+
+
+# -- one shard: the reference's shard_map on a one-device mesh -------------
+
+@pytest.mark.parametrize("n,w,sel,capacity,x", [
+    (1024, 8, 0.2, 1024, 0.0), (1000, 32, 0.1, 128, 0.0),
+    (300, 8, 0.5, 40, 0.0), (1000, 32, 0.3, 1000, float("-inf")),
+    (77, 5, 1.0, 77, float("-inf")), (512, 4, 0.0, 16, 0.0)])
+def test_pushdown_select_one_shard_equals_reference(mesh1, n, w, sel,
+                                                   capacity, x):
+    t = _table(n, w, sel)
+    want = jpd.pushdown_select(mesh1, "x", capacity, jnp.asarray(_np(t)),
+                               x, 1.0)
+    K.reset_launches()
+    got = tpd.pushdown_select(["cpu"], capacity, t, x, 1.0)
+    _same_result(got, want)
+    assert K.launches["select_scan"] == 0        # the plain path on the CPU
+
+
+@pytest.mark.parametrize("n,capacity,pattern", [
+    (256, 256, "xyzzy"), (300, 50, "xyzzy"), (100, 100, "zz+a"),
+    (64, 8, "[ab]y")])
+def test_pushdown_regex_one_shard_equals_reference(mesh1, n, capacity,
+                                                  pattern):
+    t, lo, hi = _regex_table(n)
+    want = jpd.pushdown_regex(mesh1, "x", capacity,
+                              jregex.compile_regex(pattern),
+                              jnp.asarray(t), lo, hi)
+    got = tpd.pushdown_regex(["cpu"], capacity,
+                             tregex.compile_regex(pattern),
+                             torch.as_tensor(t), lo, hi)
+    _same_result(got, want)
+
+
+def _kvs_case(n, key_range, seed=SEED):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(1, key_range, n).astype(np.uint32)
+    keys[:3] = [2 ** 32 - 1, 2 ** 31, 0]
+    keys[-4:] = keys[5]                          # a duplicated key
+    vals = rng.standard_normal((n, 3)).astype(np.float32)
+    vals[::9, 1] = -0.0
+    q = np.concatenate([keys[rng.integers(0, n, 120)],
+                        rng.integers(0, 2 ** 32, 40,
+                                     dtype=np.uint64).astype(np.uint32),
+                        keys[:3]])
+    return keys, vals, q
+
+
+@pytest.mark.parametrize("n,key_range,n_buckets,max_chain", [
+    (2000, 10 ** 6, 256, 64), (500, 300, 32, 6), (300, 2 ** 32, 1, 400)])
+def test_pushdown_lookup_one_shard_equals_reference(mesh1, n, key_range,
+                                                   n_buckets, max_chain):
+    keys, vals, q = _kvs_case(n, key_range)
+    jk = jpd.build_sharded_kvs(keys, vals, n_buckets, 1)
+    want = jpd.pushdown_lookup(mesh1, "x", jk, jnp.asarray(q), max_chain)
+    tk = tpd.build_sharded_kvs(keys, vals, n_buckets, 1, device="cpu")
+    got = tpd.pushdown_lookup(["cpu"], tk, q, max_chain)
+    np.testing.assert_array_equal(_bits(_np(got[0])), _bits(want[0]))
+    np.testing.assert_array_equal(_np(got[1]), np.asarray(want[1]))
+    np.testing.assert_array_equal(_np(got[2]), np.asarray(want[2]))
+    assert got[2].dtype == torch.int32 and got[1].dtype == torch.bool
+
+
+# -- S shards over ["cpu"] * S: the combine --------------------------------
+
+@pytest.mark.parametrize("S", [4, 8])
+@pytest.mark.parametrize("x", [0.0, float("-inf")])
+def test_pushdown_select_sharded_combine(S, x):
+    n, cap = 1024 + 8 * 40, 100          # ragged shards, capacity < count
+    t = _table(n, 8, 0.4)
+    got = tpd.pushdown_select(["cpu"] * S, cap, t, x, 1.0)
+    per = n // S
+    parts = [jsel.select_scan(jnp.asarray(_np(t)[s * per:(s + 1) * per]),
+                              x, 1.0, capacity=cap) for s in range(S)]
+    np.testing.assert_array_equal(
+        _bits(_np(got.rows)), _bits(np.stack([p[0] for p in parts])))
+    np.testing.assert_array_equal(_np(got.counts),
+                                  np.array([p[1] for p in parts]))
+    _, total, _ = jsel.select_scan(jnp.asarray(_np(t)), x, 1.0)
+    assert int(got.moved_rows) == int(total)
+
+
+@pytest.mark.parametrize("S", [4, 8])
+def test_pushdown_regex_sharded_combine(S):
+    t, lo, hi = _regex_table(8 * 37)
+    dfa = jregex.compile_regex("xyzzy")
+    got = tpd.pushdown_regex(["cpu"] * S, 20, tregex.compile_regex("xyzzy"),
+                             torch.as_tensor(t), lo, hi)
+    per = t.shape[0] // S
+    parts = [jdfa.dfa_select(dfa, jnp.asarray(t[s * per:(s + 1) * per]),
+                             lo, hi, capacity=20) for s in range(S)]
+    np.testing.assert_array_equal(_np(got.rows),
+                                  np.stack([p[0] for p in parts]))
+    np.testing.assert_array_equal(_np(got.counts),
+                                  np.array([p[1] for p in parts]))
+
+
+@pytest.mark.parametrize("S", [4, 8])
+@pytest.mark.parametrize("n_buckets", [256, 64])
+def test_pushdown_lookup_sharded_combine(S, n_buckets):
+    keys, vals, q = _kvs_case(2000, 10 ** 5)
+    max_chain = 80
+    got = tpd.pushdown_lookup(
+        ["cpu"] * S, tpd.build_sharded_kvs(keys, vals, n_buckets, S,
+                                           device="cpu"), q, max_chain)
+    want = jkv.kvs_lookup(jkv.build_kvs(keys, vals, n_buckets),
+                          jnp.asarray(q), max_chain)
+    np.testing.assert_array_equal(_np(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(_np(got[1]), np.asarray(want[1]))
+    np.testing.assert_array_equal(_np(got[2]), np.asarray(want[2]))
+
+
+def test_pushdown_lookup_8shards_as_multidevice_test():
+    """The case of ``tests/test_multidevice.py::
+    test_pushdown_lookup_8shards``, on ``["cpu"] * 8``."""
+    keys = np.arange(1, 2001, dtype=np.uint32)
+    vals = np.stack([keys.astype(np.float32)] * 2, 1)
+    skvs = tpd.build_sharded_kvs(keys, vals, 256, 8, device="cpu")
+    v, found, _ = tpd.pushdown_lookup(
+        ["cpu"] * 8, skvs, np.array([1, 500, 1999, 4242], np.uint32), 64)
+    assert found.tolist() == [True, True, True, False]
+    assert v[:3, 0].tolist() == [1.0, 500.0, 1999.0]
+
+
+@pytest.mark.parametrize("S", [1, 4, 8])
+@pytest.mark.parametrize("n,key_range,n_buckets", [
+    (600, 10 ** 6, 64), (400, 50, 256), (10, 10, 8)])
+def test_build_sharded_kvs_identical_arrays(S, n, key_range, n_buckets):
+    keys, vals, _ = _kvs_case(n, key_range)
+    want = jpd.build_sharded_kvs(keys, vals, n_buckets, S)
+    got = tpd.build_sharded_kvs(keys, vals, n_buckets, S, device="cpu")
+    flat = convert.kvs_to_numpy(got)
+    for f in ("heads", "keys", "values", "nxt"):
+        w = np.asarray(getattr(want, f))
+        np.testing.assert_array_equal(_bits(flat[f]), _bits(w))
+        assert flat[f].dtype == w.dtype
+    assert got.n_buckets == want.n_buckets
+    back = convert.sharded_kvs_to_torch(want, "cpu")
+    for a, b in zip(back[:-1], got[:-1]):
+        assert torch.equal(a, b)
+
+
+def test_build_sharded_kvs_bucket_past_the_shards_raises():
+    """64 buckets over 3 shards leave bucket 63 in no shard's 21: both
+    builds refuse an entry there."""
+    keys = np.arange(1, 400, dtype=np.uint32)
+    vals = np.ones((399, 1), np.float32)
+    with pytest.raises(IndexError):
+        jpd.build_sharded_kvs(keys, vals, 64, 3)
+    with pytest.raises(IndexError):
+        tpd.build_sharded_kvs(keys, vals, 64, 3, device="cpu")
+
+
+# -- byte accounting and device lists --------------------------------------
+
+def test_byte_accounting_equals_reference(mesh1):
+    t = _table(512, 32, 0.1)
+    jt = jnp.asarray(_np(t))
+    want = jpd.pushdown_select(mesh1, "x", 512, jt, 0.0, 1.0)
+    got = tpd.pushdown_select(["cpu"], 512, t, 0.0, 1.0)
+    assert tpd.bulk_transfer_bytes(t) == jpd.bulk_transfer_bytes(jt)
+    assert tpd.pushdown_bytes(got, 32, 4) == jpd.pushdown_bytes(want, 32, 4)
+
+
+def test_cuda_device_twice_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="appears twice"):
+        tpd.shard_devices(["cuda", "cuda:0"])
+    assert len(tpd.shard_devices(["cpu"] * 3)) == 3
+
+
+@pytest.mark.parametrize("entry", ["select", "regex", "lookup"])
+def test_default_devices_raise_without_cuda(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t = _table(256, 8, 0.5)
+    calls = {
+        "select": lambda: tpd.pushdown_select(None, 16, t, 0.0, 1.0),
+        "regex": lambda: tpd.pushdown_regex(
+            None, 16, tregex.compile_regex("a"), t, 2, 6),
+        "lookup": lambda: tpd.pushdown_lookup(None, tpd.build_sharded_kvs(
+            np.arange(4, dtype=np.uint32), np.ones((4, 1)), 4, 1,
+            device="cpu"), np.arange(3, dtype=np.uint32), 4),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpd.build_sharded_kvs(np.arange(4, dtype=np.uint32),
+                              np.ones((4, 1)), 4, 1)
