@@ -5,14 +5,17 @@ reference) that mirrors its layout: ``core/`` holds the protocol tables,
 the transport, the agents, the sharer-vector directory and the N-remote
 engine; ``traffic/`` the streaming driver, its workloads and its
 counters; ``nmp/`` the near-memory operators (SELECT, regex, KVS pointer
-chase) that ``core/pushdown.py`` runs at the data's home; ``kernels/``
-the nine hand-written kernels — six of the per-step inner plane, three of
-the near-memory operators (CUDA C++ under ``csrc/``) — beside their plain
-PyTorch versions.
+chase) that ``core/pushdown.py`` runs at the data's home; ``models/``
+and ``configs/`` the model substrate's prefill and decode (dense, gemma2,
+chameleon and recurrentgemma decoders); ``kernels/`` the eleven
+hand-written kernels — six of the per-step inner plane, three of the
+near-memory operators, attention and the RG-LRU scan of the models (CUDA
+C++ under ``csrc/``) — beside their plain PyTorch versions.
 
 The package imports ``torch`` and ``numpy`` only — never ``jax`` and
-nothing of ``repro``: the protocol tables and the atomic oracle are kept
-here as copies, so the port runs on a machine without JAX.
+nothing of ``repro``: the protocol tables, the atomic oracle and the
+model configs are kept here as copies, so the port runs on a machine
+without JAX.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``.  On a
 CUDA tensor each kernel wrapper launches its kernel or raises; the plain

@@ -20,8 +20,15 @@ NamedTuples share.  Two representations differ:
 The near-memory operators' data crosses the same way: a reference
 ``KVStore`` or ``ShardedKVS`` (numpy leaves) becomes the port's, its uint32
 keys int32 with the same bits, and a reference ``DFA`` becomes the port's
-transition and accept tensors — the counterpart of carrying weights
-across.
+transition and accept tensors.
+
+Model parameters and decode states cross by layer: the reference stacks
+each slot of the superlayer pattern over superlayers (``params["layers"]
+["slot{j}"]`` with a leading ``[n_super]`` axis, then ``params["tail"]
+["tail{j}"]``), the port keeps one dict per layer in layer order
+(``model_params_to_torch``, ``decode_state_to_torch``,
+``decode_state_to_numpy``).  A bfloat16 leaf crosses through float32,
+exactly.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from .core.engine_mn import EngineMNState
 from .core.pushdown import ShardedKVS
 from .core.transport import Channel
 from .device import resolve_device
+from .models.transformer import check_supported
 from .nmp.dfa import dfa_tables
 from .nmp.kvstore import KVStore
 from .traffic.counters import Counters
@@ -175,3 +183,67 @@ def dfa_to_torch(dfa, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     reference ``DFA`` on ``device`` — what ``kernels.ops.regex_match``
     takes."""
     return dfa_tables(dfa, resolve_device(device))
+
+
+def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":           # ml_dtypes: no torch buffer
+        return torch.as_tensor(a.astype(np.float32)).to(device,
+                                                        torch.bfloat16)
+    return _to_tensor(a, device)
+
+
+def _by_layer(tree, cfg, device: torch.device) -> list:
+    """The reference's stacked ``{"slot{j}": ..., "tail": {"tail{j}":
+    ...}}`` tree as one dict of tensors per layer, in layer order."""
+    def take(t, li):
+        if isinstance(t, dict):
+            return {k: take(v, li) for k, v in t.items()}
+        return _leaf_to_torch(np.asarray(t) if li is None
+                              else np.asarray(t)[li], device)
+
+    out = [take(tree[f"slot{j}"], li) for li in range(cfg.n_superlayers)
+           for j in range(len(cfg.block_pattern))]
+    out += [take(tree["tail"][f"tail{j}"], None)
+            for j in range(len(cfg.tail_pattern))]
+    return out
+
+
+def model_params_to_torch(np_params, cfg, device=None) -> dict:
+    """The reference's parameter pytree (numpy leaves, from
+    ``repro.models.init_params``) as the port's ``{"embed": {...},
+    "layers": [...]}`` on ``device`` (``models.transformer.init_params``'s
+    layout)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    tree = dict(np_params["layers"])
+    if cfg.tail_pattern:
+        tree["tail"] = np_params["tail"]
+    return {"embed": {k: _leaf_to_torch(v, dev)
+                      for k, v in np_params["embed"].items()},
+            "layers": _by_layer(tree, cfg, dev)}
+
+
+def decode_state_to_torch(np_state, cfg, device=None) -> list:
+    """The reference's decode state (``repro.models.init_decode_state``'s
+    layout, numpy leaves) as the port's list of per-layer states."""
+    return _by_layer(np_state, cfg, resolve_device(device))
+
+
+def decode_state_to_numpy(state, cfg) -> dict:
+    """The port's per-layer decode state in the reference's stacked layout
+    (numpy leaves; bfloat16 as float32)."""
+    def np_of(t):
+        return _to_numpy(t.float() if t.dtype == torch.bfloat16 else t)
+
+    P = len(cfg.block_pattern)
+    out = {f"slot{j}": {k: np.stack([np_of(state[li * P + j][k])
+                                     for li in range(cfg.n_superlayers)])
+                        for k in state[j]}
+           for j in range(P)}
+    base = cfg.n_superlayers * P
+    if cfg.tail_pattern:
+        out["tail"] = {f"tail{j}": {k: np_of(v)
+                                    for k, v in state[base + j].items()}
+                       for j in range(len(cfg.tail_pattern))}
+    return out

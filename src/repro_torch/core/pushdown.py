@@ -28,7 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
-from ..nmp.dfa import dfa_tables
+from ..nmp.dfa import dfa_tables, field_bytes
 from ..nmp.kvstore import chain_links, fib_hash, key_bits
 from ..nmp.regex import DFA
 from ..nmp.select import compact, scalar
@@ -103,14 +103,15 @@ def pushdown_select(devices: Optional[Sequence], capacity: int,
     """Distributed SELECT: each home shard filters its rows
     (``ops.select``), stitches its blocks' matches into ``capacity``
     rows, and the matches are gathered.  Rows split over ``devices`` in
-    contiguous blocks."""
+    contiguous blocks; ``capacity`` 0 is every row of a shard."""
     devs = shard_devices(devices)
     packs, counts = [], []
     for tbl in _row_shards(table, devs):
         n = tbl.shape[0]
-        if not 0 < capacity <= n:
-            raise ValueError(f"pushdown_select: capacity {capacity} must be "
-                             f"in [1, {n}], the rows of a shard")
+        cap = capacity or n
+        if not 0 < cap <= n:
+            raise ValueError(f"pushdown_select: capacity {cap} must be in "
+                             f"[1, {n}], the rows of a shard")
         packed, cnt = ops.select(tbl, x, y)
         pad = packed.shape[0] * packed.shape[1] - n
         fill = scalar(ops.pad_fill(tbl.dtype), tbl.dtype)
@@ -120,7 +121,7 @@ def pushdown_select(devices: Optional[Sequence], capacity: int,
             # they sit last in the last block, after its real matches.
             cnt = cnt.clone()
             cnt[-1] -= pad
-        rows, count = stitch(packed, cnt, capacity)
+        rows, count = stitch(packed, cnt, cap)
         packs.append(rows)
         counts.append(count)
     return _gather(packs, counts, devs[0])
@@ -131,12 +132,14 @@ def pushdown_regex(devices: Optional[Sequence], capacity: int, dfa: DFA,
                    str_hi: int) -> PushdownResult:
     """Distributed REGEXP_LIKE filter (paper §5.6): each home shard runs
     ``ops.regex_match`` over its rows' string columns ``[str_lo, str_hi)``
-    (cast to uint8) and compacts its matching rows stably."""
+    (cast to uint8 by ``nmp.dfa.field_bytes``, which saturates a float)
+    and compacts its matching rows stably; ``capacity`` 0 is every row of
+    a shard."""
     devs = shard_devices(devices)
     packs, counts = [], []
     for tbl in _row_shards(table, devs):
         trans, accept = dfa_tables(dfa, tbl.device)
-        strings = tbl[:, str_lo:str_hi].to(torch.uint8).contiguous()
+        strings = field_bytes(tbl[:, str_lo:str_hi]).contiguous()
         packed, count = compact(tbl, ops.regex_match(trans, accept, strings),
                                 capacity)
         packs.append(packed)

@@ -15,6 +15,8 @@
 // of bits, the DFA table sits in shared memory, and the hash table stays
 // in device memory at any size.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,40 +35,58 @@ __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
 // --------------------------------------------------------------------------
 // select_scan (replaces select_scan, src/repro/kernels/select_scan.py:62)
 //
-// Per block of block_rows rows of a [n, w] fp32 table: the rows with
+// Per block of block_rows rows of a [n, w] table: the rows with
 // col0 > x && col1 < y are packed to the front of the block's output in
 // row order, zeros after, and the block's match count is written.
+//
+// The compare is typed, the copy is not.  T is the table's element type
+// (float, __nv_bfloat16, __half or int32_t): the two filter columns are
+// compared in T's own values — x and y come already rounded to T, as
+// JAX's weak-typed scalars are, so a bf16 table compares with 0.3 as
+// 0.30078125; a bf16 or fp16 value and its rounded bound widen to float
+// exactly, an int32 compares as an int.  Word is the unit the rows'
+// bits are copied in: 16 bytes where the row's bytes allow it, else the
+// element's own width.
 //
 // One CUDA block per row block, one thread per row.  Each thread reads
 // its row's two filter columns (one 32-byte sector of a 128-byte row);
 // a warp ballot and popc give each match its rank in its warp, one warp
 // scans the per-warp counts, and each match writes its row index to its
-// slot.  Then the whole block copies: output slot s takes the 16-byte
-// words of row src[s] while s < count, zeros after — neighbouring threads
-// on neighbouring words, so the matching rows are read once and the
-// output is written once, coalesced.  The rows' bits are copied as
-// integers, never as floats (the MXU product 0*x of the Pallas kernel
-// turns -0.0 into +0.0 and spreads a NaN over its block).  Bound: bytes —
-// one sector of every row, the rest of every matching row, and the whole
+// slot.  Then the whole block copies: output slot s takes the words of
+// row src[s] while s < count, zeros after — neighbouring threads on
+// neighbouring words, so the matching rows are read once and the output
+// is written once, coalesced.  The rows' bits are copied as integers,
+// never as floats (the MXU product 0*x of the Pallas kernel turns -0.0
+// into +0.0 and spreads a NaN over its block).  Bound: bytes — one
+// sector of every row, the rest of every matching row, and the whole
 // output, zeros included.
 // --------------------------------------------------------------------------
 
-template <bool kVec4>
-__global__ void select_scan_kernel(const uint32_t* __restrict__ table,
-                                   float x, float y, int w,
-                                   uint32_t* __restrict__ out,
+__device__ __forceinline__ float cmp_value(float v) { return v; }
+__device__ __forceinline__ float cmp_value(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float cmp_value(__half v) {
+  return __half2float(v);
+}
+__device__ __forceinline__ int cmp_value(int32_t v) { return v; }
+
+template <typename T, typename Word>
+__global__ void select_scan_kernel(const T* __restrict__ table,
+                                   double x, double y, int w,
+                                   Word* __restrict__ out,
                                    int32_t* __restrict__ counts) {
+  using C = decltype(cmp_value(T()));
   __shared__ int s_warp[kMaxBlockRows / 32];
   __shared__ int s_src[kMaxBlockRows];
   __shared__ int s_count;
   const int br = blockDim.x;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int64_t base = (int64_t)blockIdx.x * br * w;
-  const uint32_t* rows = table + base;
+  const T* rows = table + (int64_t)blockIdx.x * br * w;
 
-  const float a = __uint_as_float(rows[(int64_t)t * w]);
-  const float b = __uint_as_float(rows[(int64_t)t * w + 1]);
-  const bool m = (a > x) && (b < y);
+  const C a = cmp_value(rows[(int64_t)t * w]);
+  const C b = cmp_value(rows[(int64_t)t * w + 1]);
+  const bool m = (a > (C)x) && (b < (C)y);
   const unsigned bal = __ballot_sync(0xffffffffu, m);
   if (lane == 0) s_warp[warp] = __popc(bal);
   __syncthreads();
@@ -83,26 +103,36 @@ __global__ void select_scan_kernel(const uint32_t* __restrict__ table,
   __syncthreads();
 
   const int count = s_count;
-  uint32_t* o = out + base;
-  if (kVec4) {
-    const int w4 = w >> 2;
-    const uint4* in4 = reinterpret_cast<const uint4*>(rows);
-    uint4* o4 = reinterpret_cast<uint4*>(o);
-    for (int i = t; i < br * w4; i += br) {
-      const int slot = i / w4;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (slot < count) v = in4[(int64_t)s_src[slot] * w4 + (i - slot * w4)];
-      o4[i] = v;
-    }
-  } else {
-    for (int i = t; i < br * w; i += br) {
-      const int slot = i / w;
-      uint32_t v = 0u;
-      if (slot < count) v = rows[(int64_t)s_src[slot] * w + (i - slot * w)];
-      o[i] = v;
-    }
+  const int ww = (int)(w * sizeof(T) / sizeof(Word));   // words per row
+  const Word* in = reinterpret_cast<const Word*>(rows);
+  Word* o = out + (int64_t)blockIdx.x * br * ww;
+  for (int i = t; i < br * ww; i += br) {
+    const int slot = i / ww;
+    Word v{};
+    if (slot < count) v = in[(int64_t)s_src[slot] * ww + (i - slot * ww)];
+    o[i] = v;
   }
   if (t == 0) counts[blockIdx.x] = count;
+}
+
+template <typename T, typename Word>
+void launch_select(const void* table, double x, double y, long long nb,
+                   int br, int w, void* out, void* counts,
+                   cudaStream_t stream) {
+  select_scan_kernel<T, Word><<<(unsigned)nb, br, 0, stream>>>(
+      (const T*)table, x, y, w, (Word*)out, (int32_t*)counts);
+}
+
+template <typename T, typename Elem>
+void select_by_width(const void* table, double x, double y, long long nb,
+                     int br, int w, void* out, void* counts,
+                     cudaStream_t stream) {
+  const bool vec16 = (w * sizeof(T)) % 16 == 0 &&
+                     (uintptr_t)table % 16 == 0 && (uintptr_t)out % 16 == 0;
+  if (vec16)
+    launch_select<T, uint4>(table, x, y, nb, br, w, out, counts, stream);
+  else
+    launch_select<T, Elem>(table, x, y, nb, br, w, out, counts, stream);
 }
 
 // --------------------------------------------------------------------------
@@ -235,23 +265,27 @@ __global__ void hash_probe_kernel(const int32_t* __restrict__ heads,
 
 extern "C" {
 
-int nmp_select_scan(const void* table, float x, float y, long long n_blocks,
-                    int block_rows, int w, void* out, void* counts,
-                    void* stream) {
+// dtype: 0 float32, 1 bfloat16, 2 float16, 3 int32.
+int nmp_select_scan(const void* table, int dtype, double x, double y,
+                    long long n_blocks, int block_rows, int w, void* out,
+                    void* counts, void* stream) {
   if (n_blocks > 0) {
-    const bool vec4 = (w % 4 == 0) &&
-                      ((uintptr_t)table % 16 == 0) &&
-                      ((uintptr_t)out % 16 == 0);
-    if (vec4)
-      select_scan_kernel<true><<<(unsigned)n_blocks, block_rows, 0,
-                                 (cudaStream_t)stream>>>(
-          (const uint32_t*)table, x, y, w, (uint32_t*)out,
-          (int32_t*)counts);
-    else
-      select_scan_kernel<false><<<(unsigned)n_blocks, block_rows, 0,
-                                  (cudaStream_t)stream>>>(
-          (const uint32_t*)table, x, y, w, (uint32_t*)out,
-          (int32_t*)counts);
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (dtype) {
+      case 0: select_by_width<float, uint32_t>(table, x, y, n_blocks,
+                                               block_rows, w, out, counts,
+                                               st); break;
+      case 1: select_by_width<__nv_bfloat16, uint16_t>(
+                  table, x, y, n_blocks, block_rows, w, out, counts, st);
+              break;
+      case 2: select_by_width<__half, uint16_t>(table, x, y, n_blocks,
+                                                block_rows, w, out, counts,
+                                                st); break;
+      case 3: select_by_width<int32_t, uint32_t>(table, x, y, n_blocks,
+                                                 block_rows, w, out, counts,
+                                                 st); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,10 @@
   (CUDA C++ in ``csrc/coherency_step.cu``), dispatching by device;
 * ``nmp``            — the wrappers of the three near-memory kernels
   (``select_scan``, ``regex_dfa``, ``hash_probe``; ``csrc/nmp.cu``);
-* ``ops``            — the near-memory kernels' entry points, with the
-  reference's padding;
-* ``ref``            — the plain PyTorch versions of all nine;
+* ``models``         — the wrappers of the model substrate's two kernels
+  (``flash_attention``, ``rglru_scan``; ``csrc/models.cu``);
+* ``ops``            — the near-memory and model kernels' entry points,
+  with the reference's padding and routing;
+* ``ref``            — the plain PyTorch versions of all eleven;
 * ``build``          — compiles ``csrc/*.cu`` with ``nvcc`` at first use.
 """

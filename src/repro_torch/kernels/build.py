@@ -5,6 +5,8 @@ library with a plain C interface under ``build/`` at the root of the
 checkout, named by a hash of its source and flags, so an edited source
 rebuilds and an unchanged one is loaded as it is.  The library is loaded
 with ``ctypes``; nothing here runs when the module is imported.
+``Library`` binds a source's C entry points and launches them on
+PyTorch's current stream, counting the launches of each kernel.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: build outputs live in the checkout (``build/`` is git-ignored).
@@ -83,3 +85,38 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _LIBS[name] = lib
         return lib
+
+
+class Library:
+    """The C entry points of ``csrc/<name>.cu``: ``sigs`` maps each symbol
+    to its ``argtypes`` before the stream, which every entry point takes
+    last; each returns ``cudaGetLastError()``.  Built and bound at the
+    first launch.  ``launches[kernel]`` counts the launches of each of
+    ``kernels``."""
+
+    def __init__(self, name: str, sigs: Dict[str, Tuple],
+                 kernels: Iterable[str]):
+        self.name, self.sigs = name, sigs
+        self.launches: Dict[str, int] = dict.fromkeys(kernels, 0)
+        self._fns: Dict[str, ctypes._CFuncPtr] = {}
+
+    def reset_launches(self) -> None:
+        for k in self.launches:
+            self.launches[k] = 0
+
+    def launch(self, kernel: str, sym: str, *args) -> None:
+        """Call ``sym`` with ``args`` and the current stream; raise if the
+        launch failed, else count one launch of ``kernel``."""
+        import torch
+        if not self._fns:
+            lib = load(self.name)
+            for s, argtypes in self.sigs.items():
+                fn = getattr(lib, s)
+                fn.argtypes = tuple(argtypes) + (ctypes.c_void_p,)
+                fn.restype = ctypes.c_int
+                self._fns[s] = fn
+        err = self._fns[sym](*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{kernel}: CUDA launch failed with error "
+                               f"{err}")
+        self.launches[kernel] += 1

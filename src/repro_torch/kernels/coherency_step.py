@@ -30,47 +30,30 @@ from typing import Dict, Tuple
 import torch
 
 from . import ref
+from .build import Library
 
 #: the latency histogram's bucket edges (engine steps), fixed in the CUDA
 #: source as ``lat_bucket``'s ``edges``.
 LAT_EDGES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
-#: kernel launches per wrapper since the last ``reset_launches()``.
-launches: Dict[str, int] = {"credit_rank": 0, "arb_winner": 0,
-                            "count_fold": 0, "lat_hist": 0,
-                            "packed_any": 0, "packed_fanout": 0}
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
-    "coh_credit_rank": (_P, _P, _P, _I, _I, _P),
-    "coh_arb_winner": (_P, _P, _P, _I, _I, _I, _P),
-    "coh_count_fold": (_P, _P, _P, _P, ctypes.c_longlong, _P),
-    "coh_lat_hist": (_P, _P, _P, _I, _I, _P),
-    "coh_packed_any": (_P, _P, ctypes.c_longlong, _I, _P),
+    "coh_credit_rank": (_P, _P, _P, _I, _I),
+    "coh_arb_winner": (_P, _P, _P, _I, _I, _I),
+    "coh_count_fold": (_P, _P, _P, _P, ctypes.c_longlong),
+    "coh_lat_hist": (_P, _P, _P, _I, _I),
+    "coh_packed_any": (_P, _P, ctypes.c_longlong, _I),
     "coh_packed_fanout": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                          _I, _P),
+                          _I),
 }
-_fns: Dict[str, ctypes._CFuncPtr] = {}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
-def _fn(name: str):
-    f = _fns.get(name)
-    if f is None:
-        from .build import load
-        lib = load("coherency_step")
-        for sym, argtypes in _SIGS.items():
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _fns[sym] = fn
-        f = _fns[name]
-    return f
+_LIB = Library("coherency_step", _SIGS,
+               ("credit_rank", "arb_winner", "count_fold", "lat_hist",
+                "packed_any", "packed_fanout"))
+#: kernel launches per wrapper since the last ``reset_launches()``.
+launches: Dict[str, int] = _LIB.launches
+reset_launches = _LIB.reset_launches
+_launch = _LIB.launch
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -84,14 +67,6 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
-
-
-def _launch(kernel: str, sym: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _fn(sym)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
-    launches[kernel] += 1
 
 
 def credit_rank(active: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:

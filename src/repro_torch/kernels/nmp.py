@@ -27,57 +27,38 @@ import torch
 
 from ..nmp.select import scalar
 from . import ref
+from .build import Library
 from .coherency_step import _check
-
-#: kernel launches per wrapper since the last ``reset_launches()``.
-launches: Dict[str, int] = {"select_scan": 0, "regex_dfa": 0,
-                            "hash_probe": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGS = {
-    "nmp_select_scan": (_P, ctypes.c_float, ctypes.c_float, _LL, _I, _I,
-                        _P, _P),
+    "nmp_select_scan": (_P, _I, ctypes.c_double, ctypes.c_double, _LL, _I,
+                        _I, _P, _P),
     "nmp_regex_dfa": (_P, _I, _P, _LL, _I, _P),
     "nmp_hash_probe": (_P, _I, _P, _P, _P, _LL, _I, _P, _P),
 }
-_fns: Dict[str, ctypes._CFuncPtr] = {}
+_LIB = Library("nmp", _SIGS, ("select_scan", "regex_dfa", "hash_probe"))
+#: kernel launches per wrapper since the last ``reset_launches()``.
+launches: Dict[str, int] = _LIB.launches
+reset_launches = _LIB.reset_launches
+_launch = _LIB.launch
 
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
-def _fn(name: str):
-    f = _fns.get(name)
-    if f is None:
-        from .build import load
-        lib = load("nmp")
-        for sym, argtypes in _SIGS.items():
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes + (_P,)          # ... , stream
-            fn.restype = ctypes.c_int
-            _fns[sym] = fn
-        f = _fns[name]
-    return f
-
-
-def _launch(kernel: str, sym: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _fn(sym)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
-    launches[kernel] += 1
+#: the table dtypes ``select_scan`` takes on the card, as the CUDA
+#: entry point numbers them (``csrc/nmp.cu``, ``nmp_select_scan``).
+SELECT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                 torch.int32: 3}
 
 
 def select_scan(table: torch.Tensor, x, y, block_rows: int = 256
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(packed [n/block_rows, block_rows, w], counts [n/block_rows]
     int32): per block of rows of ``table`` [n, w], the rows with
-    ``col0 > x & col1 < y`` first in row order, zeros after.  On the card
-    the table is float32 and ``block_rows`` a multiple of 32 up to 1024."""
+    ``col0 > x & col1 < y`` first in row order, zeros after.  ``x`` and
+    ``y`` are rounded to the table's dtype and compared in it, as the
+    reference's weak-typed scalars are.  On the card the table is one of
+    ``SELECT_DTYPES`` and ``block_rows`` a multiple of 32 up to 1024."""
     if table.device.type == "cpu":
         return ref.select_scan_ref(table, x, y, block_rows)
     if table.dim() != 2 or table.shape[1] < 2:
@@ -87,14 +68,19 @@ def select_scan(table: torch.Tensor, x, y, block_rows: int = 256
     if block_rows % 32 or not 32 <= block_rows <= 1024 or n % block_rows:
         raise ValueError(f"select_scan: block_rows={block_rows} must be a "
                          f"multiple of 32 in [32, 1024] dividing n={n}")
-    _check("select_scan", table, torch.float32, table.device)
+    if table.dtype not in SELECT_DTYPES:
+        raise TypeError(f"select_scan: dtype {table.dtype}, expected one of "
+                        f"{sorted(str(d) for d in SELECT_DTYPES)}")
+    _check("select_scan", table, table.dtype, table.device)
     nb = n // block_rows
     packed = torch.empty((nb, block_rows, w), dtype=table.dtype,
                          device=table.device)
     counts = torch.empty(nb, dtype=torch.int32, device=table.device)
-    xf, yf = (float(scalar(v, torch.float32)) for v in (x, y))
-    _launch("select_scan", "nmp_select_scan", table.data_ptr(), xf, yf,
-            nb, block_rows, w, packed.data_ptr(), counts.data_ptr())
+    # the bounds rounded to the table's dtype, exact in a double.
+    xd, yd = (float(scalar(v, table.dtype)) for v in (x, y))
+    _launch("select_scan", "nmp_select_scan", table.data_ptr(),
+            SELECT_DTYPES[table.dtype], xd, yd, nb, block_rows, w,
+            packed.data_ptr(), counts.data_ptr())
     return packed, counts
 
 

@@ -1,18 +1,23 @@
-"""Public entry points of the near-memory kernels, with the reference's
-padding (``repro.kernels.ops``).
+"""Public entry points of the kernels, with the reference's padding and
+routing (``repro.kernels.ops``).
 
-Each pads its rows to a multiple of the block, calls its wrapper in
-``kernels.nmp`` — the CUDA kernel for tensors on the card, the plain
-version for tensors on the CPU — and, except for ``select``, slices the
-padding off.  One call launches its kernel once.
+The near-memory ones pad their rows to a multiple of the block, call
+their wrapper in ``kernels.nmp`` — the CUDA kernel for tensors on the
+card, the plain version for tensors on the CPU — and, except for
+``select``, slice the padding off.  ``attention`` and ``rglru`` route as
+the reference does with ``use_kernel=True``: the shapes that reach its
+Pallas kernel reach the wrapper in ``kernels.models``, the others its
+plain versions, on either device.  One call launches at most one kernel.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from . import models as _models
 from . import nmp as _nmp
+from . import ref as _ref
 
 
 def pad_fill(dtype: torch.dtype):
@@ -58,3 +63,45 @@ def probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
     padded, n = _pad_rows(queries, block_q)
     found, steps = _nmp.hash_probe(heads, keys, nxt, padded, max_chain)
     return found[:n], steps[:n]
+
+
+#: the reference's block sizes (``repro.kernels.ops``): a shape reaches
+#: its Pallas kernel when each length is a multiple of ``min(BLOCK, .)``.
+BLOCK = 128
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None,
+              kv_length=None) -> torch.Tensor:
+    """Attention entry point of the model layers: q [B, Hq, Sq, D] over
+    k, v [B, Hkv, Sk, D].
+
+    The kernel (``kernels.models.flash_attention``) takes the shapes the
+    reference's Pallas kernel takes: no ``kv_length``, ``Sq`` and ``Sk``
+    multiples of their blocks (``min(BLOCK, S)``).  Otherwise a large or
+    decode shape (``Sq * Sk > 256 * 256``, or ``kv_length`` set) runs
+    ``ref.chunked_attention`` and a small ragged one
+    ``ref.flash_attention_ref``."""
+    Sq, Sk = q.shape[2], k.shape[2]
+    if Sq % min(BLOCK, Sq) or Sk % min(BLOCK, Sk) or kv_length is not None:
+        if Sq * Sk > 256 * 256 or kv_length is not None:
+            return _ref.chunked_attention(q, k, v, causal=causal,
+                                          window=window, softcap=softcap,
+                                          kv_length=kv_length)
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, softcap=softcap)
+    return _models.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window, softcap=softcap)
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU scan over x, a [B, S, D]: the kernel
+    (``kernels.models.rglru_scan``) where ``S`` and ``D`` are multiples of
+    their blocks (``min(BLOCK, .)``), as the reference's Pallas kernel
+    needs, else ``ref.rglru_scan_ref``."""
+    S, D = x.shape[1], x.shape[2]
+    if S % min(BLOCK, S) or D % min(BLOCK, D):
+        return _ref.rglru_scan_ref(x, a)
+    return _models.rglru_scan(x.contiguous(), a.contiguous())

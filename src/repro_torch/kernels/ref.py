@@ -3,11 +3,15 @@
 Each function mirrors its twin in ``repro.kernels.ref`` on tensors: the
 six coherency-step kernels (the engine's own expressions there) and the
 three near-memory operators (``select_scan_ref``, ``regex_dfa_ref``,
-``hash_probe_ref``).  The wrappers in ``kernels.coherency_step`` and
-``kernels.nmp`` run these for tensors on the CPU — the path the tests
+``hash_probe_ref``) and the model substrate's two (``flash_attention_ref``
+with its chunked schedule ``chunked_attention``, and ``rglru_scan_ref``).
+The wrappers in ``kernels.coherency_step``, ``kernels.nmp`` and
+``kernels.models`` run these for tensors on the CPU — the path the tests
 hold against ``repro`` — and ``chip_smoke.py`` compares every CUDA kernel
-with its plain version on the card.  All nine are integer arithmetic or
-copies of bits, so the contract is bit-exact equality.
+with its plain version on the card.  The first nine are integer
+arithmetic or copies of bits, so their contract is bit-exact equality;
+the two float ones are held allclose, at 2e-5 (attention) and 3e-5
+(RG-LRU) in fp32, 2e-2 and 3e-2 in bf16.
 
 Packed directory words are int32 tensors holding the reference's uint32
 bits (bit 31 is the sign bit): torch has no ``>>`` or ``~`` for uint32
@@ -17,7 +21,7 @@ AND/OR/NOT or a compare with zero, which the sign does not change.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -181,3 +185,110 @@ def regex_dfa_ref(trans: torch.Tensor, accept: torch.Tensor,
 #: probe: the bucket of each query's ``fib_hash`` and at most
 #: ``max_chain`` entries of its chain (``nmp.kvstore.walk_chains``).
 hash_probe_ref = walk_chains
+
+
+#: a masked attention logit (the reference's ``-1e30``).
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        kv_length=None) -> torch.Tensor:
+    """Dense-softmax attention (``repro.kernels.ref.flash_attention_ref``).
+
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] with Hq % Hkv == 0 (query
+    head h reads KV head h // (Hq / Hkv)).  ``window``: key j is visible
+    from query i iff i - j < window; ``softcap``: ``cap * tanh(x / cap)``;
+    ``kv_length`` (an int or a 0-d tensor): the valid KV positions, with
+    the queries at the END of the valid region.  Scale ``D ** -0.5``.
+    Returns v's dtype."""
+    B, Hq, Sq, D = q.shape
+    rep = Hq // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * \
+        D ** -0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    Skv = k.shape[2]
+    valid = Skv if kv_length is None else kv_length
+    qi = torch.arange(Sq, device=q.device)[:, None] + (valid - Sq)
+    kj = torch.arange(Skv, device=q.device)[None, :]
+    mask = kj < valid
+    if causal:
+        mask = mask & (kj <= qi)
+    if window is not None:
+        mask = mask & ((qi - kj) < window)
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(v.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None, kv_length=None,
+                      chunk_q: int = 512, chunk_k: int = 1024
+                      ) -> torch.Tensor:
+    """Flash-style double-chunked attention
+    (``repro.kernels.ref.chunked_attention``): one (chunk_q x chunk_k)
+    logit tile per (batch, head) at a time, an online softmax over the key
+    chunks, GQA folded into the queries so KV is never repeated.  Ragged
+    shapes fall through to ``flash_attention_ref``.  Returns q's dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
+    if Sq % cq or Sk % ck:
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, kv_length=kv_length)
+    scale = D ** -0.5
+    valid = Sk if kv_length is None else kv_length
+    q5 = q.reshape(B, Hkv, rep, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    outs = []
+    for i in range(Sq // cq):
+        qb = q5[:, :, :, i * cq:(i + 1) * cq]
+        q_pos = i * cq + torch.arange(cq, device=q.device) + (valid - Sq)
+        m = torch.full((B, Hkv, rep, cq), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, rep, cq), device=q.device)
+        acc = torch.zeros((B, Hkv, rep, cq, D), device=q.device)
+        for j in range(Sk // ck):
+            kb = kf[:, :, j * ck:(j + 1) * ck]
+            vb = vf[:, :, j * ck:(j + 1) * ck]
+            k_pos = j * ck + torch.arange(ck, device=q.device)
+            lg = torch.einsum("bhrqd,bhkd->bhrqk", qb, kb) * scale
+            if softcap is not None:
+                lg = softcap * torch.tanh(lg / softcap)
+            mask = (k_pos < valid)[None, :]
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+            lg = torch.where(mask, lg, NEG_INF)
+            m2 = torch.maximum(m, lg.amax(dim=-1))
+            dead = m2 <= -1e29
+            alpha = torch.where(dead, 1.0, torch.exp(m - m2))
+            p = torch.where(dead[..., None], 0.0,
+                            torch.exp(lg - m2[..., None]))
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhrqk,bhkd->bhrqd", p, vb)
+            m = m2
+        out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=3).reshape(B, Hq, Sq, D)
+
+
+def rglru_scan_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` per channel
+    (``repro.kernels.ref.rglru_scan_ref``): x, a [B, S, D] -> h [B, S, D]
+    in x's dtype, the carry in fp32 from zeros."""
+    af = a.float()
+    gx = torch.sqrt(torch.clamp(1.0 - af ** 2, min=0.0)) * x.float()
+    h = torch.zeros_like(gx[:, 0])
+    hs = []
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + gx[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype)

@@ -1,0 +1,208 @@
+"""Shared model layers: RMSNorm, RoPE, GQA attention (full/local/softcap),
+MLP variants, embeddings.
+
+The port of ``repro.models.layers``: plain functions over explicit
+parameter dicts (the reference's keys), in the reference's cast order —
+norms and activations in fp32, cast back to the block's dtype; the
+logits multiplied in the model's dtype and cast to fp32.  Attention goes
+through ``kernels.ops.attention``, which launches the CUDA kernel on the
+shapes where the reference reaches its Pallas kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops as kops
+from .config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+#: the ROADMAP item that ports quantized weights (``serve/quantize.py``).
+QUANT_ITEM = "ROADMAP Queue 1 item 20 (serve/quantize.py)"
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, fan_in: int, shape, dtype,
+               device) -> torch.Tensor:
+    """Normal times ``fan_in ** -0.5``, drawn in fp32 from ``gen`` (on
+    ``device``) and cast to ``dtype``."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * fan_in ** -0.5).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# matmul entry point
+# ---------------------------------------------------------------------------
+
+
+def mm(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w``.  A quantized ``{"q", "s"}`` weight is not ported yet."""
+    if isinstance(w, dict):
+        raise NotImplementedError(f"quantized weights: {QUANT_ITEM}")
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# normalization / rotary
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32 with scale ``1 + gamma``, cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: [B, H, S, D] with D even; positions: [B, S] or [S].  The two
+    halves rotate (``cat``), not interleaved pairs; frequencies
+    ``theta ** (-arange(half) / half)``, angles in fp32."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[:, None, :, None].float() * freqs      # B, 1, S, half
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention block (GQA / MQA / local / softcap / qk-norm)
+# ---------------------------------------------------------------------------
+
+
+def attn_params(gen, cfg: ModelConfig, dtype, device) -> Params:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    p = {
+        "wq": dense_init(gen, d, (d, h * hd), dtype, device),
+        "wk": dense_init(gen, d, (d, hkv * hd), dtype, device),
+        "wv": dense_init(gen, d, (d, hkv * hd), dtype, device),
+        "wo": dense_init(gen, h * hd, (h * hd, d), dtype, device),
+        "ln": torch.zeros((d,), dtype=dtype, device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return p
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[B, S, n * hd] -> [B, n, S, hd]."""
+    B, S, _ = t.shape
+    return t.reshape(B, S, n, hd).transpose(1, 2)
+
+
+def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *, window: Optional[int],
+                    kv_cache: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
+                    cache_index: Optional[int] = None
+                    ) -> Tuple[torch.Tensor,
+                               Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Pre-norm causal attention with residual: (y, kv_cache).
+
+    ``kv_cache``: (k, v) [B, Hkv, S_max, hd], written IN PLACE at
+    ``cache_index`` (clamped to ``[0, S_max - S]``, as
+    ``jax.lax.dynamic_update_slice`` clamps) and attended over its valid
+    prefix (``kv_length = cache_index + S``) — the decode path.
+    """
+    B, S, d = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    kv_length = None
+    xn = rms_norm(x, p["ln"])
+    q = split_heads(mm(xn, p["wq"]), h, hd)
+    k = split_heads(mm(xn, p["wk"]), hkv, hd)
+    v = split_heads(mm(xn, p["wv"]), hkv, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    k = rope(k, positions, cfg.rope_theta)
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        start = min(max(int(cache_index), 0), ck.shape[2] - S)
+        ck[:, :, start:start + S] = k.to(ck.dtype)
+        cv[:, :, start:start + S] = v.to(cv.dtype)
+        k, v = ck, cv
+        kv_length = int(cache_index) + S
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    q = rope(q, positions, cfg.rope_theta)
+
+    o = kops.attention(q, k, v, causal=True, window=window,
+                       softcap=cfg.attn_softcap, kv_length=kv_length)
+    o = o.transpose(1, 2).reshape(B, S, h * hd)
+    return x + mm(o, p["wo"]), kv_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+
+
+def mlp_params(gen, cfg: ModelConfig, dtype, device) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"ln": torch.zeros((d,), dtype=dtype, device=device),
+         "w1": dense_init(gen, d, (d, f), dtype, device),
+         "w2": dense_init(gen, f, (f, d), dtype, device)}
+    if cfg.mlp == "swiglu":
+        p["w3"] = dense_init(gen, d, (d, f), dtype, device)
+    return p
+
+
+def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Pre-norm MLP with residual: swiglu (silu in fp32), relu2
+    (nemotron-4's squared ReLU) or gelu (the tanh form, in fp32, as
+    ``jax.nn.gelu``'s default)."""
+    xn = rms_norm(x, p["ln"])
+    if cfg.mlp == "swiglu":
+        hmid = F.silu(mm(xn, p["w1"]).float()).to(x.dtype) * mm(xn, p["w3"])
+    elif cfg.mlp == "relu2":
+        r = torch.relu(mm(xn, p["w1"]))
+        hmid = r * r
+    else:
+        hmid = F.gelu(mm(xn, p["w1"]).float(),
+                      approximate="tanh").to(x.dtype)
+    return x + mm(hmid, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# embeddings / logits
+# ---------------------------------------------------------------------------
+
+
+def embed_params(gen, cfg: ModelConfig, dtype, device) -> Params:
+    vp, d = cfg.padded_vocab, cfg.d_model
+    p = {"tok": dense_init(gen, d, (vp, d), dtype, device),
+         "final_ln": torch.zeros((d,), dtype=dtype, device=device)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, d, (d, vp), dtype, device)
+    return p
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits over the PADDED vocab; the pad columns are -1e30 and
+    the final softcap applies where the config has one."""
+    xn = rms_norm(x, p["final_ln"])
+    out = xn @ p["tok"].T if cfg.tie_embeddings else mm(xn, p["head"])
+    out = out.float()
+    if cfg.logit_softcap is not None:
+        out = cfg.logit_softcap * torch.tanh(out / cfg.logit_softcap)
+    if cfg.padded_vocab != cfg.vocab:
+        out[..., cfg.vocab:] = -1e30
+    return out

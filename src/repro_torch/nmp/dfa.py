@@ -23,6 +23,16 @@ def dfa_tables(dfa: DFA, device) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.as_tensor(dfa.accept, dtype=torch.bool).to(device))
 
 
+def field_bytes(field: torch.Tensor) -> torch.Tensor:
+    """``field`` as uint8, as the reference's ``.astype(jnp.uint8)`` casts
+    it: a float saturates to [0, 255] and NaN becomes 0 (``.to(uint8)``
+    alone wraps: 376.0 would become 120, ``x``); an integer keeps its low
+    8 bits.  The same on the CPU and on the card."""
+    if field.dtype.is_floating_point:
+        field = torch.nan_to_num(field, nan=0.0).clamp(0, 255)
+    return field.to(torch.uint8)
+
+
 def dfa_match(dfa: DFA, strings: torch.Tensor,
               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[rows] bool: each row of ``strings`` ([rows, width] uint8) run
@@ -43,8 +53,9 @@ def dfa_select(dfa: DFA, table: torch.Tensor, str_lo: int, str_hi: int,
                capacity: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Regex-filter a table whose columns ``[str_lo, str_hi)`` hold the
-    string field, cast to uint8.  Same packing contract as
-    ``nmp.select.select_scan``: (packed, count, mask)."""
-    mask = dfa_match(dfa, table[:, str_lo:str_hi].to(torch.uint8))
-    packed, count = compact(table, mask, capacity or table.shape[0])
+    string field, cast to uint8 by ``field_bytes``.  Same packing contract
+    as ``nmp.select.select_scan``: (packed, count, mask); ``capacity`` 0 or
+    ``None`` is every row."""
+    mask = dfa_match(dfa, field_bytes(table[:, str_lo:str_hi]))
+    packed, count = compact(table, mask, capacity)
     return packed, count, mask

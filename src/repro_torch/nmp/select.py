@@ -53,13 +53,15 @@ def scalar(v, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float64).to(dtype)
 
 
-def compact(rows: torch.Tensor, mask: torch.Tensor, capacity: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def compact(rows: torch.Tensor, mask: torch.Tensor,
+            capacity: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """(packed [capacity, w] — the rows of ``mask`` first, in row order,
     zeros past the count —, count [] int32): what the reference's stable
     argsort of ``~mask`` gives, from the mask's nonzero indices (one
     host sync).  Only the rows kept are gathered.  ``capacity`` is at
-    most the number of rows."""
+    most the number of rows; 0 or ``None`` means all of them (the
+    reference's ``capacity or n``)."""
+    capacity = capacity or rows.shape[0]
     if not 0 < capacity <= rows.shape[0]:
         raise ValueError(f"capacity {capacity} must be in [1, "
                          f"{rows.shape[0]}], the rows given")
@@ -78,7 +80,6 @@ def select_scan(table: torch.Tensor, x, y,
     count [] int32, mask [rows] bool).  Rows past ``count`` in ``packed``
     are zeros.
     """
-    capacity = capacity or table.shape[0]
     mask = predicate(table, scalar(x, table.dtype), scalar(y, table.dtype))
     packed, count = compact(table, mask, capacity)
     return packed, count, mask

@@ -1,0 +1,244 @@
+"""The model substrate's kernel twins and entry points against ``repro``.
+
+The same numpy inputs go through ``repro.kernels`` (the Pallas kernels in
+interpret mode on the CPU, as ``tests/test_kernels.py`` runs them, and the
+pure-jnp oracles of ``repro.kernels.ref``) and through ``repro_torch``'s
+counterparts on the CPU, where each kernel wrapper runs its plain
+version: ``flash_attention_ref``, ``chunked_attention`` (with and without
+``kv_length``) and ``rglru_scan_ref``, then ``ops.attention`` and
+``ops.rglru`` with the reference's routing.  Tolerances are those of
+``tests/test_kernels.py``: 2e-5 (attention) and 3e-5 (RG-LRU) in fp32,
+2e-2 and 3e-2 in bf16.  The CUDA kernels themselves are held against
+their plain versions on the card in ``tests/test_torch_gpu.py``.
+"""
+import ast
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import models as K  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SEED = 616
+
+#: ``tests/test_kernels.py``'s attention cases: B, Hq, Hkv, Sq, Sk, D,
+#: causal, window, softcap.
+ATTN_CASES = [
+    (2, 4, 2, 64, 64, 32, True, None, None),
+    (1, 4, 1, 32, 64, 16, True, None, None),     # MQA + longer KV
+    (1, 2, 2, 64, 64, 32, True, 16, None),       # sliding window
+    (1, 2, 2, 64, 64, 32, True, None, 30.0),     # gemma2 softcap
+    (1, 2, 2, 64, 64, 32, False, None, None),    # bidirectional (encoder)
+    (1, 3, 3, 1, 64, 32, True, None, None),      # decode
+]
+#: ``tests/test_kernels.py``'s RG-LRU shapes: B, S, D.
+RGLRU_CASES = [(2, 64, 32), (1, 128, 64), (3, 32, 16)]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+RGLRU_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.as_tensor(x).to(td)
+
+
+def _qkv(case, dtype, seed=SEED):
+    B, Hq, Hkv, Sq, Sk, D = case[:6]
+    rng = np.random.default_rng(seed + Sq + D)
+    return [_pair(rng, s, dtype) for s in
+            ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+# -- the plain twins against repro.kernels.ref ------------------------------
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_ref_equals_reference(case, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(case, dtype)
+    causal, window, cap = case[6:]
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window,
+                                    softcap=cap)
+    got = tref.flash_attention_ref(tq, tk, tv, causal=causal, window=window,
+                                   softcap=cap)
+    assert got.dtype == DTYPES[dtype][1]
+    _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("kv_length", [None, 1, 37, 96])
+@pytest.mark.parametrize("case", [
+    (1, 4, 2, 64, 128, 16, True, None, None),
+    (2, 2, 1, 32, 128, 32, True, 48, 50.0),
+    (1, 2, 2, 64, 64, 16, False, None, None),
+    (1, 4, 1, 1, 96, 32, True, None, None),      # decode over a cache
+    (1, 2, 2, 48, 80, 16, True, None, None),     # ragged: the dense oracle
+])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_chunked_attention_equals_reference(case, kv_length, dtype):
+    """Small chunks, so the online softmax walks several key chunks."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(case, dtype)
+    causal, window, cap = case[6:]
+    kw = dict(causal=causal, window=window, softcap=cap, chunk_q=16,
+              chunk_k=32)
+    want = jref.chunked_attention(
+        jq, jk, jv, kv_length=None if kv_length is None
+        else jnp.asarray(kv_length, jnp.int32), **kw)
+    got = tref.chunked_attention(tq, tk, tv, kv_length=kv_length, **kw)
+    assert got.dtype == DTYPES[dtype][1]
+    _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,D", RGLRU_CASES + [(2, 100, 40)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rglru_scan_ref_equals_reference(B, S, D, dtype):
+    rng = np.random.default_rng(SEED + S)
+    jx, tx = _pair(rng, (B, S, D), dtype)
+    a = 1 / (1 + np.exp(-rng.standard_normal((B, S, D)).astype(np.float32)))
+    jd, td = DTYPES[dtype]
+    want = jref.rglru_scan_ref(jx, jnp.asarray(a, jd))
+    got = tref.rglru_scan_ref(tx, torch.as_tensor(a).to(td))
+    assert got.dtype == td
+    _close(got, want, RGLRU_TOL[dtype])
+
+
+# -- ops against the Pallas kernels (interpret mode) ------------------------
+
+@pytest.mark.parametrize("case", ATTN_CASES + [
+    (1, 2, 1, 200, 200, 16, True, None, None),   # ragged, small: dense
+    (1, 2, 1, 300, 300, 16, True, 64, None),     # ragged, large: chunked
+    (1, 4, 2, 256, 256, 16, True, 100, 20.0),    # two blocks of 128
+])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ops_attention_equals_reference(case, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(case, dtype)
+    causal, window, cap = case[6:]
+    want = jops.attention(jq, jk, jv, causal=causal, window=window,
+                          softcap=cap, use_kernel=True)
+    before = dict(K.launches)
+    got = tops.attention(tq, tk, tv, causal=causal, window=window,
+                         softcap=cap)
+    assert K.launches == before              # the CPU runs no kernel
+    assert got.dtype == DTYPES[dtype][1]
+    _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ops_attention_with_kv_length_equals_reference(dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv((2, 4, 1, 1, 64, 32), dtype)
+    for n in (1, 30, 64):
+        want = jops.attention(jq, jk, jv, kv_length=jnp.asarray(n, jnp.int32),
+                              use_kernel=True)
+        got = tops.attention(tq, tk, tv, kv_length=n)
+        _close(got, want, ATTN_TOL[dtype])
+
+
+def test_ops_attention_routing(monkeypatch):
+    """Which version each shape reaches, as in ``repro.kernels.ops``."""
+    calls = []
+    for mod, name in ((K, "flash_attention"),
+                      (tref, "chunked_attention"),
+                      (tref, "flash_attention_ref")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(
+            mod, name, lambda *a, _n=name, _r=real, **kw:
+            (calls.append(_n), _r(*a, **kw))[1])
+    for Sq, Sk, kv_length, want in (
+            (64, 64, None, "flash_attention"),
+            (256, 256, None, "flash_attention"),
+            (1, 64, None, "flash_attention"),
+            (100, 100, None, "flash_attention"),        # one block of 100
+            (200, 200, None, "flash_attention_ref"),
+            (300, 300, None, "chunked_attention"),
+            (1, 64, 5, "chunked_attention")):
+        calls.clear()
+        q = torch.zeros((1, 2, Sq, 16))
+        k = torch.zeros((1, 1, Sk, 16))
+        tops.attention(q, k, k, kv_length=kv_length)
+        assert calls[0] == want, (Sq, Sk, kv_length, calls)
+
+
+@pytest.mark.parametrize("B,S,D", RGLRU_CASES + [(2, 100, 40), (1, 256, 128)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ops_rglru_equals_reference(B, S, D, dtype):
+    rng = np.random.default_rng(SEED + S)
+    jx, tx = _pair(rng, (B, S, D), dtype)
+    a = 1 / (1 + np.exp(-rng.standard_normal((B, S, D)).astype(np.float32)))
+    jd, td = DTYPES[dtype]
+    want = jops.rglru(jx, jnp.asarray(a, jd), use_kernel=True)
+    got = tops.rglru(tx, torch.as_tensor(a).to(td))
+    _close(got, want, RGLRU_TOL[dtype])
+
+
+# -- dispatch ----------------------------------------------------------------
+
+def test_cpu_wrappers_take_the_plain_versions():
+    before = dict(K.launches)
+    q = torch.randn((1, 2, 8, 16))
+    got = K.flash_attention(q, q, q, window=4, softcap=5.0)
+    torch.testing.assert_close(got, tref.flash_attention_ref(
+        q, q, q, window=4, softcap=5.0))
+    x = torch.randn((2, 8, 4))
+    torch.testing.assert_close(K.rglru_scan(x, torch.sigmoid(x)),
+                               tref.rglru_scan_ref(x, torch.sigmoid(x)))
+    assert K.launches == before
+
+
+def test_cpu_flash_attention_returns_q_dtype():
+    """The kernel's contract (q's dtype), where the oracle returns v's."""
+    q = torch.randn((1, 2, 8, 16))
+    assert K.flash_attention(q, q, q.bfloat16()).dtype == torch.float32
+
+
+def test_non_cpu_tensor_never_takes_plain_path(monkeypatch):
+    """Only a CPU tensor reaches the plain version: a tensor on any other
+    device takes the kernel path, whose checks refuse it."""
+    called = []
+    for name in ("flash_attention_ref", "rglru_scan_ref"):
+        monkeypatch.setattr(tref, name,
+                            lambda *a, _n=name, **kw: called.append(_n))
+    q = torch.zeros((1, 2, 64, 32), device="meta")
+    x = torch.zeros((2, 16, 8), device="meta")
+    before = dict(K.launches)
+    for call in (lambda: K.flash_attention(q, q, q),
+                 lambda: K.rglru_scan(x, x),
+                 lambda: tops.attention(q, q, q),
+                 lambda: tops.rglru(x, x)):
+        with pytest.raises(ValueError, match="runs on 'cuda' or 'cpu'"):
+            call()
+    assert called == []
+    assert K.launches == before
+
+
+def test_model_wrappers_have_no_fallback():
+    tree = ast.parse((ROOT / "src" / "repro_torch" / "kernels"
+                      / "models.py").read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_cuda_source_names_the_pallas_calls_it_replaces():
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "models.cu").read_text()
+    found = re.findall(r"replaces \w+,\s*(?://\s*)?"
+                       r"(src/repro/kernels/\w+\.py):(\d+)", src)
+    assert len(found) == 2
+    for path, line in found:
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert "pl.pallas_call(" in text, (path, line)
+

@@ -1,5 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the card's streaming run against the CPU's, bit for bit.
+the card's streaming run and model forward against the CPU's — bit for
+bit for the integer kernels, allclose at the tolerances of
+``tests/test_kernels.py`` for attention and the RG-LRU scan.
 
 Every test here needs a CUDA device and ``nvcc``; it carries the ``gpu``
 marker and skips elsewhere.  The file imports nothing of JAX or of
@@ -16,7 +18,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import pushdown as PD  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import coherency_step as K  # noqa: E402
+from repro_torch.kernels import models as MK  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.kernels import nmp as NK  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -313,8 +318,10 @@ def test_hash_probe_kernel(cuda, n, key_hi, n_buckets, max_chain):
 
 def test_nmp_kernels_refuse_wrong_inputs(cuda):
     t = torch.zeros((256, 8), device=cuda)
-    with pytest.raises(TypeError):
-        NK.select_scan(t.to(torch.bfloat16), 0.0, 1.0)
+    with pytest.raises(TypeError, match="float64"):
+        NK.select_scan(t.to(torch.float64), 0.0, 1.0)
+    with pytest.raises(TypeError, match="int64"):
+        NK.select_scan(t.to(torch.int64), 0.0, 1.0)
     with pytest.raises(ValueError):
         NK.select_scan(t, 0.0, 1.0, block_rows=100)
     with pytest.raises(ValueError):
@@ -397,3 +404,170 @@ def test_build_kvs_card_equals_cpu(cuda):
     for a, b in zip(PD.build_sharded_kvs(keys, vals, 256, 4, device=cuda),
                     PD.build_sharded_kvs(keys, vals, 256, 4, device="cpu")):
         assert a == b if isinstance(a, int) else torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int32])
+@pytest.mark.parametrize("w,block", [(32, 256), (7, 64), (8, 32)])
+def test_select_scan_kernel_dtypes(cuda, dtype, w, block):
+    """Every table dtype the reference's tests and ``make_table`` give;
+    the bounds round to the table's dtype (0.3 is 0.30078125 in bf16), so
+    rows at 0.3 and just above it tell a typed compare from an fp32 one."""
+    rng = np.random.default_rng(SEED + w)
+    n = 4 * block
+    if dtype == torch.int32:
+        t = torch.as_tensor(rng.integers(-5, 6, (n, w)).astype(np.int32))
+        x, y = 0.7, 2.2                  # int32(0.7) = 0, int32(2.2) = 2
+    else:
+        t = torch.as_tensor(rng.standard_normal((n, w)).astype(np.float32))
+        t[::4, 0] = 0.3
+        t[1::4, 0] = 0.30078125
+        t[2::4, 1] = 0.99
+        t = t.to(dtype)
+        x, y = 0.3, 1.0
+    got = NK.select_scan(t.to(cuda), x, y, block)
+    want = ref.select_scan_ref(t, x, y, block)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu().view(torch.uint8),
+                       want[0].view(torch.uint8))
+
+
+def test_pushdown_select_bf16_card_equals_cpu(cuda):
+    t = make_table(SEED, 2000, 16, 0.3, torch.bfloat16, device="cpu")
+    got = PD.pushdown_select([cuda], 0, t.to(cuda), 0.3, 1.0)
+    want = PD.pushdown_select(["cpu"], 0, t, 0.3, 1.0)
+    assert got.rows.shape == (1, 2000, 16)
+    assert torch.equal(got.rows.cpu().view(torch.int16),
+                       want.rows.view(torch.int16))
+    assert torch.equal(got.counts.cpu(), want.counts)
+
+
+def test_pushdown_regex_saturating_cast_on_card(cuda):
+    """A float string field saturates on the card as on the CPU."""
+    t = torch.full((256, 8), 97.0)
+    t[:, 1:6] = torch.tensor([ord(c) for c in "xyzzy"], dtype=torch.float32)
+    t[::2, 1] = 376.0              # wraps to 'x' (120) if not saturated
+    t[1::4, 7] = float("nan")
+    dfa = compile_regex("xyzzy")
+    got = PD.pushdown_regex([cuda], 0, dfa, t.to(cuda), 0, 8)
+    want = PD.pushdown_regex(["cpu"], 0, dfa, t, 0, 8)
+    assert int(got.counts[0]) == int(want.counts[0]) == 128
+    assert torch.equal(got.rows.cpu().view(torch.int32),
+                       want.rows.view(torch.int32))
+
+
+# -- the model substrate's kernels -------------------------------------------
+
+#: ``tests/test_kernels.py``'s cases (B, Hq, Hkv, Sq, Sk, D, causal, window,
+#: softcap), and head dim 256 with MQA and a window, as recurrentgemma's.
+ATTN_CASES = [
+    (2, 4, 2, 64, 64, 32, True, None, None),
+    (1, 4, 1, 32, 64, 16, True, None, None),
+    (1, 2, 2, 64, 64, 32, True, 16, None),
+    (1, 2, 2, 64, 64, 32, True, None, 30.0),
+    (1, 2, 2, 64, 64, 32, False, None, None),
+    (1, 3, 3, 1, 64, 32, True, None, None),
+    (1, 4, 1, 256, 256, 256, True, 100, None),
+    (2, 2, 1, 192, 320, 64, True, 128, 50.0),
+    (1, 2, 2, 130, 130, 128, True, None, None),
+]
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _normal(rng, shape, dtype):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                           ).to(dtype)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, case, dtype):
+    B, Hq, Hkv, Sq, Sk, D, causal, window, cap = case
+    rng = np.random.default_rng(SEED + Sq + D)
+    q = _normal(rng, (B, Hq, Sq, D), dtype).to(cuda)
+    k = _normal(rng, (B, Hkv, Sk, D), dtype).to(cuda)
+    v = _normal(rng, (B, Hkv, Sk, D), dtype).to(cuda)
+    MK.reset_launches()
+    got = MK.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+    assert MK.launches["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 64, 32), (1, 128, 64), (3, 32, 16),
+                                   (2, 100, 40), (4, 2048, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel(cuda, B, S, D, dtype):
+    rng = np.random.default_rng(SEED + S)
+    x = _normal(rng, (B, S, D), dtype).to(cuda)
+    a = torch.sigmoid(_normal(rng, (B, S, D), torch.float32)).to(dtype)
+    MK.reset_launches()
+    got = MK.rglru_scan(x, a.to(cuda))
+    assert MK.launches["rglru_scan"] == 1
+    want = ref.rglru_scan_ref(x, a.to(cuda))
+    tol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_model_kernels_refuse_wrong_inputs(cuda):
+    q = torch.zeros((1, 2, 64, 32), device=cuda)
+    with pytest.raises(TypeError):
+        MK.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        MK.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        MK.flash_attention(q, q[:, :1], q)             # v shape differs
+    with pytest.raises(ValueError):
+        MK.flash_attention(q, q[:, :, :, :16].contiguous(), q[..., :16])
+    with pytest.raises(ValueError):
+        MK.flash_attention(q[..., :24].contiguous(),
+                           q[..., :24].contiguous(), q[..., :24].contiguous())
+    with pytest.raises(ValueError):
+        MK.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
+                           q.transpose(2, 3))
+    with pytest.raises(ValueError):
+        MK.flash_attention(q, q.cpu(), q)
+    x = torch.zeros((2, 16, 8), device=cuda)
+    with pytest.raises(TypeError):
+        MK.rglru_scan(x.half(), x.half())
+    with pytest.raises(ValueError):
+        MK.rglru_scan(x, x[:, :8])
+    with pytest.raises(ValueError):
+        MK.rglru_scan(x.transpose(1, 2), x.transpose(1, 2))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-9b", "granite-34b",
+                                  "nemotron-4-340b", "chameleon-34b",
+                                  "recurrentgemma-9b"])
+def test_model_card_equals_cpu(cuda, arch):
+    """A smoke config's forward and decode on the card (kernels) equal the
+    CPU's (plain versions) on the same parameters, with one
+    ``flash_attention`` per attention block and one ``rglru_scan`` per
+    recurrent block in a forward."""
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cpu_p = T.init_params(cfg, generator=gen, device="cpu")
+    card_p = {"embed": {k: v.to(cuda) for k, v in cpu_p["embed"].items()},
+              "layers": [{n: {k: v.to(cuda) for k, v in blk.items()}
+                          for n, blk in layer.items()}
+                         for layer in cpu_p["layers"]]}
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (2, 16)))
+    MK.reset_launches()
+    got = T.forward(card_p, cfg, toks.to(cuda))
+    kinds = T.layer_kinds(cfg)
+    assert MK.launches == {"flash_attention": sum(k != "rg" for k in kinds),
+                           "rglru_scan": kinds.count("rg")}
+    want = T.forward(cpu_p, cfg, toks)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    st_g = T.init_decode_state(cfg, 2, 12, cuda)
+    st_c = T.init_decode_state(cfg, 2, 12, "cpu")
+    for t in range(12):
+        lg_g, st_g = T.decode_step(card_p, cfg, toks[:, t].to(cuda), t, st_g)
+        lg_c, st_c = T.decode_step(cpu_p, cfg, toks[:, t], t, st_c)
+        torch.testing.assert_close(lg_g.cpu(), lg_c, atol=2e-4, rtol=2e-4)

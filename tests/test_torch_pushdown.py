@@ -260,3 +260,107 @@ def test_default_devices_raise_without_cuda(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpd.build_sharded_kvs(np.arange(4, dtype=np.uint32),
                               np.ones((4, 1)), 4, 1)
+
+
+# -- repairs: the float field's saturating cast, capacity 0, bf16 tables ----
+
+FIELD_DTYPES = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16),
+                "float16": (jnp.float16, torch.float16)}
+
+
+def _f32(a):
+    """Rows of any float dtype as float32 numpy (NaN compares equal in
+    ``assert_array_equal``)."""
+    return (a.float().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a, np.float32))
+
+
+@pytest.mark.parametrize("dtype", list(FIELD_DTYPES))
+def test_field_bytes_saturates_as_reference(dtype):
+    from repro_torch.nmp.dfa import field_bytes
+    v = np.array([300.0, -1.0, 376.0, np.nan, np.inf, -np.inf, 65.7, 255.9,
+                  -0.5, 120.0, 0.0, 255.0], np.float32)
+    jd, td = FIELD_DTYPES[dtype]
+    want = np.asarray(jnp.asarray(v, jd).astype(jnp.uint8))
+    got = field_bytes(torch.as_tensor(v).to(td))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    ints = np.array([300, -1, 376, 65], np.int32)       # integers wrap
+    np.testing.assert_array_equal(
+        field_bytes(torch.as_tensor(ints)).numpy(),
+        np.asarray(jnp.asarray(ints).astype(jnp.uint8)))
+
+
+def _float_field_table():
+    """256 float rows whose field [1, 6) spells ``xyzzy``; in the even rows
+    the ``x`` is 376.0 (saturates to 255; wrapping gives 120, ``x``), and
+    other columns hold 300.0, -1.0 and NaN."""
+    t = np.full((256, 8), 97.0, np.float32)
+    t[:, 1:6] = np.frombuffer(b"xyzzy", np.uint8)
+    t[::2, 1] = 376.0
+    t[:, 6] = 300.0
+    t[1::4, 7] = -1.0
+    t[3::4, 7] = np.nan
+    return t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pushdown_regex_float_field_equals_reference(mesh1, dtype):
+    """The probe of the fault: 128 matches, as the reference finds (a
+    wrapping cast matched all 256)."""
+    t = _float_field_table()
+    jd, td = FIELD_DTYPES[dtype]
+    for lo, hi in ((0, 8), (1, 6)):
+        want = jpd.pushdown_regex(mesh1, "x", 256,
+                                  jregex.compile_regex("xyzzy"),
+                                  jnp.asarray(t, jd), lo, hi)
+        got = tpd.pushdown_regex(["cpu"], 256, tregex.compile_regex("xyzzy"),
+                                 torch.as_tensor(t).to(td), lo, hi)
+        assert int(got.counts[0]) == int(want.counts[0]) == 128
+        np.testing.assert_array_equal(_f32(got.rows), _f32(want.rows))
+        from repro_torch.nmp.dfa import dfa_select
+        jp, jc, jm = jdfa.dfa_select(jregex.compile_regex("xyzzy"),
+                                     jnp.asarray(t, jd), lo, hi)
+        tp, tc, tm = dfa_select(tregex.compile_regex("xyzzy"),
+                                torch.as_tensor(t).to(td), lo, hi)
+        assert int(tc) == int(jc) == 128
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        np.testing.assert_array_equal(_f32(tp), _f32(jp))
+
+
+def test_capacity_zero_is_every_row_as_reference(mesh1):
+    """``capacity=0`` reads as ``capacity or n`` (n: the rows of a
+    shard), in ``pushdown_select``, ``pushdown_regex`` and the select
+    operator, as in the reference."""
+    t = _table(512, 8, 0.4)
+    want = jpd.pushdown_select(mesh1, "x", 0, jnp.asarray(_np(t)), 0.0, 1.0)
+    got = tpd.pushdown_select(["cpu"], 0, t, 0.0, 1.0)
+    assert got.rows.shape == (1, 512, 8)
+    _same_result(got, want)
+    rt, lo, hi = _regex_table(300)
+    want = jpd.pushdown_regex(mesh1, "x", 0, jregex.compile_regex("xyzzy"),
+                              jnp.asarray(rt), lo, hi)
+    got = tpd.pushdown_regex(["cpu"], 0, tregex.compile_regex("xyzzy"),
+                             torch.as_tensor(rt), lo, hi)
+    assert got.rows.shape == (1, 300, rt.shape[1])
+    _same_result(got, want)
+    got = tpd.pushdown_select(["cpu"] * 4, 0, t, 0.0, 1.0)
+    assert got.rows.shape == (4, 128, 8)
+    jp, jc, _ = jsel.select_scan(jnp.asarray(_np(t)), 0.0, 1.0, capacity=0)
+    tp, tc = tsel.compact(t, tsel.predicate(t, 0.0, 1.0), 0)
+    np.testing.assert_array_equal(_bits(_np(tp)), _bits(np.asarray(jp)))
+    assert int(tc) == int(jc)
+
+
+def test_pushdown_select_bf16_equals_reference(mesh1):
+    """A bf16 table compares in bf16: 0.3 is 0.30078125 there, so rows at
+    exactly that value do not pass ``a > 0.3``."""
+    t = _table(1024, 8, 0.5).to(torch.bfloat16)
+    t[::3, 0] = 0.30078125
+    t[1::3, 0] = 0.3125
+    want = jpd.pushdown_select(mesh1, "x", 600,
+                               jnp.asarray(_f32(t), jnp.bfloat16), 0.3, 1.0)
+    got = tpd.pushdown_select(["cpu"], 600, t, 0.3, 1.0)
+    np.testing.assert_array_equal(_f32(got.rows), _f32(want.rows))
+    np.testing.assert_array_equal(_np(got.counts), np.asarray(want.counts))
