@@ -9,25 +9,29 @@ or of the ``repro`` package.  Phases, each of which fails the script:
 
 1. the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/csrc``, one ``nvcc`` per source, all at once, and
-   time the build;
+   time the build; print ptxas's report (registers, spills) and the
+   shared memory of the tensor-core attention kernel;
 2. each coherency-step kernel against its plain PyTorch version on the
    card, bit-exact (``torch.equal``), at the main path's shapes and at
    edge cases, with the kernel's, the plain version's and a one-call
    PyTorch yardstick's device time (the profiler's CUDA trace);
-3. the model substrate: ``flash_attention`` and ``rglru_scan`` against
-   their plain versions on the card, allclose (2e-5/2e-2 and 3e-5/3e-2 in
+3. the model substrate: ``flash_attention`` (bf16 on the tensor cores,
+   fp32 on the CUDA cores) and ``rglru_scan`` against their plain
+   versions on the card, allclose (2e-5/2e-2 and 3e-5/3e-2 in
    fp32/bf16), at recurrentgemma-9b's shapes (B=4, S=2048, MQA with 16
-   query heads of 256, window 2048, width 4096, bf16) and at the cases of
-   ``tests/test_kernels.py``, timed beside ``scaled_dot_product_attention``;
+   query heads of 256, window 2048, width 4096, bf16), at the cases of
+   ``tests/test_kernels.py`` and at the edges of the tensor-core kernel's
+   tiles, timed beside ``scaled_dot_product_attention``;
    the six supported smoke configs, card against CPU in fp32 (forward and
    12 decode steps at 2e-4, one launch per attention or recurrent block);
    the slice's path: recurrentgemma-9b at its published widths and depth
    in bf16 (parameters drawn on the card), prefill ``forward(last_only=
-   True)`` at B=4, S=2048 with exactly 12 and 26 launches per forward, four
-   requests served as ``ServeEngine`` serves them (128-token prompts
-   through ``decode_step``, held against the prefill's logits, then 32
-   greedy tokens); and fp32 decode against prefill at 2e-4 at full width
-   with depth cut to 5 layers;
+   True)`` at B=4, S=2048 with exactly 12 and 26 launches per forward
+   (and, in its profile, 12 tensor-core flash entries and no CUDA-core
+   one), four requests served as ``ServeEngine`` serves them (128-token
+   prompts through ``decode_step``, held against the prefill's logits,
+   then 32 greedy tokens); and fp32 decode against prefill at 2e-4 at
+   full width with depth cut to 5 layers;
 4. the near-memory operators at the paper's §5 sizes, through
    ``core.pushdown`` on one shard: SELECT over 16 Mi 128-byte rows and
    regex over 16 Mi rows with a 62-byte string field, each at 1%, 10% and
@@ -133,9 +137,20 @@ ATTN_CASES = ((2, 4, 2, 64, 64, 32, True, None, None),
               (1, 2, 2, 64, 64, 32, True, None, 30.0),
               (1, 2, 2, 64, 64, 32, False, None, None),
               (1, 3, 3, 1, 64, 32, True, None, None))
+#: the edges of the tensor-core kernel's tiles (128 queries, 64 keys):
+#: ragged lengths at the head dims 256, 128 and 16, MQA with a softcap,
+#: one query over a ragged cache, a window shorter than a tile.
+TC_EDGE_CASES = ((2, 16, 1, 320, 320, 256, True, 100, 30.0),
+                 (1, 4, 2, 1, 300, 128, True, None, None),
+                 (1, 2, 2, 200, 200, 16, False, 50, None),
+                 (1, 2, 1, 130, 130, 64, True, 32, None))
 RGLRU_CASES = ((2, 64, 32), (1, 128, 64), (3, 32, 16))
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 RGLRU_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+#: the tensor-core attention kernel's dynamic shared memory at D=256, as
+#: ``Tile<256>::SMEM`` in ``csrc/models.cu``: 1024 bytes of alignment, Q
+#: (128 x 256 bf16), two K and two V stages (64 x 256 bf16), 9 mbarriers.
+TC_SMEM_D256 = 1024 + 2 * 128 * 256 + 4 * 2 * 64 * 256 + 9 * 8
 #: timed calls of each model kernel (one attention call takes milliseconds).
 MODEL_ITERS = 10
 
@@ -168,6 +183,26 @@ SOURCES.update(dict.fromkeys(("select_scan", "regex_dfa", "hash_probe"),
                              "src/repro_torch/csrc/nmp.cu"))
 SOURCES.update(dict.fromkeys(("flash_attention", "rglru_scan"),
                              "src/repro_torch/csrc/models.cu"))
+
+
+def ptxas_summary(report: str, kernel: str):
+    """One line per instantiation of ``kernel`` in ptxas's ``-v`` report:
+    its registers, shared memory, stack and spills, and any note that
+    ptxas serialised its wgmmas (C75xx).  Nothing when the library was
+    already built."""
+    out, cur, name = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            cur = [] if kernel in line else None
+            name = line.split("'")[1] if cur is not None else ""
+            if cur is not None:
+                out.append((name, cur))
+        elif "Potential Performance Loss" in line and kernel in line:
+            out.append((kernel, [line.split("info    :")[-1].strip()]))
+        elif cur is not None and ("registers" in line or "spill" in line):
+            cur.append(line.replace("ptxas info    :", "").strip())
+    return [(f"D={n.split('ILi')[-1].split('E')[0]}" if "ILi" in n else n)
+            + f": {'; '.join(c)}" for n, c in out]
 
 
 def fail(msg: str) -> None:
@@ -363,6 +398,18 @@ def phase_kernels(dev):
     allready = torch.ones((P, L), dtype=torch.bool, device=dev)
     cases.append(("all ready", K.arb_winner(allready, rr),
                   ref.arb_winner_ref(allready, rr)))
+    wide = torch.randint(-40 * P, 40 * P, (L,), generator=g,
+                         dtype=torch.int32).to(dev)
+    cases.append(("rr negative and >= P", K.arb_winner(rdy, wide),
+                  ref.arb_winner_ref(rdy, wide)))
+    r4 = rand_bool((4, P, L), 0.05)
+    p4 = torch.randint(-P, 2 * P, (4, L), generator=g,
+                       dtype=torch.int32).to(dev)
+    cases.append(("lead (4,)", K.arb_winner(r4, p4),
+                  ref.arb_winner_ref(r4, p4)))
+    nobody = torch.zeros((P, L), dtype=torch.bool, device=dev)
+    cases.append(("none ready", K.arb_winner(nobody, wide),
+                  ref.arb_winner_ref(nobody, wide)))
     prio = (torch.arange(P, device=dev, dtype=torch.int32)[:, None]
             - rr[None, :]) % P
     score = torch.where(rdy, prio, torch.full_like(prio, P))
@@ -880,7 +927,8 @@ def model_kernels(dev, rows):
     cases = [("[4,16,2048,256]/[4,1,2048,256] bf16, window 2048",
               MK.flash_attention(q, k, v, window=win),
               ref.flash_attention_ref(q, k, v, window=win))]
-    for (b, hq, hkv, sq, sk, d, causal, w, cap) in ATTN_CASES:
+    for (b, hq, hkv, sq, sk, d, causal, w, cap) in ATTN_CASES + \
+            TC_EDGE_CASES:
         for dt in (torch.float32, bf):
             qq, kk, vv = (normal((b, h, s, d), dt)
                           for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
@@ -907,6 +955,12 @@ def model_kernels(dev, rows):
                       q, k, v, attn_mask=mask, enable_gqa=True),
                   nbytes, nops, iters=MODEL_ITERS, tol=ATTN_TOL,
                   ops_rate=TENSOR_CORE_FLOPS_PER_S)
+    row = rows["flash_attention"]
+    print(f"kernel flash_attention (bf16, tensor cores): "
+          f"{nops / row['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bound; "
+          f"{row['library_ms'] / row['ms']:.3f}x faster than "
+          f"scaled_dot_product_attention")
     del cases
 
     x = normal((B_, S_, WIDTH), bf)
@@ -927,6 +981,42 @@ def model_kernels(dev, rows):
                   6 * x.numel(), iters=MODEL_ITERS, tol=RGLRU_TOL)
     del cases, q, k, v, x, a
     torch.cuda.empty_cache()
+
+
+def rehearse_attention(dev):
+    """A new attention kernel's first call on the card: build
+    ``models.cu`` with ptxas's report, run ``flash_attention`` once at
+    recurrentgemma-9b's shapes in bf16 and hold it against its plain
+    version, then stop.
+
+        python -c "import torch, chip_smoke as c;
+            c.rehearse_attention(torch.device('cuda'))"
+    """
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import models as MK
+    from repro_torch.kernels import ref
+    t0 = time.perf_counter()
+    report = []
+    build.build("models", verbose=True, log=report.append)
+    print(f"build models {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_summary("".join(report), "flash_attention_tc_kernel"):
+        print(f"ptxas: flash_attention_tc_kernel {line}")
+    g = torch.Generator(device=dev).manual_seed(61)
+    q, k, v = (torch.randn((PREFILL_B, h, PREFILL_S, 256), generator=g,
+                           device=dev).bfloat16() for h in (16, 1, 1))
+    got = MK.flash_attention(q, k, v, window=WINDOW)
+    want = ref.flash_attention_ref(q, k, v, window=WINDOW)
+    err = float((got.float() - want.float()).abs().max())
+    ok = torch.allclose(got.float(), want.float(), atol=ATTN_TOL["bfloat16"],
+                        rtol=ATTN_TOL["bfloat16"])
+    ms = wall_ms(lambda: MK.flash_attention(q, k, v, window=WINDOW),
+                 iters=10)
+    print(f"flash_attention [4,16,2048,256]/[4,1,2048,256] bf16: max abs "
+          f"err {err:g} ({'allclose' if ok else 'NOT allclose'} at "
+          f"{ATTN_TOL['bfloat16']}); {ms * 1e3:.3f} us per call")
+    if not ok:
+        fail("flash_attention differs from its plain version")
 
 
 def card_params(params, dev):
@@ -1103,23 +1193,32 @@ def model_path(dev, rows):
         rows[name]["launches"] = n
 
     on_card = device_entries(prefill, iters=1)   # one more, profiled
-    split = {"flash_attention": 0.0, "rglru_scan": 0.0, "rest": 0.0}
+    kernels = {"flash_attention_tc_kernel": "flash (tensor cores)",
+               "flash_attention_simt_kernel": "flash (CUDA cores)",
+               "rglru_scan_kernel": "rglru_scan"}
+    split = dict.fromkeys(list(kernels.values()) + ["rest"], 0.0)
+    calls = dict.fromkeys(split, 0)
     for ev in on_card:
-        key = ("flash_attention" if "flash_attention_kernel" in ev.key else
-               "rglru_scan" if "rglru_scan_kernel" in ev.key else "rest")
+        key = next((v for k, v in kernels.items() if k in ev.key), "rest")
         split[key] += ev.self_device_time_total / 1e3
+        calls[key] += ev.count
     total = sum(split.values())
-    top = sorted((ev for ev in on_card if "flash_attention_kernel"
-                  not in ev.key and "rglru_scan_kernel" not in ev.key),
+    top = sorted((ev for ev in on_card
+                  if not any(k in ev.key for k in kernels)),
                  key=lambda ev: -ev.self_device_time_total)[:3]
     print(f"model path prefill device time: {total:.3f} ms of "
           f"{best * 1e3:.3f} ms wall (idle "
-          f"{100 * (1 - total / (best * 1e3)):.1f}%); flash_attention "
-          f"{split['flash_attention']:.3f} ms, rglru_scan "
-          f"{split['rglru_scan']:.3f} ms, the rest {split['rest']:.3f} ms "
-          f"(longest: " + "; ".join(
+          f"{100 * (1 - total / (best * 1e3)):.1f}%); " + ", ".join(
+              f"{k} {split[k]:.3f} ms in {calls[k]} entries"
+              for k in kernels.values()) +
+          f", the rest {split['rest']:.3f} ms (longest: " + "; ".join(
               f"{ev.key[:40]} {ev.self_device_time_total / 1e3:.3f} ms"
               for ev in top) + ")")
+    if calls["flash (CUDA cores)"] or \
+            calls["flash (tensor cores)"] < per_fwd["flash_attention"]:
+        fail(f"model path: the bf16 prefill ran {calls} kernel entries; "
+             f"expected {per_fwd['flash_attention']} tensor-core flash "
+             f"entries and no CUDA-core one")
     where_the_time_goes("model path decode_step", lambda: T.decode_step(
         params, cfg, tok, PROMPT + NEW_TOKENS - 1, state), t_dec / NEW_TOKENS)
     del params, state, lg, pre, dec, lg_d
@@ -1362,10 +1461,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = ("coherency_step", "nmp", "models")
+    reports = {}
     with ThreadPoolExecutor(len(sources)) as pool:    # one nvcc per source
-        libs = list(pool.map(build.build, sources))
+        libs = list(pool.map(lambda src: build.build(
+            src, verbose=True, log=lambda text: reports.update({src: text})),
+            sources))
     print(f"build: {', '.join(lib.name for lib in libs)} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
+    for line in ptxas_summary(reports.get("models", ""),
+                              "flash_attention_tc_kernel"):
+        print(f"ptxas: flash_attention_tc_kernel {line}")
+    print(f"flash_attention_tc_kernel dynamic shared memory at D=256: "
+          f"{TC_SMEM_D256} bytes (Q, two K and two V stages, alignment, "
+          f"mbarriers)")
 
     rows = phase_kernels(dev)
     phase_model(dev, rows)

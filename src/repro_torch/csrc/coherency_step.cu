@@ -134,33 +134,78 @@ __global__ void credit_rank_kernel(const bool* __restrict__ active,
 // the lowest id among ties (ties occur only at the not-ready fill value P,
 // so a line with no ready participant gives 0 — jnp.argmin's rule).
 //
-// One thread per line, looping over the P <= 65 participants; the reads of
-// one participant row are coalesced across the warp's lines.  Bound: P
-// bytes + 4 bytes in, 4 bytes out per line.
+// As the Pallas kernel, it reduces one integer key per (participant,
+// line), score * (P + 1) + p with score = P for a participant that is not
+// ready, so one min gives both the winner and the tie rule.  The pointer
+// is brought into [0, P) once per line (r0), and the priority is then
+// p - r0 + (p < r0 ? P : 0): no division in the loop.  The work spreads
+// both ways: each thread takes 4 neighbouring lines, reading each
+// participant row's 4 ready bytes in one 32-bit load (byte loads when L is
+// not a multiple of 4, so the rows are not 4-byte aligned); a warp is 8
+// such threads across 32 lines times 4 participant rows; the block's 4
+// warps take every 16th participant each, then combine in shared memory.
+// A block covers 32 lines, so L = 4096 gives 128 blocks per leading row
+// (the leading axis, the multi-home fold, is the grid's y).  Bound: P
+// bytes + 4 bytes in, 4 bytes out per line — at the engine's sizes,
+// launch latency.
 // --------------------------------------------------------------------------
 
-__global__ void arb_winner_kernel(const bool* __restrict__ ready,
-                                  const int32_t* __restrict__ rr,
-                                  int32_t* __restrict__ out, int n, int P,
-                                  int L) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)n * L) return;
-  const int64_t b = i / L;
-  const int l = (int)(i - b * L);
-  const bool* rd = ready + (size_t)b * P * L + l;
-  const int r = rr[i];
-  int best = 0, best_score = P;
-  for (int p = 0; p < P; ++p) {
-    if (rd[(size_t)p * L]) {
-      // CUDA's % truncates toward zero; this is the floor modulo.
-      const int prio = ((p - r) % P + P) % P;
-      if (prio < best_score) {
-        best_score = prio;
-        best = p;
-      }
+constexpr int kArbLines = 32, kArbWarps = 4;
+
+template <bool kVec>
+__global__ void __launch_bounds__(kArbWarps * 32)
+arb_winner_kernel(const uint8_t* __restrict__ ready,
+                  const int32_t* __restrict__ rr, int32_t* __restrict__ out,
+                  int P, int L) {
+  __shared__ int s_key[kArbWarps][kArbLines];
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lg = lane & 7, po = lane >> 3;   // line group, row in the warp
+  const int l0 = blockIdx.x * kArbLines + 4 * lg;
+  const uint8_t* rd = ready + (size_t)b * P * L;
+  const int32_t* rp = rr + (size_t)b * L;
+  int r0[4], key[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = l0 + e < L ? rp[l0 + e] : 0;
+    r0[e] = (r % P + P) % P;                 // the floor modulo, once
+    key[e] = P * (P + 1) + P;                // above every real key
+  }
+  const int fill = P * (P + 1);              // score P: not ready
+  for (int p = 4 * warp + po; p < P; p += 4 * kArbWarps) {
+    const uint8_t* row = rd + (size_t)p * L + l0;
+    uint32_t w = 0;
+    if (kVec) {
+      if (l0 < L) w = *reinterpret_cast<const uint32_t*>(row);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (l0 + e < L) w |= (uint32_t)row[e] << (8 * e);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int prio = p - r0[e] + (p < r0[e] ? P : 0);
+      const int k = ((w >> (8 * e)) & 0xffu) ? prio * (P + 1) + p : fill + p;
+      key[e] = min(key[e], k);
     }
   }
-  out[i] = best;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    key[e] = min(key[e], __shfl_xor_sync(0xffffffffu, key[e], 8));
+    key[e] = min(key[e], __shfl_xor_sync(0xffffffffu, key[e], 16));
+  }
+  if (po == 0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_key[warp][4 * lg + e] = key[e];
+  }
+  __syncthreads();
+  const int l = blockIdx.x * kArbLines + threadIdx.x;
+  if (threadIdx.x < kArbLines && l < L) {
+    int k = s_key[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kArbWarps; ++w) k = min(k, s_key[w][threadIdx.x]);
+    out[(size_t)b * L + l] = k % (P + 1);
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -309,13 +354,17 @@ int coh_credit_rank(const void* active, const void* cand, void* out,
 
 int coh_arb_winner(const void* ready, const void* rr, void* out, int n, int P,
                    int L, void* stream) {
-  const int64_t total = (int64_t)n * L;
-  if (total > 0) {
-    const int threads = 128;
-    const int blocks = (int)((total + threads - 1) / threads);
-    arb_winner_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const bool*)ready, (const int32_t*)rr, (int32_t*)out, n, P, L);
-  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((int64_t)n * L == 0) return (int)cudaGetLastError();
+  if (P <= 0)                  // no participant: every line's winner is 0
+    return (int)cudaMemsetAsync(out, 0, (size_t)n * L * 4, st);
+  const dim3 grid((unsigned)((L + kArbLines - 1) / kArbLines), (unsigned)n);
+  if (L % 4 == 0 && (uintptr_t)ready % 4 == 0)
+    arb_winner_kernel<true><<<grid, kArbWarps * 32, 0, st>>>(
+        (const uint8_t*)ready, (const int32_t*)rr, (int32_t*)out, P, L);
+  else
+    arb_winner_kernel<false><<<grid, kArbWarps * 32, 0, st>>>(
+        (const uint8_t*)ready, (const int32_t*)rr, (int32_t*)out, P, L);
   return (int)cudaGetLastError();
 }
 

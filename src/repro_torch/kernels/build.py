@@ -55,8 +55,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
-def build(name: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library already exists."""
+def build(name: str, verbose: bool = False, log=print) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library already exists; with
+    ``verbose``, pass ptxas's report (registers, shared memory, spills per
+    kernel) to ``log``."""
     out = library_path(name)
     if out.exists():
         return out
@@ -72,7 +74,7 @@ def build(name: str, verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     if verbose and proc.stderr:
-        print(proc.stderr, end="")
+        log(proc.stderr)
     os.replace(tmp, out)     # atomic: a concurrent build sees all or none
     return out
 

@@ -4,7 +4,9 @@ Each wrapper replaces one Pallas kernel of ``repro.kernels``:
 
 * ``flash_attention`` — blocked online-softmax attention with GQA/MQA,
   causal masking, a sliding window and the gemma2 softcap
-  (``repro.kernels.flash_attention``);
+  (``repro.kernels.flash_attention``): bf16 on the tensor cores
+  (``flash_attention_tc_kernel``), fp32 on the CUDA cores
+  (``flash_attention_simt_kernel``), both counted as ``flash_attention``;
 * ``rglru_scan``      — the RG-LRU linear recurrence with an fp32 carry
   (``repro.kernels.rglru_scan``).
 
@@ -38,8 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGS = {
-    "models_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _F, _I, _I),
+    "models_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                               _F, _I, _I),
+    "models_flash_attention_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _F, _I, _I),
     "models_rglru_scan": (_P, _P, _P, _I, _I, _I, _I),
 }
 _LIB = Library("models", _SIGS, ("flash_attention", "rglru_scan"))
@@ -62,7 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``v`` ([B, Hkv, Sk, D], ``Hq % Hkv == 0``), queries aligned to the end
     of the keys, scale ``D ** -0.5``.  On the card q, k and
     v share one dtype (float32 or bfloat16) and are contiguous, and D is
-    one of ``HEAD_DIMS``."""
+    one of ``HEAD_DIMS``; bf16 runs on the tensor cores, with p rounded to
+    bf16 before its product with v, and its tensors start at 16-byte
+    boundaries (TMA's rule)."""
     if q.device.type == "cpu":
         # the Pallas kernel returns q's dtype, its oracle v's.
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -86,12 +92,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: window {window} < 0")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap {softcap} <= 0")
+    sym = "models_flash_attention"
+    if q.dtype == torch.bfloat16:
+        sym = "models_flash_attention_tc"
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention: bf16 q, k and v must start "
+                             "at 16-byte boundaries")
     out = torch.empty_like(q)
-    _launch("flash_attention", "models_flash_attention", q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
-            B, Hq, Hkv, Sq, Sk, D, float(D) ** -0.5,
-            0.0 if softcap is None else float(softcap), int(causal),
-            -1 if window is None else int(window))
+    _launch("flash_attention", sym, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+            float(D) ** -0.5, 0.0 if softcap is None else float(softcap),
+            int(causal), -1 if window is None else int(window))
     return out
 
 

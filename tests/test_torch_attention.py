@@ -140,6 +140,67 @@ def test_ops_attention_equals_reference(case, dtype):
     _close(got, want, ATTN_TOL[dtype])
 
 
+def _tensor_core_emulation(q, k, v, causal, window, softcap, block_q=128,
+                           block_k=64):
+    """The tensor-core kernel's arithmetic in plain torch: bf16 q, k and
+    v; 128-query by 64-key tiles; fp32 m, l and accumulator; p rounded to
+    bf16 before its product with v (the one rounding the plain version
+    does not make); the Pallas kernel's -1e30 and dead-row rules."""
+    B, Hq, Sq, D = q.shape
+    rep = Hq // k.shape[1]
+    Sk = k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    out = torch.zeros((B, Hq, Sq, D))
+    for q0 in range(0, Sq, block_q):
+        qt = q[:, :, q0:q0 + block_q].float()
+        pos = torch.arange(q0, q0 + qt.shape[2])[:, None] + (Sk - Sq)
+        m = torch.full(qt.shape[:3], -1e30)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        for k0 in range(0, Sk, block_k):
+            kj = torch.arange(k0, min(k0 + block_k, Sk))[None, :]
+            x = qt @ kf[:, :, k0:k0 + block_k].transpose(-1, -2) * D ** -0.5
+            if softcap is not None:
+                x = softcap * torch.tanh(x / softcap)
+            keep = torch.ones((qt.shape[2], kj.shape[1]), dtype=torch.bool)
+            if causal:
+                keep &= kj <= pos
+            if window is not None:
+                keep &= (pos - kj) < window
+            x = torch.where(keep, x, -1e30)
+            m_cur = torch.maximum(m, x.amax(-1))
+            dead = m_cur <= -1e30 / 2
+            p = torch.where(dead[..., None], 0.0,
+                            torch.exp(x - m_cur[..., None]))
+            alpha = torch.where(dead, 1.0, torch.exp(m - m_cur))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + \
+                p.bfloat16().float() @ vf[:, :, k0:k0 + block_k]
+            m = m_cur
+        l = torch.where(l == 0, 1.0, l)
+        out[:, :, q0:q0 + block_q] = acc / l[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + [
+    (1, 16, 1, 256, 256, 256, True, 100, None),  # recurrentgemma's heads
+    (1, 2, 1, 64, 320, 32, True, None, 30.0),    # ragged keys, softcap
+    (1, 2, 2, 64, 64, 32, False, 0, None),       # the last row sees no key
+])
+def test_tensor_core_rounding_within_contract(case):
+    """The bf16 kernel's one new rounding (p to bf16 before p . v), in
+    its tiles, against the Pallas kernel in interpret mode at the bf16
+    tolerance."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(case, "bfloat16")
+    causal, window, cap = case[6:]
+    want = jops.attention(jq, jk, jv, causal=causal, window=window,
+                          softcap=cap, use_kernel=True)
+    got = _tensor_core_emulation(tq, tk, tv, causal, window, cap)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, ATTN_TOL["bfloat16"])
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_ops_attention_with_kv_length_equals_reference(dtype):
     (jq, tq), (jk, tk), (jv, tv) = _qkv((2, 4, 1, 1, 64, 32), dtype)

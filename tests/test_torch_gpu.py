@@ -58,14 +58,24 @@ def test_credit_rank_kernel(cuda, shape):
     assert torch.equal(got, ref.credit_rank_ref(a, c))
 
 
-@pytest.mark.parametrize("P,L,lead", [(3, 16, ()), (65, 32, ()),
-                                      (5, 8, (4,)), (65, 1, ()),
-                                      (65, 4096, ())])
-def test_arb_winner_kernel(cuda, P, L, lead):
-    rng = np.random.default_rng(SEED + P)
-    r = _bools(rng, lead + (P, L), 0.3)
-    r[..., :3] = False                # nobody ready: the fill-value ties
-    rr = torch.as_tensor(rng.integers(0, P, lead + (L,)).astype(np.int32))
+@pytest.mark.parametrize("P,L,lead,rr_span,p_ready", [
+    (3, 16, (), 1, 0.3), (65, 32, (), 1, 0.3), (5, 8, (4,), 1, 0.3),
+    (65, 1, (), 1, 0.3), (65, 4096, (), 1, 0.3),
+    (65, 4097, (), 1, 0.3),            # L not a multiple of 4: byte loads
+    (7, 1, (2,), 1, 0.3),
+    (65, 4096, (4,), 1, 0.3),          # the multi-home fold's lead
+    (65, 4096, (), 40, 0.3),           # rr negative and >= P
+    (65, 4097, (4,), 40, 1.0),         # all ready
+    (65, 4096, (2,), 40, 0.0),         # none ready
+    (3, 33, (), 1000, 0.5)])
+def test_arb_winner_kernel(cuda, P, L, lead, rr_span, p_ready):
+    rng = np.random.default_rng(SEED + P + L)
+    r = _bools(rng, lead + (P, L), p_ready)
+    if 0 < p_ready < 1:
+        r[..., :3] = False            # nobody ready: the fill-value ties
+    lo = 0 if rr_span == 1 else -rr_span * P
+    rr = torch.as_tensor(rng.integers(lo, rr_span * P, lead + (L,))
+                         .astype(np.int32))
     got = K.arb_winner(r.to(cuda), rr.to(cuda)).cpu()
     assert torch.equal(got, ref.arb_winner_ref(r, rr))
 
@@ -459,7 +469,10 @@ def test_pushdown_regex_saturating_cast_on_card(cuda):
 # -- the model substrate's kernels -------------------------------------------
 
 #: ``tests/test_kernels.py``'s cases (B, Hq, Hkv, Sq, Sk, D, causal, window,
-#: softcap), and head dim 256 with MQA and a window, as recurrentgemma's.
+#: softcap), head dim 256 with MQA and a window, as recurrentgemma's, and
+#: the edges of the tensor-core kernel's tiles (128 queries, 64 keys):
+#: every head dim, ragged lengths, a window shorter than a tile, rows
+#: that see no key.
 ATTN_CASES = [
     (2, 4, 2, 64, 64, 32, True, None, None),
     (1, 4, 1, 32, 64, 16, True, None, None),
@@ -470,6 +483,11 @@ ATTN_CASES = [
     (1, 4, 1, 256, 256, 256, True, 100, None),
     (2, 2, 1, 192, 320, 64, True, 128, 50.0),
     (1, 2, 2, 130, 130, 128, True, None, None),
+    (1, 2, 2, 64, 64, 32, False, 0, None),     # the last row sees no key
+    (1, 2, 1, 128, 64, 64, True, 16, None),    # Sq > Sk: 64 dead rows
+    (2, 16, 1, 320, 320, 256, True, 100, 30.0),
+    (1, 4, 2, 1, 300, 128, True, None, None),
+    (1, 2, 2, 200, 200, 16, False, 50, None),
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -477,6 +495,24 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 def _normal(rng, shape, dtype):
     return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
                            ).to(dtype)
+
+
+def _attention_want(q, k, v, causal, window, cap):
+    """The plain version, with the kernels' dead-row rule (the Pallas
+    kernel's): a row whose every key is masked is 0, where the dense
+    softmax spreads it evenly."""
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=cap)
+    Sq, Sk = q.shape[2], k.shape[2]
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kj = torch.arange(Sk, device=q.device)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kj <= qi
+    if window is not None:
+        keep &= (qi - kj) < window
+    want[:, :, ~keep.any(-1)] = 0
+    return want
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
@@ -492,10 +528,34 @@ def test_flash_attention_kernel(cuda, case, dtype):
                              softcap=cap)
     assert MK.launches["flash_attention"] == 1
     assert got.dtype == dtype and got.shape == q.shape
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=cap)
+    want = _attention_want(q, k, v, causal, window, cap)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,runs,not_runs", [
+    (torch.bfloat16, "flash_attention_tc_kernel",
+     "flash_attention_simt_kernel"),
+    (torch.float32, "flash_attention_simt_kernel",
+     "flash_attention_tc_kernel")])
+def test_flash_attention_kernel_by_dtype(cuda, dtype, runs, not_runs):
+    """bf16 runs the tensor-core kernel and fp32 the CUDA-core one, both
+    counted as ``flash_attention``: the profiler's device entries name
+    the kernel that ran."""
+    from torch.profiler import ProfilerActivity, profile
+    q = torch.randn((1, 4, 256, 128), device=cuda).to(dtype)
+    k = torch.randn((1, 1, 256, 128), device=cuda).to(dtype)
+    MK.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    MK.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        MK.flash_attention(q, k, k, window=100)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(runs in n for n in names) == 1, names
+    assert not any(not_runs in n for n in names), names
+    assert MK.launches["flash_attention"] == 1
 
 
 @pytest.mark.parametrize("B,S,D", [(2, 64, 32), (1, 128, 64), (3, 32, 16),
@@ -532,6 +592,10 @@ def test_model_kernels_refuse_wrong_inputs(cuda):
                            q.transpose(2, 3))
     with pytest.raises(ValueError):
         MK.flash_attention(q, q.cpu(), q)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(q.shape)            # 2 bytes past a 16-byte edge
+    with pytest.raises(ValueError, match="16-byte"):
+        MK.flash_attention(odd, q.bfloat16(), q.bfloat16())
     x = torch.zeros((2, 16, 8), device=cuda)
     with pytest.raises(TypeError):
         MK.rglru_scan(x.half(), x.half())
