@@ -9,8 +9,9 @@ or of the ``repro`` package.  Phases, each of which fails the script:
 
 1. the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/csrc``, one ``nvcc`` per source, all at once, and
-   time the build; print ptxas's report (registers, spills) and the
-   shared memory of the tensor-core attention kernel;
+   time the build; print ptxas's report (registers, spills) of the
+   tensor-core attention kernel, the RG-LRU scan and ``lat_hist``, and
+   the attention kernel's shared memory;
 2. each coherency-step kernel against its plain PyTorch version on the
    card, bit-exact (``torch.equal``), at the main path's shapes and at
    edge cases, with the kernel's, the plain version's and a one-call
@@ -20,16 +21,18 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    versions on the card, allclose (2e-5/2e-2 and 3e-5/3e-2 in
    fp32/bf16), at recurrentgemma-9b's shapes (B=4, S=2048, MQA with 16
    query heads of 256, window 2048, width 4096, bf16), at the cases of
-   ``tests/test_kernels.py`` and at the edges of the tensor-core kernel's
-   tiles, timed beside ``scaled_dot_product_attention``;
+   ``tests/test_kernels.py``, at the edges of the tensor-core kernel's
+   tiles and of the scan's chunks (odd D, ragged S, a storage offset, a
+   near 1 and near 0), timed beside ``scaled_dot_product_attention``;
    the six supported smoke configs, card against CPU in fp32 (forward and
    12 decode steps at 2e-4, one launch per attention or recurrent block);
    the slice's path: recurrentgemma-9b at its published widths and depth
    in bf16 (parameters drawn on the card), prefill ``forward(last_only=
    True)`` at B=4, S=2048 with exactly 12 and 26 launches per forward
-   (and, in its profile, 12 tensor-core flash entries and no CUDA-core
-   one), four requests served as ``ServeEngine`` serves them (128-token
-   prompts through ``decode_step``, held against the prefill's logits,
+   (and, in its profile, 12 tensor-core flash entries, no CUDA-core
+   one and exactly 26 ``rglru_scan`` entries), four requests served as
+   ``ServeEngine`` serves them (128-token prompts through
+   ``decode_step``, held against the prefill's logits,
    then 32 greedy tokens); and fp32 decode against prefill at 2e-4 at
    full width with depth cut to 5 layers;
 4. the near-memory operators at the paper's §5 sizes, through
@@ -145,6 +148,12 @@ TC_EDGE_CASES = ((2, 16, 1, 320, 320, 256, True, 100, 30.0),
                  (1, 2, 2, 200, 200, 16, False, 50, None),
                  (1, 2, 1, 130, 130, 64, True, 32, None))
 RGLRU_CASES = ((2, 64, 32), (1, 128, 64), (3, 32, 16))
+#: the edges of the chunked scan (64 channels a CTA; chunks of 16 steps in
+#: bf16 and 8 in fp32, 16 chunks a super-chunk): odd D, S below one
+#: chunk, S not a multiple of a super-chunk, D not a multiple of 64.
+RGLRU_EDGE_CASES = ((1, 33, 7), (2, 5, 64), (2, 300, 128), (3, 70, 66))
+#: kernels the ``rglru_scan`` wrapper launches per call.
+RGLRU_KERNELS_PER_CALL = 1
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 RGLRU_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 #: the tensor-core attention kernel's dynamic shared memory at D=256, as
@@ -201,8 +210,19 @@ def ptxas_summary(report: str, kernel: str):
             out.append((kernel, [line.split("info    :")[-1].strip()]))
         elif cur is not None and ("registers" in line or "spill" in line):
             cur.append(line.replace("ptxas info    :", "").strip())
-    return [(f"D={n.split('ILi')[-1].split('E')[0]}" if "ILi" in n else n)
-            + f": {'; '.join(c)}" for n, c in out]
+    return [instance(n) + "; ".join(c) for n, c in out]
+
+
+def instance(name: str) -> str:
+    """A kernel's template arguments from its mangled name, as a prefix:
+    the head dim of an attention kernel, the dtype and load width of the
+    scan; nothing for a kernel that is no template."""
+    if "ILi" in name:
+        return f"D={name.split('ILi')[-1].split('E')[0]}: "
+    if "rglru_scan_kernel" in name:
+        return (("bf16" if "bfloat16" in name else "fp32")
+                + (", pairs: " if "Lb1E" in name else ", one at a time: "))
+    return ""
 
 
 def fail(msg: str) -> None:
@@ -456,6 +476,30 @@ def phase_kernels(dev):
     none = torch.zeros((R, L), dtype=torch.bool, device=dev)
     cases.append(("none retired", K.lat_hist(lat, none),
                   ref.lat_hist_ref(lat, none, edges)))
+    odd_l = torch.randint(-4, 600, (5, 4099), generator=g,
+                          dtype=torch.int32).to(dev)
+    odd_r = rand_bool((5, 4099), 0.5)
+    cases.append(("(5, 4099)", K.lat_hist(odd_l, odd_r),
+                  ref.lat_hist_ref(odd_l, odd_r, edges)))
+    # contiguous views with a storage offset: starts 1 byte (retired) and
+    # 8 bytes (lat) past a 16-byte edge share no alignment (every lane one
+    # at a time); 12 and 16 bytes share one 4 lanes in (a scalar head,
+    # then 16 lanes at a time)
+    for r_off, l_off in ((1, 2), (12, 4)):
+        ret_v = torch.zeros(R * L + r_off, dtype=torch.bool,
+                            device=dev)[r_off:].view(R, L)
+        lat_v = torch.zeros(R * L + l_off, dtype=torch.int32,
+                            device=dev)[l_off:].view(R, L)
+        ret_v.copy_(ret)
+        lat_v.copy_(lat)
+        cases.append((f"storage offsets {r_off} B, {4 * l_off} B",
+                      K.lat_hist(lat_v, ret_v),
+                      ref.lat_hist_ref(lat_v, ret_v, edges)))
+    one_bin = torch.full((R, L), 3, dtype=torch.int32, device=dev)
+    every = torch.ones((R, L), dtype=torch.bool, device=dev)
+    cases.append(("every lane retired into one bin",
+                  K.lat_hist(one_bin, every),
+                  ref.lat_hist_ref(one_bin, every, edges)))
     edges_t = torch.as_tensor(edges, dtype=torch.int32, device=dev)
     record("lat_hist", cases, lambda: K.lat_hist(lat, ret),
            lambda: ref.lat_hist_ref(lat, ret, edges),
@@ -967,12 +1011,25 @@ def model_kernels(dev, rows):
     a = torch.sigmoid(normal((B_, S_, WIDTH), torch.float32)).to(bf)
     cases = [("[4,2048,4096] bf16", MK.rglru_scan(x, a),
               ref.rglru_scan_ref(x, a))]
-    for (b, s_, d) in RGLRU_CASES:
+    for (b, s_, d) in RGLRU_CASES + RGLRU_EDGE_CASES:
         for dt in (torch.float32, bf):
             xx = normal((b, s_, d), dt)
             aa = torch.sigmoid(normal((b, s_, d), torch.float32)).to(dt)
             cases.append((f"{(b, s_, d)} {dt}", MK.rglru_scan(xx, aa),
                           ref.rglru_scan_ref(xx, aa)))
+    for dt in (torch.float32, bf):
+        xx = normal((2, PREFILL_S, 256), dt)
+        u = torch.rand((2, PREFILL_S, 256), generator=g, device=dev)
+        for what, aa in (("a near 1", 1 - 2e-3 * u), ("a near 0", 1e-2 * u)):
+            aa = aa.to(dt)
+            cases.append((f"(2, {PREFILL_S}, 256) {what} {dt}",
+                          MK.rglru_scan(xx, aa), ref.rglru_scan_ref(xx, aa)))
+        # one element past the pair's alignment: channels one at a time
+        flat = normal((2 * 300 * 64 + 2,), dt)
+        xo, ao = flat[1:-1].view(2, 300, 64), torch.sigmoid(
+            flat[2:].float()).to(dt).view(2, 300, 64)
+        cases.append((f"storage offset 1 {dt}", MK.rglru_scan(xo, ao),
+                      ref.rglru_scan_ref(xo, ao)))
     nbytes = 3 * x.numel() * x.element_size()
     print(f"kernel rglru_scan bound: {nbytes} bytes (x and a read, h "
           f"written); no one PyTorch call computes the scan")
@@ -1219,6 +1276,10 @@ def model_path(dev, rows):
         fail(f"model path: the bf16 prefill ran {calls} kernel entries; "
              f"expected {per_fwd['flash_attention']} tensor-core flash "
              f"entries and no CUDA-core one")
+    want_scans = per_fwd["rglru_scan"] * RGLRU_KERNELS_PER_CALL
+    if calls["rglru_scan"] != want_scans:
+        fail(f"model path: the bf16 prefill ran {calls['rglru_scan']} "
+             f"rglru_scan entries; expected {want_scans}")
     where_the_time_goes("model path decode_step", lambda: T.decode_step(
         params, cfg, tok, PROMPT + NEW_TOKENS - 1, state), t_dec / NEW_TOKENS)
     del params, state, lg, pre, dec, lg_d
@@ -1468,9 +1529,11 @@ def main() -> int:
             sources))
     print(f"build: {', '.join(lib.name for lib in libs)} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in ptxas_summary(reports.get("models", ""),
-                              "flash_attention_tc_kernel"):
-        print(f"ptxas: flash_attention_tc_kernel {line}")
+    for src, kernel in (("models", "flash_attention_tc_kernel"),
+                        ("models", "rglru_scan_kernel"),
+                        ("coherency_step", "lat_hist_kernel")):
+        for line in ptxas_summary(reports.get(src, ""), kernel):
+            print(f"ptxas: {kernel} {line}")
     print(f"flash_attention_tc_kernel dynamic shared memory at D=256: "
           f"{TC_SMEM_D256} bytes (Q, two K and two V stages, alignment, "
           f"mbarriers)")

@@ -249,35 +249,96 @@ __global__ void count_fold_kernel(const bool* __restrict__ mask,
 // bucket 0.  The edges are LAT_EDGES of repro_torch/traffic/counters.py
 // (engine steps), fixed at compile time.
 //
-// One block per row with a 10-bin histogram in shared memory.  Bound:
-// 5 bytes in per lane, 40 bytes out per row.
+// Bound: bytes, 5 in per lane and 40 out per row; at the engine's
+// [64, 4096] that is 1.3 MB, 0.39 us at 3.35 TB/s, so the time is the
+// launch and one trip to memory.  The design keeps it to one trip: every
+// thread issues all its loads up front and unconditionally — 16 lanes as
+// one 16-byte load of `retired` and four of `lat` — and counts in
+// registers, with no branch on a loaded value and no shared atomics.
+// Each thread keeps 10 running counts: the retired lanes at or above each
+// edge and all its retired lanes; the bins are their differences.  One
+// CTA per row sums them across each warp with __reduce_add_sync and
+// across its warps in shared memory.  (Clusters of 2 and 4 CTAs per row,
+// summed through distributed shared memory, measured slower: PERF.md.)
+// Lanes outside the 16-byte-aligned body of a row (L % 16, a storage
+// offset) are read one at a time.
 // --------------------------------------------------------------------------
 
 constexpr int kLatEdges = 9;
 constexpr int kLatBins = kLatEdges + 1;
+constexpr int kLatThreads = 256;
+constexpr int kLatWarps = kLatThreads / 32;
 
-__device__ __forceinline__ int lat_bucket(int32_t v) {
+// ge[e] += (lane retired and v >= edge e); ge[kLatEdges] += retired.
+__device__ __forceinline__ void lat_count(int32_t v, uint32_t r,
+                                          int (&ge)[kLatBins]) {
   const int32_t edges[kLatEdges] = {1, 2, 4, 8, 16, 32, 64, 128, 256};
-  int b = 0;
 #pragma unroll
-  for (int e = 0; e < kLatEdges; ++e) b += (v >= edges[e]) ? 1 : 0;
-  return b;
+  for (int e = 0; e < kLatEdges; ++e) ge[e] += (int)(r & (v >= edges[e]));
+  ge[kLatEdges] += (int)r;
 }
 
-__global__ void lat_hist_kernel(const int32_t* __restrict__ lat,
-                                const bool* __restrict__ retired,
-                                int32_t* __restrict__ out, int L) {
-  __shared__ int hist[kLatBins];
+// The 4 lanes of a 32-bit word of `retired`, with lat in v.
+__device__ __forceinline__ void lat_count4(const int4& v, uint32_t w,
+                                           int (&ge)[kLatBins]) {
+  lat_count(v.x, (w & 0xffu) != 0, ge);
+  lat_count(v.y, (w & 0xff00u) != 0, ge);
+  lat_count(v.z, (w & 0xff0000u) != 0, ge);
+  lat_count(v.w, (w & 0xff000000u) != 0, ge);
+}
+
+__global__ void __launch_bounds__(kLatThreads)
+lat_hist_kernel(const int32_t* __restrict__ lat,
+                const uint8_t* __restrict__ retired,
+                int32_t* __restrict__ out, int L) {
+  __shared__ int part[kLatWarps][kLatBins];
   const int row = blockIdx.x;
-  if (threadIdx.x < kLatBins) hist[threadIdx.x] = 0;
-  __syncthreads();
   const int32_t* lt = lat + (size_t)row * L;
-  const bool* rt = retired + (size_t)row * L;
-  for (int l = threadIdx.x; l < L; l += blockDim.x)
-    if (rt[l]) atomicAdd(&hist[lat_bucket(lt[l])], 1);
+  const uint8_t* rt = retired + (size_t)row * L;
+  // The body starts where rt is 16-byte aligned, if lt is there too.
+  int head = (int)((16 - ((uintptr_t)rt & 15)) & 15);
+  if (head > L) head = L;
+  if ((uintptr_t)(lt + head) & 15) head = L;       // no common alignment
+  const int groups = (L - head) >> 4;
+  const int tail = head + (groups << 4);
+
+  int ge[kLatBins] = {};
+  const uint4* r16 = reinterpret_cast<const uint4*>(rt + head);
+  const int4* l16 = reinterpret_cast<const int4*>(lt + head);
+  for (int g = threadIdx.x; g < groups; g += kLatThreads) {
+    const uint4 r = r16[g];
+    const int4 v0 = l16[4 * g], v1 = l16[4 * g + 1], v2 = l16[4 * g + 2],
+               v3 = l16[4 * g + 3];
+    lat_count4(v0, r.x, ge);
+    lat_count4(v1, r.y, ge);
+    lat_count4(v2, r.z, ge);
+    lat_count4(v3, r.w, ge);
+  }
+  const int scalar = head + (L - tail);   // lanes [0, head) and [tail, L)
+  for (int i = threadIdx.x; i < scalar; i += kLatThreads) {
+    const int l = i < head ? i : tail + (i - head);
+    lat_count(lt[l], rt[l] != 0, ge);
+  }
+
+  // Bins from the running counts, then the sums.
+  int bin[kLatBins];
+  bin[0] = ge[kLatEdges] - ge[0];
+#pragma unroll
+  for (int b = 1; b < kLatEdges; ++b) bin[b] = ge[b - 1] - ge[b];
+  bin[kLatEdges] = ge[kLatEdges - 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int b = 0; b < kLatBins; ++b) {
+    const int s = (int)__reduce_add_sync(0xffffffffu, (unsigned)bin[b]);
+    if (lane == 0) part[warp][b] = s;
+  }
   __syncthreads();
-  if (threadIdx.x < kLatBins)
-    out[(size_t)row * kLatBins + threadIdx.x] = hist[threadIdx.x];
+  if (threadIdx.x < kLatBins) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < kLatWarps; ++w) s += part[w][threadIdx.x];
+    out[(size_t)row * kLatBins + threadIdx.x] = s;
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -384,8 +445,8 @@ int coh_count_fold(const void* mask, const void* msg, const void* pay,
 int coh_lat_hist(const void* lat, const void* retired, void* out, int rows,
                  int L, void* stream) {
   if (rows > 0)
-    lat_hist_kernel<<<rows, 256, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)lat, (const bool*)retired, (int32_t*)out, L);
+    lat_hist_kernel<<<rows, kLatThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)lat, (const uint8_t*)retired, (int32_t*)out, L);
   return (int)cudaGetLastError();
 }
 

@@ -893,44 +893,189 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 //              + sqrt(max(1 - a[b, t, d]^2, 0)) * x[b, t, d],  h[b, -1] = 0,
 // with the carry in fp32 and h written in x's dtype.
 //
-// One thread per (b, d) channel, walking t; the threads of a warp take 32
-// neighbouring channels, so each step's loads of x and a and store of h
-// are coalesced.  The recurrence is serial in t, but the loads are not:
-// each thread reads kUnroll steps of x and a into registers before it
-// runs them, so every thread keeps 2 * kUnroll loads in flight instead of
-// waiting on each step's.  Bound: bytes — one read of x and a, one write
-// of h.
+// Bound: bytes — one read of x and a, one write of h (60.1 us at
+// recurrentgemma's [4, 2048, 4096] bf16 at 3.35 TB/s).  A thread per
+// channel walking all S steps keeps too few bytes in flight to come near
+// that, so the scan is parallel over S too, by the associativity of the
+// linear recurrence: a chunk of steps maps a carry c to A c + H, with A
+// the product of its a and H its scan from zero, and chunks compose as
+// (A1, H1) then (A2, H2) = (A2 A1, A2 H1 + H2).
+//
+// One CTA of kScanWarps = 16 warps (one CTA an SM, 128 registers a
+// thread) owns 64 channels of one batch row, two per lane, so a warp's
+// load of one step is one 128-byte line in bf16.  It walks S in
+// super-chunks of 16 chunks of kSteps steps, one chunk per warp:
+//   1. each warp takes its chunk's x and a out of the registers they were
+//      loaded into one super-chunk earlier, and puts the next super-
+//      chunk's loads in flight in their place, so the loads of one
+//      super-chunk run under the arithmetic of the one before;
+//   2. it scans the chunk from zero, giving (A, H) per channel and
+//      keeping beta * x, and publishes (A, H) in shared memory (double-
+//      buffered: one barrier per super-chunk);
+//   3. each warp folds the entries before its own onto the super-chunk's
+//      carry-in — its own carry-in — and all of them onto the next
+//      super-chunk's;
+//   4. it runs its chunk again from its carry-in, out of registers, and
+//      writes h.
+// The device memory traffic stays one read of x and a and one write of
+// h; the price is a second pass of the recurrence's FMAs.  Steps past S
+// are the identity (a = 1, x = 0) and are not written; channels past D
+// are not written.  Pairs of channels are loaded as one word when D is
+// even and the pointers are aligned to it; otherwise one element at a
+// time.  A chunk is 16 steps in bf16 and 8 in fp32, so that both fit the
+// registers.  Reassociation changes fp32 rounding;
+// tests/test_torch_attention.py holds this order against the Pallas
+// kernel at the RG-LRU tolerance.  Designs measured before this one are
+// in PERF.md.
 // --------------------------------------------------------------------------
 
-constexpr int kUnroll = 16;
+constexpr int kScanWarps = 16;         // chunks per super-chunk
+constexpr int kScanChannels = 64;      // channels per CTA, two per lane
 
-template <typename T>
-__global__ void rglru_scan_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ a,
-                                  T* __restrict__ out, int B, int S, int D) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= (int64_t)B * D) return;
-  const int b = (int)(c / D), d = (int)(c - (int64_t)b * D);
-  const int64_t base = (int64_t)b * S * D + d;
-  float h = 0.f;
-  for (int t0 = 0; t0 < S; t0 += kUnroll) {
-    float xs[kUnroll], as[kUnroll];
+template <typename T> struct ScanPair;
+template <> struct ScanPair<__nv_bfloat16> {
+  using raw = __nv_bfloat162;
+  static constexpr int kSteps = 16;
+  __device__ static __nv_bfloat16 of(float v) { return __float2bfloat16(v); }
+  __device__ static float2 f32(raw r) { return __bfloat1622float2(r); }
+  __device__ static raw pack(float2 v) { return __float22bfloat162_rn(v); }
+  __device__ static raw make(__nv_bfloat16 u, __nv_bfloat16 v) {
+    return __halves2bfloat162(u, v);
+  }
+  __device__ static __nv_bfloat16 lo(raw r) { return __low2bfloat16(r); }
+  __device__ static __nv_bfloat16 hi(raw r) { return __high2bfloat16(r); }
+};
+template <> struct ScanPair<float> {
+  using raw = float2;
+  static constexpr int kSteps = 8;
+  __device__ static float of(float v) { return v; }
+  __device__ static float2 f32(raw r) { return r; }
+  __device__ static raw pack(float2 v) { return v; }
+  __device__ static raw make(float u, float v) { return make_float2(u, v); }
+  __device__ static float lo(raw r) { return r.x; }
+  __device__ static float hi(raw r) { return r.y; }
+};
+
+__device__ __forceinline__ float rglru_beta(float a) {
+  return sqrtf(fmaxf(1.f - a * a, 0.f));
+}
+
+// One chunk's x and a for one lane's two channels, steps past S the
+// identity (a = 1, x = 0).
+template <typename T, bool kVec, int kSteps>
+__device__ __forceinline__ void load_chunk(
+    const T* __restrict__ x, const T* __restrict__ a, int64_t i, int64_t D,
+    int n, bool in0, bool in1, typename ScanPair<T>::raw (&xr)[kSteps],
+    typename ScanPair<T>::raw (&ar)[kSteps]) {
+  using P = ScanPair<T>;
+  using R = typename P::raw;
+  const T one = P::of(1.f), zero = P::of(0.f);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const bool in = t0 + u < S;
-      const int64_t i = base + (int64_t)(t0 + u) * D;
-      xs[u] = in ? to_f32(x[i]) : 0.f;
-      as[u] = in ? to_f32(a[i]) : 0.f;
+  for (int u = 0; u < kSteps; ++u, i += D) {
+    const bool i0 = u < n && in0, i1 = u < n && in1;
+    if (kVec) {
+      xr[u] = i0 ? *reinterpret_cast<const R*>(x + i) : P::make(zero, zero);
+      ar[u] = i0 ? *reinterpret_cast<const R*>(a + i) : P::make(one, one);
+    } else {
+      xr[u] = P::make(i0 ? x[i] : zero, i1 ? x[i + 1] : zero);
+      ar[u] = P::make(i0 ? a[i] : one, i1 ? a[i + 1] : one);
     }
+  }
+}
+
+// Grid (ceil(D / 64), B).  kVec: D even and x, a, out aligned to a pair.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kScanWarps * 32, 16 / kScanWarps)
+rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ a,
+                  T* __restrict__ out, int S, int D) {
+  using P = ScanPair<T>;
+  using R = typename P::raw;
+  constexpr int kSteps = P::kSteps, kSuper = kScanWarps * kSteps;
+  __shared__ float2 sA[2][kScanWarps][32], sH[2][kScanWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = blockIdx.x * kScanChannels + 2 * lane;
+  const bool in0 = d < D, in1 = d + 1 < D;
+  // element (t, d) of this batch row is at row + t * D
+  const int64_t row = (int64_t)blockIdx.y * S * D + d;
+
+  R xn[kSteps], an[kSteps];            // the next chunk, in flight
+  load_chunk<T, kVec, kSteps>(x, a, row + (int64_t)warp * kSteps * D, D,
+                              S - warp * kSteps, in0, in1, xn, an);
+  float2 carry = make_float2(0.f, 0.f);
+  int buf = 0;
+  for (int s0 = 0; s0 < S; s0 += kSuper, buf ^= 1) {
+    // 1. take this chunk; put the next super-chunk's in flight
+    const int t0 = s0 + warp * kSteps;
+    R xr[kSteps], ar[kSteps];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kSteps; ++u) {
+      xr[u] = xn[u];
+      ar[u] = an[u];
+    }
+    load_chunk<T, kVec, kSteps>(x, a, row + (int64_t)(t0 + kSuper) * D, D,
+                                S - (t0 + kSuper), in0, in1, xn, an);
+
+    // 2. the chunk from zero: (A, H) per channel; keep beta * x
+    float2 gx[kSteps];
+    float2 A = make_float2(1.f, 1.f), H = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const float2 av = P::f32(ar[u]), xv = P::f32(xr[u]);
+      gx[u] = make_float2(rglru_beta(av.x) * xv.x, rglru_beta(av.y) * xv.y);
+      H.x = av.x * H.x + gx[u].x;
+      H.y = av.y * H.y + gx[u].y;
+      A.x *= av.x;
+      A.y *= av.y;
+    }
+    sA[buf][warp][lane] = A;
+    sH[buf][warp][lane] = H;
+    __syncthreads();
+
+    // 3. this warp's carry-in, and the next super-chunk's
+    float2 h = carry;
+#pragma unroll
+    for (int w = 0; w < kScanWarps; ++w) {
+      if (w == warp) h = carry;
+      const float2 Aw = sA[buf][w][lane], Hw = sH[buf][w][lane];
+      carry.x = Aw.x * carry.x + Hw.x;
+      carry.y = Aw.y * carry.y + Hw.y;
+    }
+
+    // 4. the chunk again from its carry-in; write h
+    int64_t i = row + (int64_t)t0 * D;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u, i += D) {
+      const float2 av = P::f32(ar[u]);
+      h.x = av.x * h.x + gx[u].x;
+      h.y = av.y * h.y + gx[u].y;
       if (t0 + u < S) {
-        const float beta = sqrtf(fmaxf(1.f - as[u] * as[u], 0.f));
-        h = as[u] * h + beta * xs[u];
-        from_f32(out + base + (int64_t)(t0 + u) * D, h);
+        const R hv = P::pack(h);
+        if (kVec) {
+          if (in0) *reinterpret_cast<R*>(out + i) = hv;
+        } else {
+          if (in0) out[i] = P::lo(hv);
+          if (in1) out[i + 1] = P::hi(hv);
+        }
       }
     }
   }
+}
+
+template <typename T>
+int launch_rglru(const void* x, const void* a, void* out, int B, int S,
+                 int D, cudaStream_t st) {
+  using R = typename ScanPair<T>::raw;
+  const dim3 grid((unsigned)((D + kScanChannels - 1) / kScanChannels),
+                  (unsigned)B);
+  const bool vec = D % 2 == 0 &&
+      ((uintptr_t)x | (uintptr_t)a | (uintptr_t)out) % sizeof(R) == 0;
+  if (vec)
+    rglru_scan_kernel<T, true><<<grid, kScanWarps * 32, 0, st>>>(
+        (const T*)x, (const T*)a, (T*)out, S, D);
+  else
+    rglru_scan_kernel<T, false><<<grid, kScanWarps * 32, 0, st>>>(
+        (const T*)x, (const T*)a, (T*)out, S, D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -976,22 +1121,11 @@ int models_flash_attention_tc(const void* q, const void* k, const void* v,
 
 int models_rglru_scan(const void* x, const void* a, void* out, int dtype,
                       int B, int S, int D, void* stream) {
-  const long long n = (long long)B * D;
-  if (n > 0 && S > 0) {
-    const int threads = 128;
-    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (dtype == 0)
-      rglru_scan_kernel<float><<<blocks, threads, 0, st>>>(
-          (const float*)x, (const float*)a, (float*)out, B, S, D);
-    else if (dtype == 1)
-      rglru_scan_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-          (const __nv_bfloat16*)x, (const __nv_bfloat16*)a,
-          (__nv_bfloat16*)out, B, S, D);
-    else
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if ((long long)B * D == 0 || S == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_rglru<float>(x, a, out, B, S, D, st);
+  if (dtype == 1) return launch_rglru<__nv_bfloat16>(x, a, out, B, S, D, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -25,6 +25,7 @@ import torch
 from ..core.messages import MsgType
 from ..core.multinode import MultiNodeRef
 from ..core.protocol import LocalOp
+from ..device import resolve_device
 from ..kernels import coherency_step as K
 
 #: retirement-latency histogram bucket edges (engine steps); bucket i
@@ -50,9 +51,13 @@ class Counters(NamedTuple):
     active_steps: torch.Tensor  # [] int32 steps with traffic in flight
 
 
-def make_counters(n_remotes: int, device="cpu") -> Counters:
+def make_counters(n_remotes: int, device=None) -> Counters:
+    """Zeroed counters for ``n_remotes`` on ``device`` (default the card;
+    raises without one)."""
+    dev = resolve_device(device)
+
     def z(shape, dt=torch.int32):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return torch.zeros(shape, dtype=dt, device=dev)
 
     return Counters(
         lat_hist=z((n_remotes, N_LAT_BUCKETS)), max_wait=z(n_remotes),

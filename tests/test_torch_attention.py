@@ -248,6 +248,62 @@ def test_ops_rglru_equals_reference(B, S, D, dtype):
     _close(got, want, RGLRU_TOL[dtype])
 
 
+#: steps per chunk of ``rglru_scan_kernel`` (``ScanPair<T>::kSteps`` in
+#: ``csrc/models.cu``).
+SCAN_STEPS = {"float32": 8, "bfloat16": 16}
+
+
+def _chunked_scan_emulation(x, a, steps):
+    """``rglru_scan_kernel``'s order in plain torch: chunks of ``steps``
+    steps scanned from zero to (A, H) per channel, the carries composed
+    chunk after chunk as (A2 A1, A2 H1 + H2), then every chunk run again
+    from its carry-in; fp32 arithmetic, steps past S the identity (a = 1,
+    x = 0), h in x's dtype."""
+    B, S, D = x.shape
+    n = -(-S // steps)
+    pad = (0, 0, 0, n * steps - S)
+    af = torch.nn.functional.pad(a.float(), pad, value=1.0)
+    xf = torch.nn.functional.pad(x.float(), pad, value=0.0)
+    af, xf = af.view(B, n, steps, D), xf.view(B, n, steps, D)
+    gx = torch.sqrt(torch.clamp(1.0 - af ** 2, min=0.0)) * xf
+    A, H = torch.ones((B, n, D)), torch.zeros((B, n, D))
+    for u in range(steps):                       # each chunk from zero
+        H = af[:, :, u] * H + gx[:, :, u]
+        A = A * af[:, :, u]
+    carry, c_in = torch.zeros((B, D)), []
+    for k in range(n):                           # the carries, composed
+        c_in.append(carry)
+        carry = A[:, k] * carry + H[:, k]
+    h, hs = torch.stack(c_in, 1), []
+    for u in range(steps):                       # each chunk again
+        h = af[:, :, u] * h + gx[:, :, u]
+        hs.append(h)
+    return torch.stack(hs, 2).reshape(B, n * steps, D)[:, :S].to(x.dtype)
+
+
+@pytest.mark.parametrize("B,S,D,decay", [c + ("sigmoid",) for c in
+                                         RGLRU_CASES] + [
+    (2, 2048, 128, "sigmoid"),
+    (2, 2048, 128, "near one"),                  # long memory
+    (2, 2048, 128, "near zero")])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_chunked_scan_order_within_contract(B, S, D, decay, dtype):
+    """The CUDA scan's reassociated order, in its chunks, against the
+    Pallas kernel in interpret mode at the RG-LRU tolerance."""
+    rng = np.random.default_rng(SEED + S)
+    jx, tx = _pair(rng, (B, S, D), dtype)
+    u = rng.random((B, S, D)).astype(np.float32)
+    a = {"sigmoid": 1 / (1 + np.exp(-rng.standard_normal((B, S, D)))),
+         "near one": 1 - 2e-3 * u, "near zero": 1e-2 * u}[decay]
+    a = a.astype(np.float32)
+    jd, td = DTYPES[dtype]
+    want = jops.rglru(jx, jnp.asarray(a, jd), use_kernel=True)
+    got = _chunked_scan_emulation(tx, torch.as_tensor(a).to(td),
+                                  SCAN_STEPS[dtype])
+    assert got.dtype == td
+    _close(got, want, RGLRU_TOL[dtype])
+
+
 # -- dispatch ----------------------------------------------------------------
 
 def test_cpu_wrappers_take_the_plain_versions():

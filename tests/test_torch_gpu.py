@@ -103,6 +103,40 @@ def test_lat_hist_kernel(cuda, R, L):
     assert torch.equal(got, ref.lat_hist_ref(lat, ret, K.LAT_EDGES))
 
 
+@pytest.mark.parametrize("R,L,r_off,l_off", [
+    (5, 4099, 0, 0),        # L % 16 != 0: every row starts elsewhere
+    (3, 100, 1, 1),         # offsets 1 B and 4 B: 15 lanes, then 16 at a time
+    (64, 4096, 1, 2),       # 1 B and 8 B: no common alignment
+    (4, 1000, 12, 4)])      # 12 B and 16 B: 4 lanes, then 16 at a time
+def test_lat_hist_kernel_unaligned(cuda, R, L, r_off, l_off):
+    """Rows whose start is not 16-byte aligned: a ragged L, and contiguous
+    views with a storage offset."""
+    rng = np.random.default_rng(SEED + L)
+    lat = torch.as_tensor(rng.integers(-4, 600, (R, L)).astype(np.int32))
+    ret = _bools(rng, (R, L), 0.5)
+    lat_v = torch.zeros(R * L + l_off, dtype=torch.int32,
+                        device=cuda)[l_off:].view(R, L)
+    ret_v = torch.zeros(R * L + r_off, dtype=torch.bool,
+                        device=cuda)[r_off:].view(R, L)
+    lat_v.copy_(lat)
+    ret_v.copy_(ret)
+    got = K.lat_hist(lat_v, ret_v).cpu()
+    assert torch.equal(got, ref.lat_hist_ref(lat, ret, K.LAT_EDGES))
+
+
+@pytest.mark.parametrize("value,b", [(-7, 0), (0, 0), (3, 2), (255, 8),
+                                     (256, 9), (2 ** 31 - 1, 9)])
+def test_lat_hist_kernel_one_bin(cuda, value, b):
+    """Every lane retired, into one bin: the counts reach L per row."""
+    lat = torch.full((64, 4096), value, dtype=torch.int32, device=cuda)
+    ret = torch.ones((64, 4096), dtype=torch.bool, device=cuda)
+    got = K.lat_hist(lat, ret).cpu()
+    want = torch.zeros((64, len(K.LAT_EDGES) + 1), dtype=torch.int32)
+    want[:, b] = 4096
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.lat_hist_ref(lat, ret, K.LAT_EDGES).cpu())
+
+
 def _words(rng, shape):
     w = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
     w = np.where(rng.random(shape) < 0.5, w, 0).astype(np.int32)
@@ -559,7 +593,11 @@ def test_flash_attention_kernel_by_dtype(cuda, dtype, runs, not_runs):
 
 
 @pytest.mark.parametrize("B,S,D", [(2, 64, 32), (1, 128, 64), (3, 32, 16),
-                                   (2, 100, 40), (4, 2048, 256)])
+                                   (2, 100, 40), (4, 2048, 256),
+                                   (1, 33, 7),       # odd D
+                                   (2, 5, 64),       # S below one chunk
+                                   (2, 300, 128),    # S past super-chunks
+                                   (3, 70, 66)])     # D past 64-channel CTAs
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_scan_kernel(cuda, B, S, D, dtype):
     rng = np.random.default_rng(SEED + S)
@@ -572,6 +610,36 @@ def test_rglru_scan_kernel(cuda, B, S, D, dtype):
     tol = 3e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.parametrize("near", ["one", "zero"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_extreme_decay(cuda, near, dtype):
+    """Long memory (a near 1: the chunks' carries dominate) and none (a
+    near 0) over S=2048."""
+    rng = np.random.default_rng(SEED)
+    x = _normal(rng, (2, 2048, 128), dtype).to(cuda)
+    u = rng.random((2, 2048, 128)).astype(np.float32)
+    a = torch.as_tensor(1 - 2e-3 * u if near == "one" else 1e-2 * u)
+    a = a.to(dtype).to(cuda)
+    got = MK.rglru_scan(x, a)
+    tol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), ref.rglru_scan_ref(x, a).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_unaligned(cuda, dtype):
+    """x one element past a pair's alignment: channels one at a time."""
+    rng = np.random.default_rng(SEED)
+    flat = _normal(rng, (2 * 300 * 64 + 1,), dtype).to(cuda)
+    x = flat[1:].view(2, 300, 64)
+    a = torch.sigmoid(_normal(rng, (2, 300, 64), torch.float32)).to(dtype)
+    got = MK.rglru_scan(x, a.to(cuda))
+    tol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(
+        got.float(), ref.rglru_scan_ref(x, a.to(cuda)).float(), atol=tol,
+        rtol=tol)
 
 
 def test_model_kernels_refuse_wrong_inputs(cuda):

@@ -69,6 +69,17 @@ def test_default_convert_raises_without_cuda(no_cuda):
     assert isinstance(st.txn_msg, np.ndarray)
 
 
+def test_default_counters_raise_without_cuda(no_cuda):
+    from repro_torch.traffic.counters import make_counters
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_counters(4)
+    ctr = make_counters(4, "cpu")
+    assert ctr.lat_hist.shape == (4, 10)
+    for leaf in ctr:
+        assert leaf.device.type == "cpu"
+        assert not bool(leaf.any())
+
+
 def test_explicit_cpu_runs_without_cuda(no_cuda):
     from repro_torch.traffic import (EngineConfig, StreamConfig,
                                      WorkloadSpec, run_stream)
