@@ -10,12 +10,17 @@ or of the ``repro`` package.  Phases, each of which fails the script:
 1. the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/csrc``, one ``nvcc`` per source, all at once, and
    time the build; print ptxas's report (registers, spills) of the
-   tensor-core attention kernel, the RG-LRU scan and ``lat_hist``, and
-   the attention kernel's shared memory;
+   tensor-core attention kernel, the RG-LRU scan, ``lat_hist``,
+   ``credit_rank`` and ``count_fold``, and the attention kernel's shared
+   memory;
 2. each coherency-step kernel against its plain PyTorch version on the
    card, bit-exact (``torch.equal``), at the main path's shapes and at
-   edge cases, with the kernel's, the plain version's and a one-call
-   PyTorch yardstick's device time (the profiler's CUDA trace);
+   edge cases (ragged lengths, storage offsets, a lead axis; for
+   ``count_fold`` the running totals ``base``, codes of every kind,
+   planes on both sides of its one-CTA size and 1,000 launches back to
+   back), with the kernel's, the plain version's and a one-call PyTorch
+   yardstick's device time (the profiler's CUDA trace); ``credit_rank``
+   and ``count_fold`` must each be one device operation per call;
 3. the model substrate: ``flash_attention`` (bf16 on the tensor cores,
    fp32 on the CUDA cores) and ``rglru_scan`` against their plain
    versions on the card, allclose (2e-5/2e-2 and 3e-5/3e-2 in
@@ -45,7 +50,9 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    ``hash_probe`` held against their plain versions bit for bit on the
    path's data and on edge cases, timed, with a bound fixed per kernel
    (10% selectivity, chain 32);
-5. the main path: ``run_stream`` on zipfian traffic at R=64 remotes,
+5. the main path: the device operations and device time of one dense
+   step from the profiler (``step_profile``); ``run_stream`` on zipfian
+   traffic at R=64 remotes,
    L=4096 lines of B=32 fp32 words (128-byte lines), MOESI, issue width
    W=1 at the ``WorkloadSpec`` default of 128 ops per remote and W=4 at
    32 (``W4_OPS``), each with the default step budget for its ops and
@@ -216,9 +223,12 @@ def ptxas_summary(report: str, kernel: str):
 def instance(name: str) -> str:
     """A kernel's template arguments from its mangled name, as a prefix:
     the head dim of an attention kernel, the dtype and load width of the
-    scan; nothing for a kernel that is no template."""
+    scan, the threads of a CTA of the others; nothing for a kernel that is
+    no template."""
     if "ILi" in name:
-        return f"D={name.split('ILi')[-1].split('E')[0]}: "
+        arg = name.split('ILi')[-1].split('E')[0]
+        return (f"D={arg}: " if "flash_attention" in name
+                else f"{arg} threads: ")
     if "rglru_scan_kernel" in name:
         return (("bf16" if "bfloat16" in name else "fp32")
                 + (", pairs: " if "Lb1E" in name else ", one at a time: "))
@@ -247,25 +257,35 @@ def wall_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: profiling windows tried before a window with no device time fails.
+PROFILE_TRIES = 3
+
+
 def device_entries(fn, iters: int = 100):
     """The profiler's device entries (kernels and memsets) over ``iters``
     calls of ``fn``, after one call to warm up.  Only device entries
     count: the entry of an aten op also carries the time of the kernels
-    it launched, which have entries of their own."""
+    it launched, which have entries of their own.  A window in which the
+    profiler recorded no device time at all (seen once on an H100 for a
+    kernel that records in every other run) is profiled again, up to
+    ``PROFILE_TRIES`` windows; then the script fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    on_card = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    if sum(ev.self_device_time_total for ev in on_card) <= 0:
-        fail("the profiler recorded no device time")
-    return on_card
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [ev for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(ev.self_device_time_total for ev in on_card) > 0:
+            return on_card
+        print(f"profiler: no device time recorded in window {attempt} of "
+              f"{PROFILE_TRIES}")
+    fail("the profiler recorded no device time")
 
 
 def device_ms(fn, iters: int = 100):
@@ -315,14 +335,17 @@ def dtype_name(t) -> str:
 
 
 def record_kernel(rows, name, check_cases, kernel, plain, library, nbytes,
-                  nops, iters=100, tol=None, ops_rate=CUDA_CORE_OPS_PER_S):
+                  nops, iters=100, tol=None, ops_rate=CUDA_CORE_OPS_PER_S,
+                  ops_per_call=None):
     """Hold ``kernel``'s results against its plain version's on every
     ``(what, got, want)`` case — bit for bit, or, with ``tol`` (a
     tolerance per dtype), allclose at the tolerance of ``got``'s dtype —
     then time the kernel, the plain version and the library call
     (``None``: no one PyTorch call computes the function) at the path's
     shape, and add the kernel's row to ``rows`` with its bound: ``nbytes``
-    at the HBM rate or ``nops`` at ``ops_rate``, whichever is longer."""
+    at the HBM rate or ``nops`` at ``ops_rate``, whichever is longer;
+    with ``ops_per_call``, fail unless the kernel's call runs exactly
+    that many device operations."""
     import torch
     err = 0
     for what, got, want in check_cases:
@@ -346,6 +369,9 @@ def record_kernel(rows, name, check_cases, kernel, plain, library, nbytes,
                  f"max abs err {e}")
         err = max(err, e)
     ms, n_ops = device_ms(kernel, iters)
+    if ops_per_call is not None and n_ops != ops_per_call:
+        fail(f"{name}: {n_ops:g} device operations per call, expected "
+             f"{ops_per_call}")
     plain_ms, plain_ops = device_ms(plain, iters)
     lib_ms, lib_ops = (device_ms(library, iters) if library is not None
                        else (None, 0))
@@ -383,9 +409,17 @@ def phase_kernels(dev):
 
     rows = {}
 
-    def record(name, check_cases, kernel, plain, library, nbytes, nops):
+    def record(name, check_cases, kernel, plain, library, nbytes, nops,
+               **kw):
         record_kernel(rows, name, check_cases, kernel, plain, library,
-                      nbytes, nops)
+                      nbytes, nops, **kw)
+
+    def view_at(t, off):
+        """A contiguous copy of ``t`` that starts ``off`` elements past
+        the start of its storage."""
+        v = torch.zeros(t.numel() + off, dtype=t.dtype,
+                        device=dev)[off:].view(t.shape)
+        return v.copy_(t)
 
     # -- credit_rank: [R, L] bool planes (the two credited submits) -------
     act = rand_bool((R, L), 0.4)
@@ -393,15 +427,23 @@ def phase_kernels(dev):
     cases = [("R=64 L=4096", K.credit_rank(act, cnd),
               ref.credit_rank_ref(act, cnd))]
     for shape, pa, pc in (((5, 4097), 0.4, 0.3), ((3, 33), 0.5, 0.5),
-                          ((R, L), 0.0, 0.0), ((1, 1), 1.0, 0.0)):
+                          ((R, L), 0.0, 0.0), ((1, 1), 1.0, 0.0),
+                          ((R, L - 1), 0.4, 0.3), ((HOMES, R, L), 0.4, 0.3),
+                          ((3, 9000), 0.4, 0.3), ((R, L), 1.0, 0.0)):
         a, c = rand_bool(shape, pa), rand_bool(shape, pc)
         cases.append((f"{shape}", K.credit_rank(a, c),
                       ref.credit_rank_ref(a, c)))
+    # storage offsets: 1 byte (an odd start, both planes on one phase),
+    # and 1 and 2 bytes (no common alignment: every lane one at a time)
+    for a_off, c_off in ((1, 1), (1, 2), (15, 15)):
+        a, c = view_at(act, a_off), view_at(cnd, c_off)
+        cases.append((f"storage offsets {a_off} B, {c_off} B",
+                      K.credit_rank(a, c), ref.credit_rank_ref(a, c)))
     cnd32 = cnd.to(torch.int32)
     record("credit_rank", cases, lambda: K.credit_rank(act, cnd),
            lambda: ref.credit_rank_ref(act, cnd),
            lambda: torch.cumsum(cnd32, dim=-1),
-           nbytes=2 * R * L + 4 * R * L, nops=8 * R * L)
+           nbytes=2 * R * L + 4 * R * L, nops=8 * R * L, ops_per_call=1)
 
     # -- arb_winner: [P, L] ready plane, [L] pointer ------------------------
     rdy = rand_bool((P, L), 0.05)
@@ -438,29 +480,86 @@ def phase_kernels(dev):
            lambda: torch.argmin(score, dim=0),
            nbytes=P * L + 4 * L + 4 * L, nops=6 * P * L)
 
-    # -- count_fold: [R, L] delivery planes, int8 codes --------------------
+    # -- count_fold: [R, L] and [L] delivery planes, int8 codes ------------
+    def codes(shape):
+        """int8 codes of every kind: 0..15 mostly, negative and past 15
+        (the HOME_TXN sentinel 100 at every 7th lane)."""
+        c = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+        c = torch.where(torch.rand(shape, generator=g) < 0.6,
+                        torch.randint(0, 16, shape, generator=g,
+                                      dtype=torch.int8), c)
+        c.view(-1)[::7] = 100
+        return c.to(dev)
+
+    def base():
+        return (torch.randint(0, 2 ** 20, (16,), generator=g,
+                              dtype=torch.int32).to(dev),
+                torch.randint(0, 2 ** 20, (), generator=g,
+                              dtype=torch.int32).to(dev))
+
     msk = rand_bool((R, L), 0.05)
     msg = torch.randint(0, 16, (R, L), generator=g,
                         dtype=torch.int8).to(dev)
     pay = rand_bool((R, L), 0.5)
     cases = [("R=64 L=4096", K.count_fold(msk, msg, pay),
               ref.count_fold_ref(msk, msg, pay))]
-    for shape, pm in (((L,), 0.5), ((7, 5), 1.0), ((R, L), 0.0)):
+    for shape, pm in (((L,), 0.5), ((7, 5), 1.0), ((R, L), 0.0),
+                      ((L + 1,), 0.5), ((2048,), 0.5), ((2049,), 0.5),
+                      ((8193,), 0.5), ((2048, L), 0.05)):
         m_, p_ = rand_bool(shape, pm), rand_bool(shape, 0.5)
-        g_ = torch.randint(0, 16, shape, generator=g,
-                           dtype=torch.int8).to(dev)
+        g_ = codes(shape)
+        b_ = base()
         cases.append((f"{shape}", K.count_fold(m_, g_, p_),
                       ref.count_fold_ref(m_, g_, p_)))
+        cases.append((f"{shape} base", K.count_fold(m_, g_, p_, base=b_),
+                      ref.count_fold_ref(m_, g_, p_, base=b_)))
     home = torch.full((L,), 100, dtype=torch.int8, device=dev)
     ones = torch.ones(L, dtype=torch.bool, device=dev)
     cases.append(("HOME_TXN codes", K.count_fold(ones, home, ones),
                   ref.count_fold_ref(ones, home, ones)))
+    # the engine's two shapes with base, codes of every kind
+    mixed = codes((R, L))
+    row = codes((L,))
+    b_ = base()
+    cases.append(("R=64 L=4096 base, codes of every kind",
+                  K.count_fold(msk, mixed, pay, base=b_),
+                  ref.count_fold_ref(msk, mixed, pay, base=b_)))
+    cases.append(("L=4096 base, codes of every kind",
+                  K.count_fold(ones, row, pay[0], base=b_),
+                  ref.count_fold_ref(ones, row, pay[0], base=b_)))
+    # storage offsets: one shared phase (a scalar head), and none shared
+    for offs in ((5, 5, 5), (0, 3, 1)):
+        vs = [view_at(t, o) for t, o in zip((msk, mixed, pay), offs)]
+        cases.append((f"storage offsets {offs} B",
+                      K.count_fold(*vs, base=b_),
+                      ref.count_fold_ref(*vs, base=b_)))
+    # 1,000 launches back to back, each folding into the last one's
+    # totals, alternating the [R, L] and [L] planes: a ticket that does
+    # not reset shows in the totals
+    planes = ((msk, mixed, pay), (ones, row, pay[0]))
+    steps = [torch.cat([d[0], d[1][None]])
+             for d in (ref.count_fold_ref(*pl) for pl in planes)]
+    tot = (torch.zeros(16, dtype=torch.int32, device=dev),
+           torch.zeros((), dtype=torch.int32, device=dev))
+    outs = []
+    for i in range(1000):
+        tot = K.count_fold(*planes[i % 2], base=tot)
+        outs.append(torch.cat([tot[0], tot[1][None]]))
+    cases.append(("1,000 launches back to back", torch.stack(outs),
+                  torch.cumsum(torch.stack([steps[i % 2]
+                                            for i in range(1000)]),
+                               dim=0, dtype=torch.int32)))
     msg64 = msg.reshape(-1).to(torch.int64)
     wts = msk.reshape(-1).to(torch.float32)
-    record("count_fold", cases, lambda: K.count_fold(msk, msg, pay),
-           lambda: ref.count_fold_ref(msk, msg, pay),
+    b0 = base()                 # the main path's call folds the totals
+    row_ms, row_ops = device_ms(lambda: K.count_fold(ones, row, pay[0],
+                                                     base=b0))
+    print(f"kernel count_fold at [{L}] (one CTA): device "
+          f"{row_ms * 1e3:.3f} us in {row_ops:g} ops")
+    record("count_fold", cases, lambda: K.count_fold(msk, msg, pay, base=b0),
+           lambda: ref.count_fold_ref(msk, msg, pay, base=b0),
            lambda: torch.bincount(msg64, weights=wts, minlength=16),
-           nbytes=3 * R * L + 4 * 17, nops=4 * R * L)
+           nbytes=3 * R * L + 2 * 4 * 17, nops=4 * R * L, ops_per_call=1)
 
     # -- lat_hist: [R, L] latencies, retired lanes --------------------------
     lat = torch.randint(-4, 600, (R, L), generator=g,
@@ -1362,6 +1461,42 @@ def check_no_host_sync(eng, ops: int, width: int, label: str) -> None:
           f"none inside (runs of 8 and 24 steps)")
 
 
+#: the hand-written kernels of the dense step, by a part of their names
+#: in the profiler's trace.
+STEP_KERNELS = ("credit_rank", "arb_winner", "count_fold", "lat_hist")
+
+
+def step_profile(dev, lo: int = 8, hi: int = 24) -> None:
+    """Device operations and device time of one dense step (R=64,
+    L=4096, B=32, W=1) from the profiler: the difference between runs of
+    ``hi`` and ``lo`` steps over ``hi - lo``, so a run's set-up and
+    read-out cancel.  Uses only ``run_stream``'s public API, so the same
+    code counts any tree of the port."""
+    import torch
+    from repro_torch.traffic import (EngineConfig, StreamConfig,
+                                     WorkloadSpec, run_stream)
+    eng = EngineConfig(remotes=R, lines=L, block=B).build(dev)
+
+    def run(n):
+        return lambda: run_stream(eng, StreamConfig(
+            workload=WorkloadSpec("zipfian", ops=WorkloadSpec().ops,
+                                  seed=0), width=1, steps=n))
+    tallies = []
+    for n in (lo, hi):
+        on_card = device_entries(run(n), iters=1)
+        kern = [ev for ev in on_card
+                if any(k in ev.key for k in STEP_KERNELS)]
+        tallies.append((sum(ev.count for ev in on_card),
+                        sum(ev.self_device_time_total for ev in on_card),
+                        sum(ev.count for ev in kern),
+                        sum(ev.self_device_time_total for ev in kern)))
+    d = [(b - a) / (hi - lo) for a, b in zip(*tallies)]
+    print(f"dense step (R={R} L={L} B={B} W=1, runs of {lo} and {hi} "
+          f"steps): {d[0]:g} device operations per step, device time "
+          f"{d[1]:.3f} us; the step kernels {d[2]:g} entries, "
+          f"{d[3]:.3f} us")
+
+
 def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
           label: str) -> None:
     """One run of ``ops`` per remote and the default step budget through
@@ -1416,6 +1551,7 @@ def phase_main_path(dev, rows):
           f"({default_steps(ops, R)} steps, the default budget), W=4 cut "
           f"to {W4_OPS} ({default_steps(W4_OPS, R)} steps)")
     cfg = EngineConfig(remotes=R, lines=L, block=B)
+    step_profile(dev)
     check_no_host_sync(cfg.build(dev), ops, 4, "main path")
     for width, n_ops in ((1, ops), (4, W4_OPS)):
         drive(dev, cfg, width, n_ops, PER_STEP, rows,
@@ -1531,7 +1667,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     for src, kernel in (("models", "flash_attention_tc_kernel"),
                         ("models", "rglru_scan_kernel"),
-                        ("coherency_step", "lat_hist_kernel")):
+                        ("coherency_step", "lat_hist_kernel"),
+                        ("coherency_step", "credit_rank_kernel"),
+                        ("coherency_step", "count_fold_kernel")):
         for line in ptxas_summary(reports.get(src, ""), kernel):
             print(f"ptxas: {kernel} {line}")
     print(f"flash_attention_tc_kernel dynamic shared memory at D=256: "

@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..device import resolve_device
 from .messages import MsgType
 from .protocol import LocalOp, TorchTables
 from .states import RemoteState
@@ -39,8 +40,10 @@ def plane_shape(agents: AgentState) -> tuple:
 
 
 def make_agent(n_lines: int, block: int, dtype=torch.float32,
-               device="cpu", lead: Tuple[int, ...] = ()) -> AgentState:
-    z = dict(device=device)
+               device=None, lead: Tuple[int, ...] = ()) -> AgentState:
+    """Idle agents on ``device`` (default the card; raises without
+    one)."""
+    z = dict(device=resolve_device(device))
     return AgentState(
         remote_state=torch.zeros(lead + (n_lines,), dtype=torch.int8, **z),
         cache=torch.zeros(lead + (n_lines, block), dtype=dtype, **z),

@@ -10,8 +10,9 @@ from ..kernels import coherency_step as K
 
 def _count(msg_count, payload_msgs, mask, msg, has_payload):
     """Accumulate delivered-message counts by type through the
-    ``count_fold`` kernel (its plain version on the CPU).  Returns the
-    new ``(msg_count [16] int32, payload_msgs [] int32)``."""
-    delta, pay = K.count_fold(mask.contiguous(), msg.contiguous(),
-                              has_payload.contiguous())
-    return msg_count + delta, payload_msgs + pay
+    ``count_fold`` kernel (its plain version on the CPU), which adds the
+    running totals in the same launch.  Returns the new ``(msg_count [16]
+    int32, payload_msgs [] int32)``."""
+    return K.count_fold(mask.contiguous(), msg.contiguous(),
+                        has_payload.contiguous(),
+                        base=(msg_count, payload_msgs))

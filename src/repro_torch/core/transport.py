@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import coherency_step as K
 from .messages import MsgType
 
@@ -66,7 +67,10 @@ class Channel(NamedTuple):
 
 
 def make_channel(n_lines: int, block: int, dtype=torch.float32,
-                 device="cpu", lead: Tuple[int, ...] = ()) -> Channel:
+                 device=None, lead: Tuple[int, ...] = ()) -> Channel:
+    """An empty channel on ``device`` (default the card; raises without
+    one)."""
+    device = resolve_device(device)
     return Channel(
         msg=torch.zeros(lead + (n_lines,), dtype=torch.int8, device=device),
         dirty=torch.zeros(lead + (n_lines,), dtype=torch.bool, device=device),

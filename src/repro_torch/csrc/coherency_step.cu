@@ -15,115 +15,209 @@
 // words.  All six move a few bytes per element and do a handful of
 // integer operations on each, so each is bound by memory traffic — and
 // at the engine's per-step sizes (at most [64, 4096]) by launch latency
-// first.  The designs below keep every input read once
-// and use shared memory for the partial results.
+// first.  The designs below read each input once at the engine's
+// shapes, and each call is one device operation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kScanThreads = 256;
-constexpr int kWarps = kScanThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 // --------------------------------------------------------------------------
-// credit_rank (replaces credit_rank, src/repro/kernels/coherency_step.py:86)
+// Byte planes read 16 lanes at a time (credit_rank, count_fold).
+//
+// A plane of bool or int8 lanes is read as 16-byte vectors laid on the
+// memory's 16-byte grid, not on the row's start: with h the lanes before
+// the row's first 16-byte edge (0 for an aligned row), group k covers
+// lanes [g0 + 16k, g0 + 16k + 16), g0 = h - 16 (0 when h = 0).  So a head
+// [0, h) and a ragged tail are partial groups, read one lane at a time and
+// zero outside the row.  Planes that do not share their alignment are
+// read one lane at a time throughout.
+// --------------------------------------------------------------------------
+
+struct Groups {
+  long long g0;      // the first lane of group 0, in (-16, 0]
+  long long count;   // groups that cover [0, n)
+  bool vec;          // the planes share their 16-byte alignment
+};
+
+__host__ __device__ inline Groups groups16(const void* p, bool vec,
+                                           long long n) {
+  const long long h = (16 - ((uintptr_t)p & 15)) & 15;
+  Groups g;
+  g.vec = vec;
+  g.g0 = (vec && h != 0) ? h - 16 : 0;
+  g.count = n > 0 ? (n - g.g0 + 15) / 16 : 0;
+  return g;
+}
+
+__host__ __device__ inline bool same_align(const void* a, const void* b) {
+  return (((uintptr_t)a ^ (uintptr_t)b) & 15) == 0;
+}
+
+__device__ __forceinline__ uint4 ld16(const uint8_t* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Lanes [lo, lo + 16) of p one at a time, zero outside [0, n).
+__device__ __forceinline__ uint4 lanes16(const uint8_t* __restrict__ p,
+                                         long long lo, long long n) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const long long l = lo + e;
+    if (l >= 0 && l < n) w[e >> 2] |= (uint32_t)p[l] << (8 * (e & 3));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The 16 lanes of a group of bool bytes (each 0 or 1) as 16 bits: the
+// product gathers a word's four bytes into its top nibble.
+__device__ __forceinline__ uint32_t bits16(const uint4& v) {
+  constexpr uint32_t kGather = 0x10204080u;
+  return ((v.x * kGather) >> 28) | (((v.y * kGather) >> 28) << 4) |
+         (((v.z * kGather) >> 28) << 8) | (((v.w * kGather) >> 28) << 12);
+}
+
+// --------------------------------------------------------------------------
+// credit_rank (replaces credit_rank, src/repro/kernels/coherency_step.py:99)
 //
 // out[r, l] = occupancy of line l's odd/even VC in row r
 //           + number of candidates before l in row r on the same parity.
 //
-// One block per row.  Each thread owns a contiguous chunk of the row: it
-// counts its active/candidate lanes per parity, the block reduces the
-// occupancies and scans the candidate counts (warp shuffles, then one
-// warp over the per-warp totals), and each thread walks its chunk again
-// emitting occupancy + running rank.  Bound: 2 bytes in + 4 bytes out per
-// lane.
+// Bound: bytes, 2 in and 4 out per lane; at the engine's [64, 4096] that
+// is 1.5 MB, 0.47 us at 3.35 TB/s, so the time is the launch and one trip
+// to memory.  One CTA per row segment of kRankThreads 16-lane groups (a
+// whole row at L = 4096).  Each thread owns one group: one 16-byte load of
+// `active` and one of `cand`, kept in registers as 16-bit masks.  Every
+// group starts at an even offset from g0, so lanes at even offsets in a
+// group (class X) share one VC and the others (class Y) the other; the
+// per-parity counts are __popc of the masks with 0x5555 and 0xAAAA.  The
+// block sums the occupancies with __reduce_add_sync and scans the
+// candidate counts with warp shuffles and one pass over the warps'
+// totals in shared memory; a lane's result is its class's occupancy, the
+// candidates before its group, and a __popc of its group's earlier
+// candidates.  The results go through shared memory so that each warp
+// stores 512 contiguous bytes (a thread's own 64 bytes as four 16-byte
+// stores measured 1.7x slower: PERF.md); a segment that is not one
+// aligned run of whole groups stores them from each thread.
+//
+// A row longer than one segment is split over several CTAs; each reads,
+// besides its own segment, the other segments' `active` lanes (the
+// occupancy) and the earlier segments' `cand` lanes (its prefix).  (A
+// cluster of 2 CTAs per row exchanging the totals through distributed
+// shared memory, and 128-thread CTAs of 32 lanes a thread, measured
+// slower at L = 4096: PERF.md.)
 // --------------------------------------------------------------------------
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+constexpr int kRankThreads = 256;
+
+// Group k of a row plane as 16 bits.
+__device__ __forceinline__ uint32_t rank_bits(const uint8_t* __restrict__ p,
+                                              const Groups& g, long long k,
+                                              int L) {
+  const long long lo = g.g0 + 16 * k;
+  return bits16((g.vec && lo >= 0 && lo + 16 <= L) ? ld16(p + lo)
+                                                   : lanes16(p, lo, L));
 }
 
-__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
-  for (int o = 1; o < 32; o <<= 1) {
-    int n = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += n;
-  }
-  return v;
-}
-
-__global__ void credit_rank_kernel(const bool* __restrict__ active,
-                                   const bool* __restrict__ cand,
-                                   int32_t* __restrict__ out, int L) {
-  __shared__ int s_occ[2][kWarps];
-  __shared__ int s_scan[2][kWarps];
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
+template <int T>
+__global__ void __launch_bounds__(T)
+credit_rank_kernel(const uint8_t* __restrict__ active,
+                   const uint8_t* __restrict__ cand,
+                   int32_t* __restrict__ out, int L) {
+  constexpr int kW = T / 32;
+  constexpr uint32_t kX = 0x5555u, kY = 0xAAAAu;
+  __shared__ int s_red[6][kW];
+  __shared__ int4 s_out[4][T + 2];      // padded: no bank conflicts
+  const int row = blockIdx.x, seg = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const bool* a = active + (size_t)row * L;
-  const bool* c = cand + (size_t)row * L;
+  const uint8_t* a = active + (size_t)row * L;
+  const uint8_t* c = cand + (size_t)row * L;
   int32_t* o = out + (size_t)row * L;
+  const Groups g = groups16(a, same_align(a, c), L);
+  const long long k = (long long)seg * T + tid;
 
-  const int chunk = (L + kScanThreads - 1) / kScanThreads;
-  const int lo = min(tid * chunk, L);
-  const int hi = min(lo + chunk, L);
-
-  int occ_e = 0, occ_o = 0, cnd_e = 0, cnd_o = 0;
-  for (int l = lo; l < hi; ++l) {
-    const int odd = l & 1;
-    const int av = a[l] ? 1 : 0;
-    const int cv = c[l] ? 1 : 0;
-    occ_o += odd ? av : 0;
-    occ_e += odd ? 0 : av;
-    cnd_o += odd ? cv : 0;
-    cnd_e += odd ? 0 : cv;
+  const uint32_t am = rank_bits(a, g, k, L);
+  const uint32_t cm = rank_bits(c, g, k, L);
+  int ox = __popc(am & kX), oy = __popc(am & kY);
+  const int cx = __popc(cm & kX), cy = __popc(cm & kY);
+  int px = 0, py = 0;                   // candidates of earlier segments
+  for (int s = 0; s < (int)gridDim.y; ++s) {
+    if (s == seg) continue;
+    const long long ks = (long long)s * T + tid;
+    const uint32_t as = rank_bits(a, g, ks, L);
+    ox += __popc(as & kX);
+    oy += __popc(as & kY);
+    if (s < seg) {
+      const uint32_t cs = rank_bits(c, g, ks, L);
+      px += __popc(cs & kX);
+      py += __popc(cs & kY);
+    }
   }
 
-  // block reduction of the two occupancies.
-  const int wo_e = warp_sum(occ_e), wo_o = warp_sum(occ_o);
-  // block exclusive scan of the candidate counts, per parity.
-  const int inc_e = warp_incl_scan(cnd_e, lane);
-  const int inc_o = warp_incl_scan(cnd_o, lane);
-  if (lane == 31) {
-    s_scan[0][warp] = inc_e;
-    s_scan[1][warp] = inc_o;
+  int ix = cx, iy = cy;                 // inclusive scans in the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int ux = __shfl_up_sync(kFull, ix, d);
+    const int uy = __shfl_up_sync(kFull, iy, d);
+    if (lane >= d) {
+      ix += ux;
+      iy += uy;
+    }
   }
+  const int rox = __reduce_add_sync(kFull, ox);
+  const int roy = __reduce_add_sync(kFull, oy);
+  const int rpx = __reduce_add_sync(kFull, px);
+  const int rpy = __reduce_add_sync(kFull, py);
   if (lane == 0) {
-    s_occ[0][warp] = wo_e;
-    s_occ[1][warp] = wo_o;
+    s_red[0][warp] = rox;
+    s_red[1][warp] = roy;
+    s_red[2][warp] = rpx;
+    s_red[3][warp] = rpy;
+  }
+  if (lane == 31) {
+    s_red[4][warp] = ix;
+    s_red[5][warp] = iy;
   }
   __syncthreads();
-  if (warp == 0) {
-    int te = lane < kWarps ? s_scan[0][lane] : 0;
-    int to = lane < kWarps ? s_scan[1][lane] : 0;
-    int ie = warp_incl_scan(te, lane);
-    int io = warp_incl_scan(to, lane);
-    int oe = warp_sum(lane < kWarps ? s_occ[0][lane] : 0);
-    int oo = warp_sum(lane < kWarps ? s_occ[1][lane] : 0);
-    __syncwarp();
-    if (lane < kWarps) {
-      s_scan[0][lane] = ie - te;  // exclusive prefix of the warp totals
-      s_scan[1][lane] = io - to;
-    }
-    if (lane == 0) {
-      s_occ[0][0] = oe;
-      s_occ[1][0] = oo;
-    }
+  int vx = ix - cx, vy = iy - cy;       // X and Y lanes before my group
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    vx += s_red[0][w] + s_red[2][w] + (w < warp ? s_red[4][w] : 0);
+    vy += s_red[1][w] + s_red[3][w] + (w < warp ? s_red[5][w] : 0);
   }
-  __syncthreads();
-  const int occ_even = s_occ[0][0], occ_odd = s_occ[1][0];
-  int run_e = s_scan[0][warp] + inc_e - cnd_e;  // candidates before my chunk
-  int run_o = s_scan[1][warp] + inc_o - cnd_o;
-  for (int l = lo; l < hi; ++l) {
-    const int cv = c[l] ? 1 : 0;
-    if (l & 1) {
-      o[l] = occ_odd + run_o;
-      run_o += cv;
-    } else {
-      o[l] = occ_even + run_e;
-      run_e += cv;
+
+  int32_t res[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t below = cm & ((1u << j) - 1u);
+    res[j] = (j & 1) ? vy + __popc(below & kY) : vx + __popc(below & kX);
+  }
+
+  const long long lo = g.g0 + 16 * ((long long)seg * T);
+  if (g.vec && lo >= 0 && lo + 16LL * T <= L &&
+      ((uintptr_t)(o + lo) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      s_out[q][tid] = make_int4(res[4 * q], res[4 * q + 1], res[4 * q + 2],
+                                res[4 * q + 3]);
+    __syncthreads();
+    int4* d = reinterpret_cast<int4*>(o + lo);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = tid + T * u;        // 16-byte vector i of the segment
+      d[i] = s_out[i & 3][i >> 2];
     }
+    return;
+  }
+  const long long mine = g.g0 + 16 * k;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const long long l = mine + e;
+    if (l >= 0 && l < L) o[l] = res[e];
   }
 }
 
@@ -209,36 +303,189 @@ arb_winner_kernel(const uint8_t* __restrict__ ready,
 }
 
 // --------------------------------------------------------------------------
-// count_fold (replaces count_fold, coherency_step.py:176)
+// count_fold (replaces count_fold, coherency_step.py:193)
 //
-// out[0:16] += histogram of msg under mask; out[16] += count of masked
-// lanes that carry a payload.  Codes outside 0..15 land in no bin.
+// out[0:16] = base[0:16] + histogram of msg under mask; out[16] = base[16]
+// + count of masked lanes that carry a payload (no base: zero).  Codes
+// outside 0..15 — the HOME_TXN sentinel 100, negative int8 — land in no
+// bin.  Exact in int32.
 //
-// A grid-stride loop; each block folds into a 17-int histogram in shared
-// memory, then adds its non-zero bins to the output with integer atomics
-// (exact in any order).  The wrapper zeroes the output first.  Bound:
-// 3 bytes in per lane.
+// Bound: bytes, 3 in per lane; at the engine's [64, 4096] that is 786 kB,
+// 0.235 us at 3.35 TB/s, so the time is the launch, one trip to memory
+// and the reduction across CTAs.  Each thread issues its three 16-byte
+// loads per 16-lane group up front and counts in registers with no
+// branch on a loaded value: a lane's code becomes a shift of 4 * code
+// (64 or more when it does not count), and 1 << shift lands in a 4-bit
+// field of one of two words (bins 0..7, 8..15; a PTX shift of 32 or more
+// gives 0), widened to byte fields once per group.  The 17 counts are
+// summed across each warp with __reduce_add_sync and across the block in
+// shared memory.
+//
+// The CTAs' sums meet in the same launch with nothing zeroed first: CTA
+// b adds (1 << 40) + its sum for bin j to the 64-bit accumulator
+// acc[j * stride] with one atomicAdd that returns the old value.  The
+// add that brings the arrivals to the grid's size holds bin j's total
+// (old + its own), so its CTA writes base + total and sets the
+// accumulator back to 0 for the next launch: a ticket per bin, no fence
+// and no second pass.  The wrapper puts each accumulator on a line of
+// its own.  128-thread CTAs (128 at [64, 4096]) balance each CTA's loads
+// against the arrivals at an accumulator.  A plane of kFoldThreads
+// groups or fewer (2048 lanes) is one CTA and takes no atomic.
+// (Measured slower, PERF.md: one grid-wide ticket whose last CTA sums
+// every CTA's partials between two fences; one cluster of 16 CTAs summed
+// through distributed shared memory; at [4096], one CTA of 256 threads
+// measured the same as two of 128.)
 // --------------------------------------------------------------------------
 
-__global__ void count_fold_kernel(const bool* __restrict__ mask,
-                                  const int8_t* __restrict__ msg,
-                                  const bool* __restrict__ pay,
-                                  int32_t* __restrict__ out, int64_t n) {
-  __shared__ int hist[17];
-  if (threadIdx.x < 17) hist[threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (mask[i]) {
-      const int m = msg[i];
-      if (m >= 0 && m < 16) atomicAdd(&hist[m], 1);
-      if (pay[i]) atomicAdd(&hist[16], 1);
+constexpr int kFoldBins = 17;
+constexpr int kFoldThreads = 128;
+constexpr int kFoldMaxCtas = 1024;   // below the arrival field's 2^24
+constexpr int kFoldArrival = 40;     // acc: arrivals << 40 | sum
+
+// 1 << s, and 0 for s >= 32: PTX clamps the shift amount.
+__device__ __forceinline__ uint32_t shl1(uint32_t s) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(1u), "r"(s));
+  return r;
+}
+
+// Adds the 4 lanes of mask word m and code word c to the nibble counters
+// lo (bins 0..7) and hi (bins 8..15).  A lane's shift is 4 * code, plus
+// 64 when it does not count: its code's high nibble is not 0 (16..127,
+// or negative) or it is not masked.
+__device__ __forceinline__ void fold_word(uint32_t m, uint32_t c,
+                                          uint32_t& lo, uint32_t& hi) {
+  const uint32_t high = (((c >> 4) & 0x0F0F0F0Fu) + 0x0F0F0F0Fu) &
+                        0x10101010u;
+  const uint32_t off = ((m ^ 0x01010101u) & 0x01010101u) << 4;
+  const uint32_t s = ((c & 0x0F0F0F0Fu) | high | off) << 2;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t se = (s >> (8 * e)) & 0xffu;
+    lo += shl1(se);
+    hi += shl1(se ^ 32u);
+  }
+}
+
+// One 16-lane group into the byte counters b (bins 0,2,4,6 | 1,3,5,7 |
+// 8,10,12,14 | 9,11,13,15; each grows by at most 16) and the payload
+// count.  Each nibble counter takes 8 lanes, at most 8.
+__device__ __forceinline__ void fold_group(const uint4& m, const uint4& c,
+                                           const uint4& p, uint32_t (&b)[4],
+                                           int& pay) {
+  uint32_t alo = 0, ahi = 0, blo = 0, bhi = 0;
+  fold_word(m.x, c.x, alo, ahi);
+  fold_word(m.y, c.y, alo, ahi);
+  fold_word(m.z, c.z, blo, bhi);
+  fold_word(m.w, c.w, blo, bhi);
+  constexpr uint32_t kN = 0x0F0F0F0Fu;
+  b[0] += (alo & kN) + (blo & kN);
+  b[1] += ((alo >> 4) & kN) + ((blo >> 4) & kN);
+  b[2] += (ahi & kN) + (bhi & kN);
+  b[3] += ((ahi >> 4) & kN) + ((bhi >> 4) & kN);
+  pay += __popc(m.x & p.x) + __popc(m.y & p.y) + __popc(m.z & p.z) +
+         __popc(m.w & p.w);
+}
+
+__device__ __forceinline__ void fold_flush(uint32_t (&b)[4],
+                                           int (&cnt)[kFoldBins]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    cnt[2 * i] += (b[0] >> (8 * i)) & 0xff;
+    cnt[2 * i + 1] += (b[1] >> (8 * i)) & 0xff;
+    cnt[8 + 2 * i] += (b[2] >> (8 * i)) & 0xff;
+    cnt[9 + 2 * i] += (b[3] >> (8 * i)) & 0xff;
+  }
+  b[0] = b[1] = b[2] = b[3] = 0u;
+}
+
+// This thread's counts over groups first, first + stride, ... of the
+// flat planes.
+__device__ __forceinline__ void fold_lanes(const uint8_t* __restrict__ mask,
+                                           const uint8_t* __restrict__ msg,
+                                           const uint8_t* __restrict__ pay,
+                                           long long n, long long first,
+                                           long long stride,
+                                           int (&cnt)[kFoldBins]) {
+  const Groups g = groups16(mask, same_align(mask, msg) &&
+                                      same_align(mask, pay), n);
+  uint32_t b[4] = {0u, 0u, 0u, 0u};
+  int since = 0;                        // groups since the last flush
+  for (long long k = first; k < g.count; k += stride) {
+    const long long lo = g.g0 + 16 * k;
+    uint4 m, c, p;
+    if (g.vec && lo >= 0 && lo + 16 <= n) {
+      m = ld16(mask + lo);
+      c = ld16(msg + lo);
+      p = ld16(pay + lo);
+    } else {
+      m = lanes16(mask, lo, n);
+      c = lanes16(msg, lo, n);
+      p = lanes16(pay, lo, n);
+    }
+    fold_group(m, c, p, b, cnt[16]);
+    if (++since == 15) {                // byte counters stay below 256
+      fold_flush(b, cnt);
+      since = 0;
     }
   }
+  fold_flush(b, cnt);
+}
+
+// The block's sum of v for bin tid (valid for tid < kFoldBins).
+template <int T>
+__device__ __forceinline__ int fold_block_sum(const int (&v)[kFoldBins],
+                                              int (*part)[kFoldBins]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kFoldBins; ++j) {
+    const int s = __reduce_add_sync(kFull, v[j]);
+    if (lane == 0) part[warp][j] = s;
+  }
   __syncthreads();
-  if (threadIdx.x < 17 && hist[threadIdx.x] != 0)
-    atomicAdd(&out[threadIdx.x], hist[threadIdx.x]);
+  int s = 0;
+  if (threadIdx.x < kFoldBins) {
+#pragma unroll
+    for (int w = 0; w < T / 32; ++w) s += part[w][threadIdx.x];
+  }
+  return s;
+}
+
+__device__ __forceinline__ int fold_base(int j, const int32_t* base_c,
+                                         const int32_t* base_p) {
+  if (base_c == nullptr) return 0;
+  return j < 16 ? base_c[j] : base_p[0];
+}
+
+template <int T>
+__global__ void __launch_bounds__(T)
+count_fold_kernel(const uint8_t* __restrict__ mask,
+                  const uint8_t* __restrict__ msg,
+                  const uint8_t* __restrict__ pay,
+                  const int32_t* __restrict__ base_c,
+                  const int32_t* __restrict__ base_p,
+                  int32_t* __restrict__ out, long long n,
+                  unsigned long long* __restrict__ acc, int stride) {
+  __shared__ int part[T / 32][kFoldBins];
+  const int tid = threadIdx.x;
+  int cnt[kFoldBins] = {};
+  fold_lanes(mask, msg, pay, n, (long long)blockIdx.x * T + tid,
+             (long long)gridDim.x * T, cnt);
+  const int tot = fold_block_sum<T>(cnt, part);
+  if (tid >= kFoldBins) return;
+  if (gridDim.x == 1) {
+    out[tid] = tot + fold_base(tid, base_c, base_p);
+    return;
+  }
+  constexpr unsigned long long kSum = (1ull << kFoldArrival) - 1;
+  unsigned long long* a = acc + (size_t)tid * stride;
+  const unsigned long long old =
+      atomicAdd(a, (1ull << kFoldArrival) + (unsigned long long)tot);
+  if ((old >> kFoldArrival) == gridDim.x - 1) {     // the last arrival
+    out[tid] = (int)((old & kSum) + (unsigned long long)tot) +
+               fold_base(tid, base_c, base_p);
+    *a = 0ull;                                      // ready for the next
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -407,9 +654,18 @@ extern "C" {
 
 int coh_credit_rank(const void* active, const void* cand, void* out,
                     int rows, int L, void* stream) {
-  if (rows > 0 && L > 0)
-    credit_rank_kernel<<<rows, kScanThreads, 0, (cudaStream_t)stream>>>(
-        (const bool*)active, (const bool*)cand, (int32_t*)out, L);
+  if (rows <= 0 || L <= 0) return (int)cudaGetLastError();
+  // Groups per row: exact when every row starts on the same 16-byte
+  // phase, else the most any phase needs (the extra CTAs find no lanes).
+  const long long groups =
+      L % 16 == 0 ? groups16(active, same_align(active, cand), L).count
+                  : (L + 30) / 16;
+  const long long nseg = (groups + kRankThreads - 1) / kRankThreads;
+  if (nseg > 65535) return (int)cudaErrorInvalidValue;   // grid.y
+  credit_rank_kernel<kRankThreads>
+      <<<dim3((unsigned)rows, (unsigned)nseg), kRankThreads, 0,
+         (cudaStream_t)stream>>>((const uint8_t*)active,
+                                 (const uint8_t*)cand, (int32_t*)out, L);
   return (int)cudaGetLastError();
 }
 
@@ -430,15 +686,18 @@ int coh_arb_winner(const void* ready, const void* rr, void* out, int n, int P,
 }
 
 int coh_count_fold(const void* mask, const void* msg, const void* pay,
-                   void* out, long long n, void* stream) {
-  if (n > 0) {
-    const int threads = 256;
-    long long blocks = (n + threads * 4 - 1) / (threads * 4);
-    if (blocks > 1056) blocks = 1056;  // 8 blocks per SM on 132 SMs
-    count_fold_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const bool*)mask, (const int8_t*)msg, (const bool*)pay,
-        (int32_t*)out, (int64_t)n);
-  }
+                   const void* base_c, const void* base_p, void* out,
+                   long long n, void* acc, int stride, void* stream) {
+  const long long groups =
+      groups16(mask, same_align(mask, msg) && same_align(mask, pay), n)
+          .count;
+  long long ctas = (groups + kFoldThreads - 1) / kFoldThreads;
+  ctas = ctas < 1 ? 1 : (ctas > kFoldMaxCtas ? kFoldMaxCtas : ctas);
+  count_fold_kernel<kFoldThreads>
+      <<<(unsigned)ctas, kFoldThreads, 0, (cudaStream_t)stream>>>(
+          (const uint8_t*)mask, (const uint8_t*)msg, (const uint8_t*)pay,
+          (const int32_t*)base_c, (const int32_t*)base_p, (int32_t*)out, n,
+          (unsigned long long*)acc, stride);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ Each wrapper replaces one Pallas kernel of ``repro.kernels.coherency_step``:
 * ``credit_rank`` — parity-split credit ranking (``transport.credit_accept``);
 * ``arb_winner``  — per-line rotating-priority arbitration
   (``core.engine_mn.step_mn`` phase 4);
-* ``count_fold``  — the delivered-message counter fold (``core.engine._count``);
+* ``count_fold``  — the delivered-message counter fold, running totals
+  included (``core.engine._count``);
 * ``lat_hist``    — the retirement-latency histogram
   (``traffic.counters.update_counters``);
 * ``packed_any``  — any bit set per line of a packed word plane
@@ -25,7 +26,7 @@ noted beside each kernel in ``csrc/coherency_step.cu``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,7 +42,7 @@ _I = ctypes.c_int
 _SIGS = {
     "coh_credit_rank": (_P, _P, _P, _I, _I),
     "coh_arb_winner": (_P, _P, _P, _I, _I, _I),
-    "coh_count_fold": (_P, _P, _P, _P, ctypes.c_longlong),
+    "coh_count_fold": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _I),
     "coh_lat_hist": (_P, _P, _P, _I, _I),
     "coh_packed_any": (_P, _P, ctypes.c_longlong, _I),
     "coh_packed_fanout": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
@@ -54,6 +55,11 @@ _LIB = Library("coherency_step", _SIGS,
 launches: Dict[str, int] = _LIB.launches
 reset_launches = _LIB.reset_launches
 _launch = _LIB.launch
+
+#: int64 elements between ``count_fold``'s 17 accumulators (256 bytes:
+#: each on a line of its own).
+FOLD_ACC_STRIDE = 32
+_FOLD_ACC: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -108,23 +114,52 @@ def arb_winner(ready_all: torch.Tensor, arb_rr: torch.Tensor
     return out
 
 
+def _fold_acc(device: torch.device) -> torch.Tensor:
+    """``count_fold``'s 17 int64 accumulators, ``FOLD_ACC_STRIDE`` apart,
+    on ``device``'s current stream, zeroed at its first call there: each
+    launch leaves them at 0 again, so launches on one stream share them
+    in turn."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    acc = _FOLD_ACC.get(key)
+    if acc is None:
+        acc = _FOLD_ACC[key] = torch.zeros(17 * FOLD_ACC_STRIDE,
+                                           dtype=torch.int64, device=device)
+    return acc
+
+
 def count_fold(mask: torch.Tensor, msg: torch.Tensor,
-               has_payload: torch.Tensor
+               has_payload: torch.Tensor,
+               base: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(delta [16] int32, payload delta [] int32): the histogram of the
     int8 ``msg`` codes under ``mask`` over all axes, and the count of
-    masked lanes with ``has_payload``."""
+    masked lanes with ``has_payload``.  With ``base=(msg_count [16],
+    payload_msgs [])`` int32, the running totals plus those, from the
+    same launch."""
     if mask.device.type == "cpu":
-        return ref.count_fold_ref(mask, msg, has_payload)
+        return ref.count_fold_ref(mask, msg, has_payload, base)
     if not (mask.shape == msg.shape == has_payload.shape):
         raise ValueError("count_fold: mask, msg and has_payload must have "
                          "one shape")
-    _check("count_fold", mask, torch.bool, mask.device)
-    _check("count_fold", msg, torch.int8, mask.device)
-    _check("count_fold", has_payload, torch.bool, mask.device)
-    out = torch.zeros(17, dtype=torch.int32, device=mask.device)
+    dev = mask.device
+    _check("count_fold", mask, torch.bool, dev)
+    _check("count_fold", msg, torch.int8, dev)
+    _check("count_fold", has_payload, torch.bool, dev)
+    base_c = base_p = None
+    if base is not None:
+        counts, pay = base
+        if tuple(counts.shape) != (16,) or tuple(pay.shape) != ():
+            raise ValueError(f"count_fold: base shapes "
+                             f"{tuple(counts.shape)} and {tuple(pay.shape)}"
+                             f", expected (16,) and ()")
+        _check("count_fold", counts, torch.int32, dev)
+        _check("count_fold", pay, torch.int32, dev)
+        base_c, base_p = counts.data_ptr(), pay.data_ptr()
+    acc = _fold_acc(dev)
+    out = torch.empty(17, dtype=torch.int32, device=dev)
     _launch("count_fold", "coh_count_fold", mask.data_ptr(), msg.data_ptr(),
-            has_payload.data_ptr(), out.data_ptr(), mask.numel())
+            has_payload.data_ptr(), base_c, base_p, out.data_ptr(),
+            mask.numel(), acc.data_ptr(), FOLD_ACC_STRIDE)
     return out[:16], out[16]
 
 

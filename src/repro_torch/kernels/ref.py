@@ -95,16 +95,22 @@ def arb_winner_ref(ready_all: torch.Tensor, arb_rr: torch.Tensor
 
 
 def count_fold_ref(mask: torch.Tensor, msg: torch.Tensor,
-                   has_payload: torch.Tensor
+                   has_payload: torch.Tensor,
+                   base: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Delivered-message fold (``engine._count``): a 16-bin histogram of
     ``msg`` under ``mask`` over ALL axes, plus the count of masked lanes
     carrying a payload.  Returns (delta [16] int32, payload delta []
-    int32); codes outside 0..15 land in no bin."""
+    int32), or with ``base=(msg_count [16], payload_msgs [])`` int32 the
+    running totals ``base + delta``; codes outside 0..15 land in no
+    bin."""
     types = torch.arange(16, device=msg.device, dtype=torch.int32)
     eq = msg.to(torch.int32)[..., None] == types
     hist = (eq & mask[..., None]).reshape(-1, 16).sum(0, dtype=torch.int32)
-    return hist, (mask & has_payload).sum(dtype=torch.int32)
+    pay = (mask & has_payload).sum(dtype=torch.int32)
+    if base is None:
+        return hist, pay
+    return base[0] + hist, base[1] + pay
 
 
 def lat_hist_ref(lat: torch.Tensor, retired: torch.Tensor,

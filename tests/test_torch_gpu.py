@@ -49,12 +49,35 @@ def _bools(rng, shape, p):
 
 
 @pytest.mark.parametrize("shape", [(16,), (8, 16), (4, 8, 16), (3, 33),
-                                   (1, 1), (64, 4096), (5, 4097)])
+                                   (1, 1), (64, 4096), (5, 4097), (64, 4095),
+                                   (2, 64, 4096), (3, 9000)])
 def test_credit_rank_kernel(cuda, shape):
     rng = np.random.default_rng(SEED)
     a = _bools(rng, shape, 0.4)
     c = _bools(rng, shape, 0.3) & ~a
     got = K.credit_rank(a.to(cuda), c.to(cuda)).cpu()
+    assert torch.equal(got, ref.credit_rank_ref(a, c))
+
+
+@pytest.mark.parametrize("shape,a_off,c_off", [
+    ((64, 4096), 1, 1),     # an odd byte offset, shared by both planes
+    ((7, 100), 3, 3),
+    ((64, 4096), 1, 2),     # no common alignment: one lane at a time
+    ((5, 4097), 15, 15)])
+def test_credit_rank_kernel_unaligned(cuda, shape, a_off, c_off):
+    """Contiguous views that start past a 16-byte edge (``buf[1:]`` of a
+    flat buffer, reshaped)."""
+    rng = np.random.default_rng(SEED + a_off)
+    a = _bools(rng, shape, 0.4)
+    c = _bools(rng, shape, 0.3) & ~a
+    n = a.numel()
+    a_v = torch.zeros(n + a_off, dtype=torch.bool,
+                      device=cuda)[a_off:].view(shape)
+    c_v = torch.zeros(n + c_off, dtype=torch.bool,
+                      device=cuda)[c_off:].view(shape)
+    a_v.copy_(a)
+    c_v.copy_(c)
+    got = K.credit_rank(a_v, c_v).cpu()
     assert torch.equal(got, ref.credit_rank_ref(a, c))
 
 
@@ -80,18 +103,89 @@ def test_arb_winner_kernel(cuda, P, L, lead, rr_span, p_ready):
     assert torch.equal(got, ref.arb_winner_ref(r, rr))
 
 
+def _codes(rng, shape):
+    """int8 codes of every kind: 0..15, negative, past 15, and the
+    HOME_TXN sentinel 100 at every 7th lane."""
+    g = torch.as_tensor(rng.integers(-128, 128, shape).astype(np.int8))
+    keep = torch.as_tensor(rng.random(shape) < 0.6)
+    g = torch.where(keep, torch.as_tensor(
+        rng.integers(0, 16, shape).astype(np.int8)), g)
+    g.view(-1)[::7] = 100
+    return g
+
+
+def _base(rng):
+    return (torch.as_tensor(rng.integers(0, 2 ** 20, 16).astype(np.int32)),
+            torch.tensor(int(rng.integers(0, 2 ** 20)), dtype=torch.int32))
+
+
+# one CTA takes up to kFoldThreads 16-lane groups: sizes on both sides of
+# 2048, 4096 and 8192 lanes; past the most CTAs a launch takes (each
+# thread then loops), and past 15 groups a thread (its byte counters
+# flush).
 @pytest.mark.parametrize("all_false", [False, True])
 @pytest.mark.parametrize("shape", [(8, 16), (5, 7), (33,), (64, 4096),
-                                   (4096,)])
+                                   (4096,), (2048,), (2049,), (4097,),
+                                   (8192,), (8193,), (2048, 4096),
+                                   (5000, 8192)])
 def test_count_fold_kernel(cuda, shape, all_false):
     rng = np.random.default_rng(SEED)
     m = _bools(rng, shape, 0.0 if all_false else 0.5)
-    g = torch.as_tensor(rng.integers(0, 16, shape).astype(np.int8))
-    g.view(-1)[::7] = 100             # the HOME_TXN sentinel: no bin
+    g = _codes(rng, shape)
     p = _bools(rng, shape, 0.5)
     gc, gp = K.count_fold(m.to(cuda), g.to(cuda), p.to(cuda))
     wc, wp = ref.count_fold_ref(m, g, p)
-    assert torch.equal(gc.cpu(), wc) and int(gp) == int(wp)
+    assert torch.equal(gc.cpu(), wc) and torch.equal(gp.cpu(), wp)
+    base = _base(rng)
+    gc, gp = K.count_fold(m.to(cuda), g.to(cuda), p.to(cuda),
+                          base=tuple(b.to(cuda) for b in base))
+    wc, wp = ref.count_fold_ref(m, g, p, base=base)
+    assert torch.equal(gc.cpu(), wc) and torch.equal(gp.cpu(), wp)
+
+
+@pytest.mark.parametrize("n,offs", [
+    (4096, (1, 1, 1)),      # one CTA's worth, 15 lanes of head: two CTAs
+    (64 * 4096, (5, 5, 5)),
+    (4099, (0, 3, 0)),      # no common alignment: one lane at a time
+    (100, (15, 15, 15))])
+def test_count_fold_kernel_unaligned(cuda, n, offs):
+    """Contiguous views with a storage offset, and a length that is not
+    a multiple of 16."""
+    rng = np.random.default_rng(SEED + n)
+    m, g, p = _bools(rng, n, 0.5), _codes(rng, n), _bools(rng, n, 0.5)
+    views = []
+    for t, off in zip((m, g, p), offs):
+        v = torch.zeros(n + off, dtype=t.dtype, device=cuda)[off:]
+        v.copy_(t)
+        views.append(v)
+    base = _base(rng)
+    gc, gp = K.count_fold(*views, base=tuple(b.to(cuda) for b in base))
+    wc, wp = ref.count_fold_ref(m, g, p, base=base)
+    assert torch.equal(gc.cpu(), wc) and torch.equal(gp.cpu(), wp)
+
+
+def test_count_fold_kernel_back_to_back(cuda):
+    """1,000 launches in a row, each folding into the last one's totals,
+    alternating a multi-CTA plane and a one-CTA plane: a ticket that did
+    not reset would show in the totals."""
+    rng = np.random.default_rng(SEED + 1)
+    planes = []
+    for shape in ((64, 4096), (4096,)):
+        planes.append((_bools(rng, shape, 0.05), _codes(rng, shape),
+                       _bools(rng, shape, 0.5)))
+    deltas = [ref.count_fold_ref(*pl) for pl in planes]
+    on_card = [tuple(t.to(cuda) for t in pl) for pl in planes]
+    c = torch.zeros(16, dtype=torch.int32, device=cuda)
+    pay = torch.zeros((), dtype=torch.int32, device=cuda)
+    outs = []
+    for i in range(1000):
+        c, pay = K.count_fold(*on_card[i % 2], base=(c, pay))
+        outs.append(torch.cat([c, pay[None]]))
+    got = torch.stack(outs).cpu()
+    step = [torch.cat([d[0], d[1][None]]) for d in deltas]
+    want = torch.cumsum(torch.stack([step[i % 2] for i in range(1000)]),
+                        dim=0, dtype=torch.int32)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("R,L", [(4, 16), (3, 7), (1, 1), (64, 4096)])
@@ -183,6 +277,12 @@ def test_kernels_refuse_wrong_inputs(cuda):
         K.arb_winner(b, torch.zeros(7, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         K.count_fold(b, b.to(torch.int8).cpu(), b)
+    i32 = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):            # base shapes
+        K.count_fold(b, b.to(torch.int8), b, base=(i32[:8], i32[0]))
+    with pytest.raises(TypeError):             # base dtype
+        K.count_fold(b, b.to(torch.int8), b,
+                     base=(i32.to(torch.int64), i32[0]))
     w = torch.zeros((4, 8, 2), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         K.packed_any(w.to(torch.int64))

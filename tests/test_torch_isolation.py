@@ -80,6 +80,20 @@ def test_default_counters_raise_without_cuda(no_cuda):
         assert not bool(leaf.any())
 
 
+def test_default_channel_and_agent_raise_without_cuda(no_cuda):
+    from repro_torch.core.agent import make_agent
+    from repro_torch.core.transport import make_channel
+    for make in (make_channel, make_agent):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(16, 2)
+    ch = make_channel(16, 2, device="cpu", lead=(3,))
+    ag = make_agent(16, 2, device="cpu", lead=(3,))
+    assert ch.msg.shape == ag.remote_state.shape == (3, 16)
+    for leaf in (*ch, *ag):
+        assert leaf.device.type == "cpu"
+        assert not bool(leaf.any())
+
+
 def test_explicit_cpu_runs_without_cuda(no_cuda):
     from repro_torch.traffic import (EngineConfig, StreamConfig,
                                      WorkloadSpec, run_stream)

@@ -113,6 +113,138 @@ def test_count_fold_ignores_codes_outside_msgtype():
     assert int(gp) == int(wp) == 4
 
 
+def _count_codes(shape, seed):
+    """Codes of every kind: in 0..15, the HOME_TXN sentinel 100, other
+    codes past 15 and negative int8 values."""
+    rng = np.random.default_rng(seed)
+    msg = rng.integers(-128, 128, shape).astype(np.int8)
+    msg = np.where(rng.random(shape) < 0.6, rng.integers(0, 16, shape),
+                   msg).astype(np.int8)
+    msg.reshape(-1)[::7] = 100
+    return msg
+
+
+@pytest.mark.parametrize("all_false", [False, True])
+@pytest.mark.parametrize("shape", COUNT_SHAPES)
+def test_count_fold_base_adds_the_reference_delta(shape, all_false):
+    """``base=(c0, p0)`` gives ``c0 + delta`` and ``p0 + payload delta``
+    of the reference's fold, bit for bit, on codes of every kind; on CPU
+    tensors the wrapper returns the same."""
+    mask, _, pay = _count_inputs(shape, all_false=all_false)
+    msg = _count_codes(shape, SEED + len(shape))
+    rng = np.random.default_rng(SEED + 7)
+    c0 = rng.integers(0, 2 ** 20, 16).astype(np.int32)
+    p0 = np.int32(rng.integers(0, 2 ** 20))
+    wc, wp = jref.count_fold_ref(mask, msg, pay)
+    base = (_t(c0), torch.tensor(p0))
+    gc, gp = tref.count_fold_ref(_t(mask), _t(msg), _t(pay), base=base)
+    np.testing.assert_array_equal(gc.numpy(), c0 + np.asarray(wc))
+    assert int(gp) == int(p0) + int(wp)
+    assert gc.dtype == torch.int32 and gp.dtype == torch.int32
+    assert gc.shape == (16,) and gp.shape == ()
+    kc, kp = K.count_fold(_t(mask), _t(msg), _t(pay), base=base)
+    assert torch.equal(kc, gc) and torch.equal(kp, gp)
+
+
+def _words(planes):
+    """[G, 4] uint64 little-endian words of 16-lane groups of byte planes
+    (zero past the end), as the CUDA kernels load them."""
+    flat = np.asarray(planes).reshape(-1).view(np.uint8)
+    pad = np.zeros(-(-flat.size // 16) * 16, np.uint8)
+    pad[:flat.size] = flat
+    return pad.reshape(-1, 4, 4).astype(np.uint64) @ \
+        (np.uint64(1) << np.arange(0, 32, 8, dtype=np.uint64))
+
+
+def _count_fold_emulation(mask, msg, pay):
+    """``count_fold_kernel``'s arithmetic (``csrc/coherency_step.cu``),
+    one 16-lane group at a time: each lane's shift of 4 * code (64 or more
+    when it does not count), ``1 << shift`` into the 4-bit fields of two
+    words per 8 lanes (a shift of 32 or more gives 0, as PTX clamps it),
+    widened to byte fields, popcounts for the payload."""
+    m, c, p = _words(mask), _words(msg), _words(pay)
+    high = (((c >> 4) & 0x0F0F0F0F) + 0x0F0F0F0F) & 0x10101010
+    off = ((m ^ 0x01010101) & 0x01010101) << 4
+    shifts = ((c & 0x0F0F0F0F) | high | off) << 2
+    lo = np.zeros(m.shape, np.uint64)
+    hi = np.zeros(m.shape, np.uint64)
+    for e in range(4):
+        se = (shifts >> np.uint64(8 * e)) & np.uint64(0xff)
+        for acc, s in ((lo, se), (hi, se ^ np.uint64(32))):
+            acc += np.where(s < 32, np.uint64(1) << np.minimum(s, 31), 0)
+    assert (lo >> 32 == 0).all() and (hi >> 32 == 0).all()
+    half = [(w[:, 0] + w[:, 1], w[:, 2] + w[:, 3]) for w in (lo, hi)]
+    n4 = np.uint64(0x0F0F0F0F)
+    fields = [a & n4 for a in half[0]] + [(a >> 4) & n4 for a in half[0]] \
+        + [a & n4 for a in half[1]] + [(a >> 4) & n4 for a in half[1]]
+    b = [fields[0] + fields[1], fields[2] + fields[3], fields[4] + fields[5],
+         fields[6] + fields[7]]
+    hist = np.zeros(16, np.int64)
+    for i in range(4):
+        for j, base in ((0, 2 * i), (1, 2 * i + 1), (2, 8 + 2 * i),
+                        (3, 9 + 2 * i)):
+            byte = (b[j] >> np.uint64(8 * i)) & np.uint64(0xff)
+            assert (byte <= 16).all()
+            hist[base] += int(byte.sum())
+    pays = sum(int(np.bitwise_count(m[:, i] & p[:, i]).sum())
+               for i in range(4))
+    return hist, pays
+
+
+@pytest.mark.parametrize("shape", COUNT_SHAPES + [(64, 256)])
+def test_count_fold_kernel_arithmetic_equals_reference(shape):
+    """The CUDA kernel's branch-free counting, emulated on the CPU, equals
+    the reference's fold on codes of every kind."""
+    mask, _, pay = _count_inputs(shape)
+    msg = _count_codes(shape, SEED + 3)
+    wc, wp = jref.count_fold_ref(mask, msg, pay)
+    hist, pays = _count_fold_emulation(mask, msg, pay)
+    np.testing.assert_array_equal(hist, np.asarray(wc))
+    assert pays == int(wp)
+
+
+def _credit_rank_emulation(active, cand):
+    """``credit_rank_kernel``'s arithmetic for rows that start on a
+    16-byte edge: each 16-lane group's planes as 16-bit masks (a product
+    gathers a word's 4 bytes into its top nibble), per-parity popcounts
+    with 0x5555 / 0xAAAA, the groups' candidate counts scanned."""
+    rows, L = active.shape
+    gather = np.uint64(0x10204080)
+    out = np.zeros((rows, L), np.int64)
+    for r in range(rows):
+        bits = []
+        for plane in (active[r], cand[r]):
+            w = _words(plane)
+            nib = ((w * gather) & np.uint64(0xFFFFFFFF)) >> np.uint64(28)
+            bits.append((nib << (np.arange(4, dtype=np.uint64) * 4)).sum(1))
+        am, cm = bits
+        X, Y = np.uint64(0x5555), np.uint64(0xAAAA)
+        occ = [int(np.bitwise_count(am & X).sum()),
+               int(np.bitwise_count(am & Y).sum())]
+        cx = np.bitwise_count(cm & X).astype(np.int64)
+        cy = np.bitwise_count(cm & Y).astype(np.int64)
+        before = [np.cumsum(cx) - cx, np.cumsum(cy) - cy]
+        for j in range(16):
+            below = cm & np.uint64((1 << j) - 1)
+            cls = j & 1
+            v = occ[cls] + before[cls] + np.bitwise_count(
+                below & (Y if cls else X))
+            lanes = np.arange(len(am)) * 16 + j
+            keep = lanes < L
+            out[r, lanes[keep]] = v[keep]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(8, 16), (3, 33), (4, 128), (2, 4096)])
+def test_credit_rank_kernel_arithmetic_equals_reference(shape):
+    """The CUDA kernel's bitmask counting and scan, emulated on the CPU,
+    equal the reference's credit rank."""
+    active, cand = _credit_inputs(shape)
+    want = np.asarray(jref.credit_rank_ref(active, cand))
+    np.testing.assert_array_equal(_credit_rank_emulation(active, cand),
+                                  want)
+
+
 @pytest.mark.parametrize("R,L", LAT_SHAPES)
 def test_lat_hist_plain_equals_reference(R, L):
     lat, retired = _lat_inputs(R, L)

@@ -87,7 +87,7 @@ def test_read_hit_values():
     mask = rng.random((R, L)) < 0.5
     j = jag.make_agent(L, B)._replace(remote_state=jnp.asarray(rs),
                                       cache=jnp.asarray(cache))
-    t = tag.make_agent(L, B, lead=(R,))._replace(
+    t = tag.make_agent(L, B, device="cpu", lead=(R,))._replace(
         remote_state=torch.as_tensor(rs), cache=torch.as_tensor(cache))
     _eq(tag.read_hit_values(t, torch.as_tensor(mask)),
         jag.read_hit_values(j, jnp.asarray(mask)))
