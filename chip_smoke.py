@@ -11,8 +11,8 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    ``src/repro_torch/csrc``, one ``nvcc`` per source, all at once, and
    time the build; print ptxas's report (registers, spills) of the
    tensor-core attention kernel, the RG-LRU scan, ``lat_hist``,
-   ``credit_rank`` and ``count_fold``, and the attention kernel's shared
-   memory;
+   ``credit_rank``, ``count_fold``, ``regex_dfa`` and ``hash_probe``,
+   and the attention kernel's shared memory;
 2. each coherency-step kernel against its plain PyTorch version on the
    card, bit-exact (``torch.equal``), at the main path's shapes and at
    edge cases (ragged lengths, storage offsets, a lead axis; for
@@ -46,10 +46,16 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    100% selectivity, and a KVS of 65,536 buckets at chain lengths 1, 8,
    32 and 128 under 1 Mi queries — each run checked against its oracle
    (the predicate, python ``re``, the plain lookup), each call launching
-   its kernel exactly once; ``select_scan``, ``regex_dfa`` and
+   its kernel exactly once, the regex reading its string field in place
+   and the lookup chasing build_sharded_kvs's records (every entry of
+   one regex call is printed); ``select_scan``, ``regex_dfa`` and
    ``hash_probe`` held against their plain versions bit for bit on the
-   path's data and on edge cases, timed, with a bound fixed per kernel
-   (10% selectivity, chain 32);
+   path's data and on edge cases (strided and unaligned fields, both KVS
+   layouts), timed, with a bound fixed per kernel (10% selectivity,
+   chain 32): ``regex_dfa`` on the field in place and on a contiguous
+   copy, ``hash_probe`` on records and on two arrays, each one device
+   operation per call but the two arrays' (an interleave, then the
+   kernel);
 5. the main path: the device operations and device time of one dense
    step from the profiler (``step_profile``); ``run_stream`` on zipfian
    traffic at R=64 remotes,
@@ -229,6 +235,8 @@ def instance(name: str) -> str:
         arg = name.split('ILi')[-1].split('E')[0]
         return (f"D={arg}: " if "flash_attention" in name
                 else f"{arg} threads: ")
+    if "regex_dfa_smem_kernel" in name:
+        return "TMA: " if "ILb1E" in name else "cp.async: "
     if "rglru_scan_kernel" in name:
         return (("bf16" if "bfloat16" in name else "fp32")
                 + (", pairs: " if "Lb1E" in name else ", one at a time: "))
@@ -297,18 +305,55 @@ def device_ms(fn, iters: int = 100):
     return total_us / iters / 1e3, sum(ev.count for ev in on_card) / iters
 
 
-def where_the_time_goes(label: str, fn, wall_s: float, iters: int = 3):
-    """Print the device time of one call of ``fn`` against its wall time
-    (the device's idle share) and its four longest device entries."""
+def per_call(on_card, iters: int):
+    """[(name, runs per call, ms per call)] of the device entries of
+    ``iters`` calls, longest first.  The profiler's CUDA trace drops some
+    records of long kernels launched through ctypes (0.67-0.95 of them
+    kept per call, seen on an H100), so a sum over the calls comes
+    short: an entry's runs per call are its count over the calls,
+    rounded, at least 1, each at the mean duration of those recorded."""
+    rows = []
+    for ev in on_card:
+        runs = max(1, round(ev.count / iters))
+        rows.append((ev.key, runs,
+                     runs * ev.self_device_time_total / ev.count / 1e3))
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def where_the_time_goes(label: str, fn, wall_s: float, iters: int = 3,
+                        top=4):
+    """Print the device time of one call of ``fn`` (``per_call``) against
+    its wall time (the device's idle share) and its ``top`` longest device
+    entries (``None``: every entry, with its runs per call)."""
+    rows = per_call(device_entries(fn, iters), iters)
+    total = sum(ms for _, _, ms in rows)
+    ops = sum(runs for _, runs, _ in rows)
+    entries = "; ".join(f"{key[:48]} {ms:.3f} ms"
+                        + ("" if top else f" x{runs}")
+                        for key, runs, ms in rows[:top])
+    print(f"{label}: device {total:.3f} ms in {ops} ops of "
+          f"{wall_s * 1e3:.3f} ms wall (idle "
+          f"{100 * (1 - total / (wall_s * 1e3)):.1f}%); "
+          f"{'longest' if top else 'every entry'}: {entries}")
+
+
+def ops_ms(label: str, fn, iters: int, ops_per_call: int, own: str):
+    """(device ms per call, device operations per call) of ``fn``, failing
+    unless each call runs ``ops_per_call`` device operations, each once
+    and one of them named ``own``: the distinct device entries of
+    ``iters`` calls, each recorded at most ``iters`` times (``per_call``:
+    the profiler may drop records, never add them)."""
     on_card = device_entries(fn, iters)
-    total = sum(ev.self_device_time_total for ev in on_card) / iters / 1e3
-    top = sorted(on_card, key=lambda ev: -ev.self_device_time_total)[:4]
-    longest = "; ".join(
-        f"{ev.key[:48]} {ev.self_device_time_total / iters / 1e3:.3f} ms"
-        for ev in top)
-    print(f"{label}: device {total:.3f} ms of {wall_s * 1e3:.3f} ms wall "
-          f"(idle {100 * (1 - total / (wall_s * 1e3)):.1f}%); longest: "
-          f"{longest}")
+    names = [ev.key for ev in on_card]
+    if len(on_card) != ops_per_call or not any(own in k for k in names) \
+            or any(ev.count > iters for ev in on_card):
+        seen = [(ev.key[:48], ev.count) for ev in on_card]
+        fail(f"{label}: device entries {seen} over {iters} calls, "
+             f"expected {ops_per_call} a call, one of them {own}")
+    kept = min(ev.count for ev in on_card)
+    if kept < iters:
+        print(f"profiler: {label}: {kept} of {iters} records kept")
+    return sum(ms for _, _, ms in per_call(on_card, iters)), ops_per_call
 
 
 def max_abs_err(got, want) -> int:
@@ -345,7 +390,8 @@ def record_kernel(rows, name, check_cases, kernel, plain, library, nbytes,
     shape, and add the kernel's row to ``rows`` with its bound: ``nbytes``
     at the HBM rate or ``nops`` at ``ops_rate``, whichever is longer;
     with ``ops_per_call``, fail unless the kernel's call runs exactly
-    that many device operations."""
+    that many device operations, its own among them (``ops_ms``, which
+    also gives the kernel's time)."""
     import torch
     err = 0
     for what, got, want in check_cases:
@@ -368,10 +414,8 @@ def record_kernel(rows, name, check_cases, kernel, plain, library, nbytes,
             fail(f"{name} differs from its plain version ({what}), "
                  f"max abs err {e}")
         err = max(err, e)
-    ms, n_ops = device_ms(kernel, iters)
-    if ops_per_call is not None and n_ops != ops_per_call:
-        fail(f"{name}: {n_ops:g} device operations per call, expected "
-             f"{ops_per_call}")
+    ms, n_ops = device_ms(kernel, iters) if ops_per_call is None else \
+        ops_ms(name, kernel, iters, ops_per_call, name)
     plain_ms, plain_ops = device_ms(plain, iters)
     lib_ms, lib_ops = (device_ms(library, iters) if library is not None
                        else (None, 0))
@@ -759,7 +803,7 @@ def nmp_select(dev, rows, path):
         record_kernel(rows, "select_scan", cases,
                       lambda: NK.select_scan(table, 0.0, 1.0),
                       lambda: ref.select_scan_ref(table, 0.0, 1.0, 256),
-                      None, nbytes, 0, iters=NMP_ITERS)
+                      None, nbytes, 0, iters=NMP_ITERS, ops_per_call=1)
         del cases
 
 
@@ -784,47 +828,77 @@ def regex_oracle(field):
     return match, last
 
 
-def read_sectors(last, width: int) -> int:
-    """32-byte sectors of a contiguous ``[n, width]`` byte array that hold
-    bytes 0..last[r] of each row r (the whole row where ``last`` is -1),
-    each sector counted once."""
+def read_sectors(last, width: int, stride=None, offset: int = 0) -> int:
+    """32-byte sectors of an ``[n, width]`` byte field whose row r starts
+    at byte ``offset + r * stride`` (``stride`` None: ``width``, a
+    contiguous array) that hold bytes 0..last[r] of each row r (the whole
+    row where ``last`` is -1), each sector counted once."""
     import numpy as np
     n = last.shape[0]
-    start = np.arange(n, dtype=np.int64) * width
+    start = offset + np.arange(n, dtype=np.int64) * (stride or width)
     end = start + np.where(last < 0, width - 1, last)
     lo, hi = start // 32, end // 32
     prev = np.concatenate([[-1], hi[:-1]])
     return int(np.maximum(0, hi - np.maximum(lo, prev + 1) + 1).sum())
 
 
-def nmp_regex(dev, rows, path):
-    """REGEXP_LIKE pushdown (paper Fig. 7) over 16 Mi 128-byte rows."""
-    import numpy as np
+def regex_table(dev, sel: float):
+    """The regex phase's table: ``NMP_ROWS`` rows of ``REGEX_W`` random
+    lowercase bytes, ``PATTERN`` written into the string field of the rows
+    ``u < sel`` at a random position; and ``u``."""
     import torch
-    from repro_torch.core import pushdown as PD
-    from repro_torch.kernels import nmp as NK
-    from repro_torch.kernels import ref
-    from repro_torch.nmp.dfa import dfa_tables
-    from repro_torch.nmp.regex import compile_regex
     n, width = NMP_ROWS, STR_HI - STR_LO
-    dfa = compile_regex(PATTERN)
-    trans, accept = dfa_tables(dfa, dev)
     g = torch.Generator(device=dev).manual_seed(52)
     table = torch.randint(ord("a"), ord("z") + 1, (n, REGEX_W), generator=g,
                           device=dev, dtype=torch.uint8)
     u = torch.rand(n, generator=g, device=dev)
     pos = torch.randint(0, width - len(PATTERN) + 1, (n,), generator=g,
                         device=dev)
+    seed_pattern(table, u, pos, 0.0, sel)
+    return table, u, pos
+
+
+def seed_pattern(table, u, pos, lo: float, hi: float) -> None:
+    """Write ``PATTERN`` into the field of the rows with lo <= u < hi."""
+    new = ((u < hi) & (u >= lo)).nonzero().squeeze(1)
+    for j, c in enumerate(PATTERN.encode()):
+        table[new, STR_LO + pos[new] + j] = c
+
+
+def time_call(label: str, fn, nbytes, ops_per_call: int, own: str,
+              iters: int = NMP_ITERS):
+    """Print ``fn``'s device time per call (``ops_ms``: ``ops_per_call``
+    device operations, one of them named ``own``) beside ``nbytes`` at
+    the HBM rate (None: no bound).  Returns the device time in ms."""
+    ms, n_ops = ops_ms(label, fn, iters, ops_per_call, own)
+    bound = "" if nbytes is None else (
+        f", bound {nbytes / HBM_BYTES_PER_S * 1e6:.3f} us ({nbytes} bytes), "
+        f"{100 * nbytes / HBM_BYTES_PER_S * 1e3 / ms:.1f}% of it")
+    print(f"{label}: device {ms * 1e3:.3f} us in {n_ops:g} ops{bound}; "
+          f"{wall_ms(fn, iters) * 1e3:.2f} us per call back to back")
+    return ms
+
+
+def nmp_regex(dev, rows, path):
+    """REGEXP_LIKE pushdown (paper Fig. 7) over 16 Mi 128-byte rows."""
+    import torch
+    from repro_torch.core import pushdown as PD
+    from repro_torch.kernels import nmp as NK
+    from repro_torch.kernels import ref
+    from repro_torch.nmp.dfa import dfa_tables, field_bytes
+    from repro_torch.nmp.regex import compile_regex
+    n, width = NMP_ROWS, STR_HI - STR_LO
+    dfa = compile_regex(PATTERN)
+    trans, accept = dfa_tables(dfa, dev)
+    table, u, pos = regex_table(dev, 0.0)
     print(f"nmp regex: '{PATTERN}' ({dfa.n_states} DFA states) over {n} "
           f"rows of {REGEX_W} random lowercase bytes, string field "
-          f"[{STR_LO}, {STR_HI}), pushdown_regex over [{dev}], capacity "
-          f"{n}, best of {NMP_REPS}")
+          f"[{STR_LO}, {STR_HI}) read in place, pushdown_regex over "
+          f"[{dev}], capacity {n}, best of {NMP_REPS}")
     seeded_below = 0.0
     for sel in SELECTIVITIES:
-        new = ((u < sel) & (u >= seeded_below)).nonzero().squeeze(1)
+        seed_pattern(table, u, pos, seeded_below, sel)
         seeded_below = sel
-        for j, c in enumerate(PATTERN.encode()):
-            table[new, STR_LO + pos[new] + j] = c
         res, t = drive_nmp("regex_dfa", lambda: PD.pushdown_regex(
             [dev], n, dfa, table, STR_LO, STR_HI), NMP_REPS, path)
         t0 = time.perf_counter()
@@ -845,25 +919,36 @@ def nmp_regex(dev, rows, path):
         del res, mt
         if sel != BOUND_SEL:
             continue
+        # every device entry of the call: no copy of the string field.
         where_the_time_goes("nmp regex sel=0.1 pushdown_regex", lambda: PD.
                             pushdown_regex([dev], n, dfa, table, STR_LO,
-                                           STR_HI), t)
-        sectors = read_sectors(last, width)
+                                           STR_HI), t, top=None)
         tbl_bytes = trans.numel() * 4 + accept.numel()
+        sectors = read_sectors(last, width)
         nbytes = 32 * sectors + n + tbl_bytes
+        in_place = read_sectors(last, width, REGEX_W, STR_LO)
+        nbytes_in_place = 32 * in_place + n + tbl_bytes
         print(f"kernel regex_dfa bound at sel={sel}: {sectors} 32-byte "
-              f"sectors of the {n}x{width} string bytes up to each row's "
-              f"first accept byte, {tbl_bytes} bytes of tables, {n} "
-              f"written: {nbytes} bytes")
-        strings = table[:, STR_LO:STR_HI].contiguous()
-        cases = [("16 Mi rows, sel 0.1", NK.regex_dfa(trans, accept, strings),
+              f"sectors of a contiguous {n}x{width} copy of the string "
+              f"field up to each row's first accept byte, {tbl_bytes} "
+              f"bytes of tables, {n} written: {nbytes} bytes; in place "
+              f"(rows {REGEX_W} bytes apart, the field at byte {STR_LO}): "
+              f"{in_place} sectors, {nbytes_in_place} bytes")
+        field = table[:, STR_LO:STR_HI]
+        strings = field.contiguous()
+        cases = [("16 Mi rows, sel 0.1, in place",
+                  NK.regex_dfa(trans, accept, field),
+                  ref.regex_dfa_ref(trans, accept, field)),
+                 ("16 Mi rows, sel 0.1, contiguous copy",
+                  NK.regex_dfa(trans, accept, strings),
                   ref.regex_dfa_ref(trans, accept, strings))]
         gc = torch.Generator(device=dev).manual_seed(54)
         big = compile_regex("(a|b)*a(a|b)(a|b)(a|b)(a|b)(a|b)(a|b)")
         if big.n_states <= 64:
             fail(f"the large DFA has only {big.n_states} states")
-        ab = torch.randint(ord("a"), ord("c") + 1, (5000, 40), generator=gc,
+        ab = torch.randint(ord("a"), ord("c") + 1, (5000, 64), generator=gc,
                            device=dev, dtype=torch.uint8)
+        ab40 = ab[:, 8:48].contiguous()
         rnd_t = torch.randint(0, 20, (20, 256), generator=gc, device=dev,
                               dtype=torch.int32)
         rnd_a = torch.rand(20, generator=gc, device=dev) < 0.5
@@ -871,28 +956,53 @@ def nmp_regex(dev, rows, path):
                             dtype=torch.uint8)
         nul = strings[:1000].clone()
         nul[::2, 20:] = 0
-        wide = table[:3000, :1].expand(3000, 200).contiguous()
+        wide = table[:3000, :1].expand(3000, 256).contiguous()
         wide[:, 50:150] = table[:3000, :100]
+        wide200 = wide[:, 40:240].contiguous()
         skew = torch.empty(1000 * width + 1, dtype=torch.uint8,
                            device=dev)[1:].view(1000, width)
         skew.copy_(strings[:1000])        # one byte into its storage
+        odd = torch.empty(3000 * REGEX_W + 1, dtype=torch.uint8,
+                          device=dev)[1:].view(3000, REGEX_W)
+        odd.copy_(table[:3000])           # rows at an odd storage offset
+        s130 = torch.randint(ord("a"), ord("z") + 1, (3000, 130),
+                             generator=gc, device=dev, dtype=torch.uint8)
+        s130[::3, 20:25] = torch.tensor(list(PATTERN.encode()),
+                                        dtype=torch.uint8, device=dev)
+        flt = table[:3000].float()
+        flt[::2, STR_LO + 1] = 376.0      # saturates to 255 (wrapping: 'x')
+        flt[1::4, STR_LO + 3] = float("nan")
         for what, (tr, ac), s_ in (
                 (f"{big.n_states}-state DFA (table read through L1)",
-                 dfa_tables(big, dev), ab),
+                 dfa_tables(big, dev), ab40),
+                (f"{big.n_states}-state DFA, a view at stride 64",
+                 dfa_tables(big, dev), ab[:, 8:48]),
                 ("random 20-state table, no state absorbs", (rnd_t, rnd_a),
                  raw),
                 ("ragged 1000 rows with NUL tails", (trans, accept), nul),
                 ("rows of 200 bytes (read through L1)", (trans, accept),
-                 wide),
+                 wide200),
+                ("rows of 200 bytes, a view at stride 256", (trans, accept),
+                 wide[:, 40:240]),
                 ("rows not 16-byte aligned", (trans, accept), skew),
-                ("one row of one byte", (trans, accept),
-                 strings[:1, :1].contiguous())):
+                ("in place at an odd storage offset (the field at byte 9)",
+                 (trans, accept), odd[:, STR_LO:STR_HI]),
+                ("in place at row stride 130 (not a multiple of 16), "
+                 "offset 5", (trans, accept), s130[:, 5:67]),
+                ("float table cast by field_bytes", (trans, accept),
+                 field_bytes(flt[:, STR_LO:STR_HI])),
+                ("one row of one byte", (trans, accept), field[:1, :1]),
+                ("ragged 777 rows in place", (trans, accept),
+                 field[1000:1777])):
             cases.append((what, NK.regex_dfa(tr, ac, s_),
                           ref.regex_dfa_ref(tr, ac, s_)))
         record_kernel(rows, "regex_dfa", cases,
                       lambda: NK.regex_dfa(trans, accept, strings),
                       lambda: ref.regex_dfa_ref(trans, accept, strings),
-                      None, nbytes, 0, iters=NMP_ITERS)
+                      None, nbytes, 0, iters=NMP_ITERS, ops_per_call=1)
+        time_call("kernel regex_dfa in place (the path's input)",
+                  lambda: NK.regex_dfa(trans, accept, field),
+                  nbytes_in_place, 1, "regex_dfa")
         del cases, strings
 
 
@@ -928,6 +1038,27 @@ def probe_bound_bytes(heads, keys, nxt, q, max_chain: int) -> int:
             + 12 * q.numel())
 
 
+def kvs_case(dev, g, chain: int):
+    """The KVS phase's table at ``chain`` entries a bucket, drawn from
+    ``g`` in the phase's order: (keys 1..n, values, the one-shard KVS,
+    max_chain, 1 Mi queries, build seconds)."""
+    import torch
+    from repro_torch.core import pushdown as PD
+    from repro_torch.nmp.kvstore import fib_hash
+    n = KVS_BUCKETS * chain
+    keys = torch.arange(1, n + 1, device=dev)
+    vals = torch.randn((n, V_WIDTH), generator=g, device=dev)
+    t0 = time.perf_counter()
+    kvs = PD.build_sharded_kvs(keys, vals, KVS_BUCKETS, 1, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    longest = int(torch.bincount(fib_hash(keys, KVS_BUCKETS).long(),
+                                 minlength=KVS_BUCKETS).max())
+    q = torch.randint(1, int(n * (1 + MISS)), (KVS_QUERIES,), generator=g,
+                      device=dev).to(torch.int32)
+    return keys, vals, kvs, longest + 4, q, t_build
+
+
 def nmp_kvs(dev, rows, path):
     """KVS pointer chase (paper Fig. 6): 65,536 buckets, chains of 1 to 128
     entries, 1 Mi uniform queries."""
@@ -935,27 +1066,17 @@ def nmp_kvs(dev, rows, path):
     from repro_torch.core import pushdown as PD
     from repro_torch.kernels import nmp as NK
     from repro_torch.kernels import ref
-    from repro_torch.nmp.kvstore import (KVStore, build_kvs, fib_hash,
-                                         kvs_lookup)
+    from repro_torch.nmp.kvstore import KVStore, build_kvs, kvs_lookup, \
+        records
     g = torch.Generator(device=dev).manual_seed(55)
     print(f"nmp KVS: {KVS_BUCKETS} buckets x chain {CHAINS} entries "
-          f"(4-byte key, {4 * V_WIDTH}-byte value, 4-byte next), "
+          f"(an 8-byte record of key and next, {4 * V_WIDTH}-byte value), "
           f"{KVS_QUERIES} queries uniform in [1, {1 + MISS:g} n), "
           f"max_chain = longest chain + 4, pushdown_lookup over [{dev}], "
           f"best of {NMP_REPS}")
     for chain in CHAINS:
-        n = KVS_BUCKETS * chain
-        keys = torch.arange(1, n + 1, device=dev)
-        vals = torch.randn((n, V_WIDTH), generator=g, device=dev)
-        t0 = time.perf_counter()
-        kvs = PD.build_sharded_kvs(keys, vals, KVS_BUCKETS, 1, device=dev)
-        torch.cuda.synchronize()
-        t_build = time.perf_counter() - t0
-        longest = int(torch.bincount(fib_hash(keys, KVS_BUCKETS).long(),
-                                     minlength=KVS_BUCKETS).max())
-        max_chain = longest + 4
-        q = torch.randint(1, int(n * (1 + MISS)), (KVS_QUERIES,),
-                          generator=g, device=dev).to(torch.int32)
+        keys, vals, kvs, max_chain, q, t_build = kvs_case(dev, g, chain)
+        n, longest = keys.shape[0], max_chain - 4
         (v, found, steps), t = drive_nmp("hash_probe", lambda: PD.
                                          pushdown_lookup([dev], kvs, q,
                                                          max_chain),
@@ -980,18 +1101,17 @@ def nmp_kvs(dev, rows, path):
         where_the_time_goes("nmp KVS chain=32 pushdown_lookup", lambda: PD.
                             pushdown_lookup([dev], kvs, q, max_chain), t)
         heads, keys_b, nxt = one.heads, one.keys, one.nxt
+        if records(keys_b, nxt) is None:
+            fail("build_sharded_kvs did not lay keys and nxt out as records")
         nbytes = probe_bound_bytes(heads, keys_b, nxt, q, max_chain)
         print(f"kernel hash_probe bound at chain={chain}: {nbytes} bytes "
               f"(queries read, found and steps written, each 32-byte "
               f"sector of heads, keys and nxt the walk reads, once)")
-        cases = [("chain 32, 1 Mi queries", NK.hash_probe(
-            heads, keys_b, nxt, q, max_chain), ref.hash_probe_ref(
-            heads, keys_b, nxt, q, max_chain)),
-            ("max_chain 5, below the longest chain", NK.hash_probe(
-                heads, keys_b, nxt, q, 5), ref.hash_probe_ref(
-                heads, keys_b, nxt, q, 5)),
-            ("max_chain 0", NK.hash_probe(heads, keys_b, nxt, q, 0),
-             ref.hash_probe_ref(heads, keys_b, nxt, q, 0))]
+        probes = [("chain 32, 1 Mi queries", heads, keys_b, nxt, q,
+                   max_chain),
+                  ("max_chain 5, below the longest chain", heads, keys_b,
+                   nxt, q, 5),
+                  ("max_chain 0", heads, keys_b, nxt, q, 0)]
         gc = torch.Generator(device=dev).manual_seed(56)
         dup = (2 ** 32 - torch.randint(1, 500, (3000,), generator=gc,
                                        device=dev))     # near 2^32, repeats
@@ -1000,17 +1120,69 @@ def nmp_kvs(dev, rows, path):
             kv = build_kvs(dup, torch.ones((3000, 1), device=dev), nbk,
                            device=dev)
             qq = torch.cat([kv.keys[::3], kv.keys[:77] ^ 0x5555])
-            cases.append((what, NK.hash_probe(kv.heads, kv.keys, kv.nxt,
-                                              qq, mc),
-                          ref.hash_probe_ref(kv.heads, kv.keys, kv.nxt,
-                                             qq, mc)))
+            probes.append((what, kv.heads, kv.keys, kv.nxt, qq, mc))
+        cases = []
+        for what, h, k, nx, qq, mc in probes:     # each in both layouts
+            want = ref.hash_probe_ref(h, k, nx, qq, mc)
+            cases.append((f"{what}, records", NK.hash_probe(h, k, nx, qq, mc),
+                          want))
+            cases.append((f"{what}, two arrays", NK.hash_probe(
+                h, k.contiguous(), nx.contiguous(), qq, mc), want))
         record_kernel(rows, "hash_probe", cases,
                       lambda: NK.hash_probe(heads, keys_b, nxt, q,
                                             max_chain),
                       lambda: ref.hash_probe_ref(heads, keys_b, nxt, q,
                                                  max_chain),
-                      None, nbytes, 0, iters=NMP_ITERS)
+                      None, nbytes, 0, iters=NMP_ITERS, ops_per_call=1)
+        keys_c, nxt_c = keys_b.contiguous(), nxt.contiguous()
+        time_call("kernel hash_probe on two contiguous arrays (interleaved "
+                  "into records first)", lambda: NK.hash_probe(
+                      heads, keys_c, nxt_c, q, max_chain), nbytes, 2,
+                  "hash_probe")
         del cases
+
+
+def nmp_kernels(dev):
+    """``regex_dfa`` and ``hash_probe`` alone at the path's inputs (16 Mi
+    rows at 10%, in place and as a contiguous copy; chains of 32 as
+    records and as two arrays), each held against its plain version and
+    timed: the quick way to compare designs of the two kernels, e.g.
+    ``python -c "import torch, chip_smoke as c;
+    c.nmp_kernels(torch.device('cuda'))"`` after editing a constant of
+    ``csrc/nmp.cu`` (an edit rebuilds)."""
+    import torch
+    from repro_torch.kernels import nmp as NK
+    from repro_torch.kernels import ref
+    from repro_torch.nmp.dfa import dfa_tables
+    from repro_torch.nmp.regex import compile_regex
+    trans, accept = dfa_tables(compile_regex(PATTERN), dev)
+    table, _, _ = regex_table(dev, BOUND_SEL)
+    field = table[:, STR_LO:STR_HI]
+    strings = field.contiguous()
+    g = torch.Generator(device=dev).manual_seed(55)
+    for chain in CHAINS:
+        _, _, kvs, max_chain, q, _ = kvs_case(dev, g, chain)
+        if chain == BOUND_CHAIN:
+            break
+    heads, keys, nxt = kvs.heads[0], kvs.keys[0], kvs.nxt[0]
+    keys_c, nxt_c = keys.contiguous(), nxt.contiguous()
+    want = ref.regex_dfa_ref(trans, accept, strings)
+    found = ref.hash_probe_ref(heads, keys, nxt, q, max_chain)
+    for label, fn, ops, exp in (
+            ("regex_dfa in place", lambda: NK.regex_dfa(trans, accept, field),
+             1, (want,)),
+            ("regex_dfa contiguous", lambda: NK.regex_dfa(trans, accept,
+                                                          strings), 1,
+             (want,)),
+            ("hash_probe records", lambda: NK.hash_probe(
+                heads, keys, nxt, q, max_chain), 1, found),
+            ("hash_probe two arrays", lambda: NK.hash_probe(
+                heads, keys_c, nxt_c, q, max_chain), 2, found)):
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        if not all(torch.equal(a, b) for a, b in zip(got, exp)):
+            fail(f"{label} differs from its plain version")
+        time_call(f"kernel {label}", fn, None, ops, label.split()[0])
 
 
 def phase_nmp(dev, rows):
@@ -1669,7 +1841,9 @@ def main() -> int:
                         ("models", "rglru_scan_kernel"),
                         ("coherency_step", "lat_hist_kernel"),
                         ("coherency_step", "credit_rank_kernel"),
-                        ("coherency_step", "count_fold_kernel")):
+                        ("coherency_step", "count_fold_kernel"),
+                        ("nmp", "regex_dfa_smem_kernel"),
+                        ("nmp", "hash_probe_kernel")):
         for line in ptxas_summary(reports.get(src, ""), kernel):
             print(f"ptxas: {kernel} {line}")
     print(f"flash_attention_tc_kernel dynamic shared memory at D=256: "

@@ -45,7 +45,7 @@ from .core.transport import Channel
 from .device import resolve_device
 from .models.transformer import check_supported
 from .nmp.dfa import dfa_tables
-from .nmp.kvstore import KVStore
+from .nmp.kvstore import KVStore, as_records
 from .traffic.counters import Counters
 
 #: the reference's hi/lo accumulator split (``repro.traffic.counters``).
@@ -154,19 +154,22 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def kvstore_to_torch(kvs, device=None) -> KVStore:
     """A reference ``KVStore`` (numpy leaves) as the port's on
-    ``device``: keys int32 with the uint32 bits."""
+    ``device``: keys int32 with the uint32 bits, keys and nxt as
+    records."""
     dev = resolve_device(device)
-    return KVStore(*(_to_tensor(getattr(kvs, f), dev)
-                     for f in KVStore._fields))
+    t = {f: _to_tensor(getattr(kvs, f), dev) for f in KVStore._fields}
+    t["keys"], t["nxt"] = as_records(t["keys"], t["nxt"])
+    return KVStore(**t)
 
 
 def sharded_kvs_to_torch(skvs, device=None) -> ShardedKVS:
     """A reference ``ShardedKVS`` (numpy leaves) as the port's on
-    ``device``."""
+    ``device``, keys and nxt as records."""
     dev = resolve_device(device)
-    return ShardedKVS(*(_to_tensor(getattr(skvs, f), dev)
-                        for f in ShardedKVS._fields[:-1]),
-                      int(skvs.n_buckets))
+    t = {f: _to_tensor(getattr(skvs, f), dev)
+         for f in ShardedKVS._fields[:-1]}
+    t["keys"], t["nxt"] = as_records(t["keys"], t["nxt"])
+    return ShardedKVS(**t, n_buckets=int(skvs.n_buckets))
 
 
 def kvs_to_numpy(kvs) -> Dict[str, np.ndarray]:

@@ -29,7 +29,8 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops
 from ..nmp.dfa import dfa_tables, field_bytes
-from ..nmp.kvstore import chain_links, fib_hash, key_bits
+from ..nmp.kvstore import as_records, chain_links, chains_to, fib_hash, \
+    key_bits
 from ..nmp.regex import DFA
 from ..nmp.select import compact, scalar
 
@@ -132,14 +133,15 @@ def pushdown_regex(devices: Optional[Sequence], capacity: int, dfa: DFA,
                    str_hi: int) -> PushdownResult:
     """Distributed REGEXP_LIKE filter (paper §5.6): each home shard runs
     ``ops.regex_match`` over its rows' string columns ``[str_lo, str_hi)``
-    (cast to uint8 by ``nmp.dfa.field_bytes``, which saturates a float)
     and compacts its matching rows stably; ``capacity`` 0 is every row of
-    a shard."""
+    a shard.  A uint8 table's field is read where it lies, with no copy;
+    another dtype is cast to uint8 by ``nmp.dfa.field_bytes``, which
+    saturates a float."""
     devs = shard_devices(devices)
     packs, counts = [], []
     for tbl in _row_shards(table, devs):
         trans, accept = dfa_tables(dfa, tbl.device)
-        strings = field_bytes(tbl[:, str_lo:str_hi]).contiguous()
+        strings = field_bytes(tbl[:, str_lo:str_hi])   # uint8: in place
         packed, count = compact(tbl, ops.regex_match(trans, accept, strings),
                                 capacity)
         packs.append(packed)
@@ -156,6 +158,8 @@ class ShardedKVS(NamedTuple):
     values: torch.Tensor   # [S, cap, v_width]
     nxt: torch.Tensor      # [S, cap] int32
     n_buckets: int         # global bucket count
+    # build_sharded_kvs gives keys and nxt as the columns of one [S, cap, 2]
+    # tensor (nmp.kvstore.as_records).
 
 
 def build_sharded_kvs(keys, values, n_buckets: int, n_shards: int,
@@ -164,7 +168,8 @@ def build_sharded_kvs(keys, values, n_buckets: int, n_shards: int,
     shard ``b % n_shards`` as local bucket ``b // n_shards``; each shard
     holds its entries in global order, chained head = newest; zero keys
     and values and nil pointers pad every shard to the largest one's
-    count.  Identical arrays to the reference's."""
+    count.  Identical arrays to the reference's, ``keys`` and ``nxt`` as
+    records."""
     dev = resolve_device(device)
     k = key_bits(keys, dev)
     vals = torch.as_tensor(values).to(dev)
@@ -195,9 +200,11 @@ def build_sharded_kvs(keys, values, n_buckets: int, n_shards: int,
     vv = torch.zeros((n_shards * cap,) + tuple(vals.shape[1:]),
                      dtype=vals.dtype, device=dev)
     vv[flat] = vals
-    return ShardedKVS(heads, kk.reshape(n_shards, cap),
+    kk, nxt = as_records(kk.reshape(n_shards, cap),
+                         nxt.reshape(n_shards, cap))
+    return ShardedKVS(heads, kk,
                       vv.reshape((n_shards, cap) + tuple(vals.shape[1:])),
-                      nxt.reshape(n_shards, cap), n_buckets)
+                      nxt, n_buckets)
 
 
 def pushdown_lookup(devices: Optional[Sequence], kvs: ShardedKVS,
@@ -228,8 +235,8 @@ def pushdown_lookup(devices: Optional[Sequence], kvs: ShardedKVS,
             gb = torch.arange(kvs.n_buckets, device=dev)
             heads = torch.where(gb % S == s,
                                 heads[(gb // S).clamp(max=bps - 1)], -1)
-        found_idx, steps = ops.probe(heads, kvs.keys[s].to(dev),
-                                     kvs.nxt[s].to(dev),
+        keys, nxt = chains_to(kvs.keys[s], kvs.nxt[s], dev)
+        found_idx, steps = ops.probe(heads, keys, nxt,
                                      key_bits(queries, dev),
                                      max_chain=max_chain)
         found = found_idx >= 0

@@ -2,8 +2,9 @@
 
 Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface under ``build/`` at the root of the
-checkout, named by a hash of its source and flags, so an edited source
-rebuilds and an unchanged one is loaded as it is.  The library is loaded
+checkout, named by a hash of its source, the ``.cuh`` headers beside it
+and the flags, so an edited source or header rebuilds and an unchanged
+one is loaded as it is.  The library is loaded
 with ``ctypes``; nothing here runs when the module is imported.
 ``Library`` binds a source's C entry points and launches them on
 PyTorch's current stream, counting the launches of each kernel.
@@ -50,7 +51,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to (content- and flag-addressed)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

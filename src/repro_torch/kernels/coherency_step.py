@@ -63,7 +63,12 @@ _FOLD_ACC: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
-           device: torch.device) -> None:
+           device: torch.device, layout: str = "contiguous") -> None:
+    """Raise unless ``t`` lies on the CUDA ``device`` with ``dtype`` and
+    the argument's ``layout``: ``"contiguous"``; ``"rows"``, a 2-D tensor
+    whose rows are contiguous, at any row stride of at least their width
+    and any storage offset (``rows_stride`` gives the stride); or
+    ``"strided"``, no rule here, the wrapper checks the strides itself."""
     if device.type != "cuda":
         raise ValueError(f"{name}: runs on 'cuda' or 'cpu' tensors, got "
                          f"{device}")
@@ -71,8 +76,20 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: tensor on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
+    if layout == "contiguous" and not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+    if layout == "rows" and not (
+            t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1)
+            and rows_stride(t) >= t.shape[1]):
+        raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} and "
+                         f"strides {t.stride()}, expected [rows, width] "
+                         f"with contiguous rows at a stride >= width")
+
+
+def rows_stride(t: torch.Tensor) -> int:
+    """The row stride, in elements, of a 2-D tensor (its width when it
+    has one row, whatever stride PyTorch gives that row)."""
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
 
 
 def credit_rank(active: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:

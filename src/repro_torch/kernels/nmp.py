@@ -11,9 +11,13 @@ Each wrapper replaces one Pallas kernel of ``repro.kernels``:
 Dispatch is by the device of the tensors given, as in
 ``kernels.coherency_step``: on the CPU a wrapper runs its plain version
 (``kernels.ref``); on a CUDA device it checks device, dtype, shape and
-contiguity, launches its kernel on the current stream (adding one to
+layout, launches its kernel on the current stream (adding one to
 ``launches[name]``) and raises if the launch fails.  There is no fallback
-from the card to the plain version.
+from the card to the plain version.  ``regex_dfa`` reads a string field
+in place (contiguous rows at any row stride); ``hash_probe`` takes keys
+and next pointers as records (the columns of one ``[n, 2]`` tensor, as
+``build_kvs`` lays them out) or as two contiguous arrays, which it
+interleaves first.
 
 What bounds each kernel on the card, and how its design answers it, is
 noted beside each kernel in ``csrc/nmp.cu``.
@@ -25,10 +29,11 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..nmp.kvstore import records
 from ..nmp.select import scalar
 from . import ref
 from .build import Library
-from .coherency_step import _check
+from .coherency_step import _check, rows_stride
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,8 +41,8 @@ _LL = ctypes.c_longlong
 _SIGS = {
     "nmp_select_scan": (_P, _I, ctypes.c_double, ctypes.c_double, _LL, _I,
                         _I, _P, _P),
-    "nmp_regex_dfa": (_P, _I, _P, _LL, _I, _P),
-    "nmp_hash_probe": (_P, _I, _P, _P, _P, _LL, _I, _P, _P),
+    "nmp_regex_dfa": (_P, _P, _I, _P, _LL, _I, _LL, _P),
+    "nmp_hash_probe": (_P, _I, _P, _P, _LL, _I, _P, _P),
 }
 _LIB = Library("nmp", _SIGS, ("select_scan", "regex_dfa", "hash_probe"))
 #: kernel launches per wrapper since the last ``reset_launches()``.
@@ -88,7 +93,10 @@ def regex_dfa(trans: torch.Tensor, accept: torch.Tensor,
               strings: torch.Tensor) -> torch.Tensor:
     """[rows] bool: ``accept`` of the state each row of ``strings``
     ([rows, width] uint8) ends in, walking ``trans`` ([n_states, 256]
-    int32) from state 0.  The kernel writes the final states."""
+    int32) from state 0.  ``strings`` may be a view of a wider table: its
+    rows must be contiguous, at any row stride of at least their width and
+    any storage offset, and are read where they lie.  The kernel writes
+    the answer, so a call is one device operation."""
     if strings.device.type == "cpu":
         return ref.regex_dfa_ref(trans, accept, strings)
     dev = strings.device
@@ -100,12 +108,13 @@ def regex_dfa(trans: torch.Tensor, accept: torch.Tensor,
                          f"[rows, width]")
     _check("regex_dfa", trans, torch.int32, dev)
     _check("regex_dfa", accept, torch.bool, dev)
-    _check("regex_dfa", strings, torch.uint8, dev)
-    final = torch.empty(strings.shape[0], dtype=torch.int32, device=dev)
-    _launch("regex_dfa", "nmp_regex_dfa", trans.data_ptr(), trans.shape[0],
-            strings.data_ptr(), strings.shape[0], strings.shape[1],
-            final.data_ptr())
-    return accept[final]
+    _check("regex_dfa", strings, torch.uint8, dev, layout="rows")
+    out = torch.empty(strings.shape[0], dtype=torch.bool, device=dev)
+    _launch("regex_dfa", "nmp_regex_dfa", trans.data_ptr(),
+            accept.data_ptr(), trans.shape[0], strings.data_ptr(),
+            strings.shape[0], strings.shape[1], rows_stride(strings),
+            out.data_ptr())
+    return out
 
 
 def hash_probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
@@ -114,7 +123,10 @@ def hash_probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
     """(found_idx [q] int32, -1 on a miss; steps [q] int32): each query's
     bucket ``fib_hash(query) % len(heads)`` and at most ``max_chain``
     entries of its chain.  Keys and queries are int32 with the uint32
-    bits."""
+    bits.  On the card ``keys`` and ``nxt`` are the two columns of one
+    ``[n, 2]`` tensor (the records layout of ``nmp.kvstore.as_records``,
+    launched as it lies: one device operation) or two contiguous arrays,
+    interleaved into records first (one more device operation)."""
     if queries.device.type == "cpu":
         return ref.hash_probe_ref(heads, keys, nxt, queries, max_chain)
     dev = queries.device
@@ -124,12 +136,21 @@ def hash_probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
                          f"{tuple(keys.shape)}, nxt {tuple(nxt.shape)}, "
                          f"queries {tuple(queries.shape)}; expected "
                          f"[n_buckets > 0], [n], [n], [q]")
-    for t in (heads, keys, nxt, queries):
+    for t in (heads, queries):
         _check("hash_probe", t, torch.int32, dev)
+    for t in (keys, nxt):
+        _check("hash_probe", t, torch.int32, dev, layout="strided")
+    rec = records(keys, nxt)
+    if rec is None or rec.data_ptr() % 8:
+        if not (keys.is_contiguous() and nxt.is_contiguous()):
+            raise ValueError("hash_probe: keys and nxt must be the two "
+                             "columns of one [n, 2] tensor, 8-byte "
+                             "aligned, or two contiguous arrays")
+        rec = torch.stack((keys, nxt), 1)
     found = torch.empty(queries.shape, dtype=torch.int32, device=dev)
     steps = torch.empty(queries.shape, dtype=torch.int32, device=dev)
     _launch("hash_probe", "nmp_hash_probe", heads.data_ptr(),
-            heads.shape[0], keys.data_ptr(), nxt.data_ptr(),
-            queries.data_ptr(), queries.shape[0], int(max_chain),
-            found.data_ptr(), steps.data_ptr())
+            heads.shape[0], rec.data_ptr(), queries.data_ptr(),
+            queries.shape[0], int(max_chain), found.data_ptr(),
+            steps.data_ptr())
     return found, steps

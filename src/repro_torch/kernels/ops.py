@@ -1,13 +1,14 @@
 """Public entry points of the kernels, with the reference's padding and
 routing (``repro.kernels.ops``).
 
-The near-memory ones pad their rows to a multiple of the block, call
-their wrapper in ``kernels.nmp`` — the CUDA kernel for tensors on the
-card, the plain version for tensors on the CPU — and, except for
-``select``, slice the padding off.  ``attention`` and ``rglru`` route as
-the reference does with ``use_kernel=True``: the shapes that reach its
-Pallas kernel reach the wrapper in ``kernels.models``, the others its
-plain versions, on either device.  One call launches at most one kernel.
+The near-memory ones call their wrapper in ``kernels.nmp`` — the CUDA
+kernel for tensors on the card, the plain version for tensors on the
+CPU; ``select`` and ``probe`` pad their rows to a multiple of the block
+first, and ``probe`` slices the padding off.  ``attention`` and
+``rglru`` route as the reference does with ``use_kernel=True``: the
+shapes that reach its Pallas kernel reach the wrapper in
+``kernels.models``, the others its plain versions, on either device.
+One call launches at most one kernel.
 """
 from __future__ import annotations
 
@@ -48,11 +49,11 @@ def select(table: torch.Tensor, x, y, *, block_rows: int = 256
 
 
 def regex_match(trans: torch.Tensor, accept: torch.Tensor,
-                strings: torch.Tensor, *, block_rows: int = 256
-                ) -> torch.Tensor:
-    """[rows] bool: whether each NUL-padded row of ``strings`` matches."""
-    padded, n = _pad_rows(strings, block_rows)
-    return _nmp.regex_dfa(trans, accept, padded)[:n]
+                strings: torch.Tensor) -> torch.Tensor:
+    """[rows] bool: whether each NUL-padded row of ``strings`` matches.
+    The kernel takes any number of rows (the reference pads to its
+    block), so a view of a table's string columns is read in place."""
+    return _nmp.regex_dfa(trans, accept, strings)
 
 
 def probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,

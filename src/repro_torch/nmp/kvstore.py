@@ -1,12 +1,18 @@
 """KVS pointer-chasing operator (paper §5.5), on tensors.
 
 The port of ``repro.nmp.kvstore``: a hash table with separate chaining,
-struct-of-arrays, pointer = row index, -1 = nil:
+pointer = row index, -1 = nil:
 
     heads  [n_buckets] int32     bucket -> first (newest) entry
     keys   [n_entries] int32     the reference's uint32 keys, same bits
     values [n_entries, v_width]
     nxt    [n_entries] int32     next (older) entry of the same bucket
+
+``keys`` and ``nxt`` hold the reference's arrays, value for value, but
+the build functions lay them out as records: the two columns of one
+``[n_entries, 2]`` int32 tensor (``as_records``), so an entry's key and
+next pointer share one 8-byte word and the ``hash_probe`` kernel reads one
+sector a hop.
 
 PyTorch on the CPU has no uint32 shift or product, so keys are int32 with
 the reference's bits (compare through ``.view``), and ``fib_hash`` works
@@ -18,7 +24,7 @@ of the ``hash_probe`` kernel that ``core.pushdown.pushdown_lookup`` runs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,13 +89,47 @@ def chain_links(bucket: torch.Tensor, n_buckets: int
     return heads, nxt
 
 
+def as_records(keys: torch.Tensor, nxt: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keys, nxt) with the same values, as the two columns of one new
+    ``[..., n, 2]`` tensor: the records layout."""
+    rec = torch.stack((keys, nxt), -1)
+    return rec[..., 0], rec[..., 1]
+
+
+def records(keys: torch.Tensor, nxt: torch.Tensor
+            ) -> Optional[torch.Tensor]:
+    """The ``[n, 2]`` tensor whose two columns the 1-D ``keys`` and
+    ``nxt`` are, or None when they are not."""
+    if keys.dim() != 1 or nxt.shape != keys.shape or \
+            nxt.dtype != keys.dtype or keys.stride(0) != 2 or \
+            nxt.stride(0) != 2 or nxt.device != keys.device or \
+            nxt.untyped_storage().data_ptr() != \
+            keys.untyped_storage().data_ptr() or \
+            nxt.storage_offset() != keys.storage_offset() + 1:
+        return None
+    return keys.as_strided((keys.shape[0], 2), (2, 1))
+
+
+def chains_to(keys: torch.Tensor, nxt: torch.Tensor, device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``keys`` and ``nxt`` on ``device``, still the columns of one
+    tensor there when they are here."""
+    rec = records(keys, nxt)
+    if rec is None:
+        return keys.to(device), nxt.to(device)
+    rec = rec.to(device)
+    return rec[:, 0], rec[:, 1]
+
+
 def build_kvs(keys, values, n_buckets: int, device=None) -> KVStore:
     """The reference's host-side build, vectorised: chains in insertion
     order with head = newest; identical arrays, duplicate keys and bucket
-    collisions included."""
+    collisions included, ``keys`` and ``nxt`` as records."""
     dev = resolve_device(device)
     k = key_bits(keys, dev)
     heads, nxt = chain_links(fib_hash(k, n_buckets), n_buckets)
+    k, nxt = as_records(k, nxt)
     return KVStore(heads, k, torch.as_tensor(values).to(dev), nxt)
 
 

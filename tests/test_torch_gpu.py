@@ -427,8 +427,23 @@ def test_regex_dfa_kernel(cuda, pattern, n, width, aligned):
     flat = torch.zeros(n * width + 1, dtype=torch.uint8, device=cuda)
     on_card = flat[int(not aligned):][:n * width].view(n, width)
     on_card.copy_(s)
+    want = ref.regex_dfa_ref(trans, accept, s)
     got = NK.regex_dfa(trans.to(cuda), accept.to(cuda), on_card)
-    assert torch.equal(got.cpu(), ref.regex_dfa_ref(trans, accept, s))
+    assert torch.equal(got.cpu(), want)
+    # in place: the field of a wider table, at row strides 128 (the TMA
+    # path) and 130 (cp.async), at byte offsets 0, 1 and 8 of the row,
+    # the table itself one byte into its storage when not aligned.
+    for stride in (128, 130, max(width + 8, 256)):
+        for offset in (0, 1, 8):
+            if width + offset > stride:
+                continue
+            store = torch.zeros(n * stride + 1, dtype=torch.uint8,
+                                device=cuda)
+            table = store[int(not aligned):][:n * stride].view(n, stride)
+            field = table[:, offset:offset + width]
+            field.copy_(s)
+            got = NK.regex_dfa(trans.to(cuda), accept.to(cuda), field)
+            assert torch.equal(got.cpu(), want), (stride, offset)
 
 
 @pytest.mark.parametrize("n_states", [20, 64, 100])
@@ -453,11 +468,13 @@ def test_hash_probe_kernel(cuda, n, key_hi, n_buckets, max_chain):
     kv = nkv.build_kvs(keys, np.ones((n, 1), np.float32), n_buckets,
                        device="cpu")
     q = torch.cat([kv.keys[::2], kv.keys[:333] ^ 0x5A5A])
-    got = NK.hash_probe(kv.heads.to(cuda), kv.keys.to(cuda),
-                        kv.nxt.to(cuda), q.to(cuda), max_chain)
     want = ref.hash_probe_ref(kv.heads, kv.keys, kv.nxt, q, max_chain)
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].cpu(), want[1])
+    keys, nxt = nkv.chains_to(kv.keys, kv.nxt, cuda)
+    assert nkv.records(keys, nxt) is not None
+    for k, nx in ((keys, nxt), (keys.contiguous(), nxt.contiguous())):
+        got = NK.hash_probe(kv.heads.to(cuda), k, nx, q.to(cuda), max_chain)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
 
 
 def test_nmp_kernels_refuse_wrong_inputs(cuda):
@@ -477,11 +494,59 @@ def test_nmp_kernels_refuse_wrong_inputs(cuda):
     with pytest.raises(ValueError):
         NK.regex_dfa(trans[:, :100].contiguous(), acc,
                      t.to(torch.uint8))
+    with pytest.raises(ValueError):                 # rows not contiguous
+        NK.regex_dfa(trans, acc, t.to(torch.uint8).t())
+    with pytest.raises(ValueError):                 # rows overlap
+        NK.regex_dfa(trans, acc, t.to(torch.uint8)[:1].expand(4, 8))
     i = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         NK.hash_probe(i, i.to(torch.int64), i, i, 4)
     with pytest.raises(ValueError):
         NK.hash_probe(i[:0], i, i, i, 4)
+    i16 = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):      # strided, but no records layout
+        NK.hash_probe(i, i16[::2], i16[::2], i, 4)
+    with pytest.raises(ValueError):      # records not 8-byte aligned
+        NK.hash_probe(i, i16[1:-1:2], i16[2::2], i, 4)
+
+
+def _device_ops(fn, calls=5):
+    """The distinct device operations (kernels, memsets, copies) that
+    ``calls`` calls of ``fn`` run, each at most once a call, from the
+    profiler's CUDA trace (which may drop records of a kernel launched
+    through ctypes, never add them)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert all(ev.count <= calls for ev in on_card)
+    return [ev.key for ev in on_card]
+
+
+def test_nmp_kernels_one_device_operation_per_call(cuda):
+    """``regex_dfa`` writes its answer itself, on a contiguous field and
+    in place; ``hash_probe`` on the records layout launches as it lies
+    (two arrays cost an interleave more)."""
+    dfa = compile_regex("xyzzy")
+    trans, accept = dfa_tables(dfa, cuda)
+    table = _strings(np.random.default_rng(5), 4096, 128).to(cuda)
+    for strings in (table[:, 8:70], table[:, 8:70].contiguous()):
+        ops = _device_ops(lambda: NK.regex_dfa(trans, accept, strings))
+        assert len(ops) == 1 and "regex_dfa" in ops[0]
+    kv = nkv.build_kvs(np.arange(1, 5000, dtype=np.uint32),
+                       np.ones((4999, 1), np.float32), 256, device=cuda)
+    keys, nxt = kv.keys.contiguous(), kv.nxt.contiguous()
+    ops = _device_ops(lambda: NK.hash_probe(kv.heads, kv.keys, kv.nxt,
+                                            keys, 40))
+    assert len(ops) == 1 and "hash_probe" in ops[0]
+    ops = _device_ops(lambda: NK.hash_probe(kv.heads, keys, nxt, keys, 40))
+    assert len(ops) == 2 and any("hash_probe" in k for k in ops)
 
 
 def test_ops_launch_their_kernel_once(cuda):

@@ -251,6 +251,41 @@ def test_regex_dfa_ref_equals_reference(pattern, width):
     np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
+def _in_place(arr, stride, offset):
+    """``arr`` [n, w] uint8 written into a zeroed [n, stride] table at
+    column ``offset``: (the table, the view of its string field)."""
+    n, w = arr.shape
+    table = torch.zeros((n, stride), dtype=torch.uint8)
+    field = table[:, offset:offset + w]
+    field.copy_(torch.as_tensor(arr))
+    return table, field
+
+
+@pytest.mark.parametrize("pattern", ["xyzzy", "a(b|c)+d", "[0-9]+", "x.?y"])
+@pytest.mark.parametrize("stride,offset", [(128, 8), (130, 1), (62, 0)])
+def test_regex_dfa_on_a_row_strided_view_equals_reference(pattern, stride,
+                                                          offset):
+    """The path's layout (a 62-byte field at byte 8 of 128-byte rows), a
+    stride that is no multiple of 16 and the contiguous case: the plain
+    twin and the CPU wrapper take the view as it lies, and equal the
+    reference on the contiguous field."""
+    dfa = jregex.compile_regex(pattern)
+    arr = _strings(300, 62, ["abcd", "xyzzy", "x1y", "09"], seed=stride)
+    want = jref.regex_dfa_ref(jnp.asarray(dfa.transitions),
+                              jnp.asarray(dfa.accept), jnp.asarray(arr))
+    trans, accept = convert.dfa_to_torch(dfa, "cpu")
+    table, field = _in_place(arr, stride, offset)
+    assert field.stride() == (stride, 1)
+    got = tref.regex_dfa_ref(trans, accept, field)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    before = dict(K.launches)
+    np.testing.assert_array_equal(_np(K.regex_dfa(trans, accept, field)),
+                                  np.asarray(want))
+    np.testing.assert_array_equal(
+        _np(tops.regex_match(trans, accept, field)), np.asarray(want))
+    assert K.launches == before
+
+
 @pytest.mark.parametrize("n_entries,n_buckets,max_chain",
                          [(500, 64, 32), (1000, 1000, 8), (300, 7, 5)])
 def test_hash_probe_ref_equals_reference(n_entries, n_buckets, max_chain):
@@ -265,6 +300,63 @@ def test_hash_probe_ref_equals_reference(n_entries, n_buckets, max_chain):
                                  tkv.key_bits(q, "cpu"), max_chain)
     np.testing.assert_array_equal(_np(ft), np.asarray(fj))
     np.testing.assert_array_equal(_np(st), np.asarray(sj))
+
+
+def _is_records(keys, nxt):
+    """``keys`` and ``nxt`` are the two columns of one [..., n, 2] tensor."""
+    return (keys.untyped_storage().data_ptr()
+            == nxt.untyped_storage().data_ptr()
+            and keys.stride()[-1] == nxt.stride()[-1] == 2
+            and nxt.storage_offset() == keys.storage_offset() + 1)
+
+
+@pytest.mark.parametrize("n,key_range,n_buckets", [
+    (300, 100, 16), (500, 10 ** 9, 64), (64, 2 ** 32, 1), (12, 5, 3)])
+@pytest.mark.parametrize("max_chain", [3, 40])
+def test_kvs_records_layout_equals_reference(n, key_range, n_buckets,
+                                             max_chain):
+    """``build_kvs`` and ``convert.kvstore_to_torch`` lay keys and nxt out
+    as records, with the reference's values (duplicate keys and bucket
+    collisions included); the probe's plain twin and ``kvs_lookup`` give
+    the reference's answers on records and on two contiguous arrays."""
+    keys, vals = _kvs_inputs(n, key_range)
+    ref_kvs = jkv.build_kvs(keys, vals, n_buckets)
+    for got in (tkv.build_kvs(keys, vals, n_buckets, device="cpu"),
+                convert.kvstore_to_torch(ref_kvs, "cpu")):
+        assert _is_records(got.keys, got.nxt)
+        assert tkv.records(got.keys, got.nxt) is not None
+        flat = convert.kvs_to_numpy(got)
+        for f in ("keys", "nxt"):
+            np.testing.assert_array_equal(flat[f],
+                                          np.asarray(getattr(ref_kvs, f)))
+    q = np.concatenate([keys[::3], EDGE_KEYS,
+                        np.arange(1, 40, dtype=np.uint32) * 7919])
+    fj, sj = jref.hash_probe_ref(ref_kvs.heads, ref_kvs.keys, ref_kvs.nxt,
+                                 jnp.asarray(q), max_chain)
+    vj, hj, stj = jkv.kvs_lookup(ref_kvs, jnp.asarray(q), max_chain)
+    qt = tkv.key_bits(q, "cpu")
+    for k, nx in ((got.keys, got.nxt),
+                  (got.keys.contiguous(), got.nxt.contiguous())):
+        ft, st = tref.hash_probe_ref(got.heads, k, nx, qt, max_chain)
+        np.testing.assert_array_equal(_np(ft), np.asarray(fj))
+        np.testing.assert_array_equal(_np(st), np.asarray(sj))
+        vt, ht, stt = tkv.kvs_lookup(got._replace(keys=k, nxt=nx), qt,
+                                     max_chain)
+        np.testing.assert_array_equal(_np(vt), np.asarray(vj))
+        np.testing.assert_array_equal(_np(ht), np.asarray(hj))
+        np.testing.assert_array_equal(_np(stt), np.asarray(stj))
+
+
+def test_records_names_only_the_two_columns_of_one_tensor():
+    rec = torch.arange(20, dtype=torch.int32).view(10, 2)
+    keys, nxt = rec[:, 0], rec[:, 1]
+    assert torch.equal(tkv.records(keys, nxt), rec)
+    assert tkv.records(nxt, keys) is None                 # swapped
+    assert tkv.records(keys.contiguous(), nxt.contiguous()) is None
+    assert tkv.records(keys[1:], nxt[:-1]) is None         # other rows
+    assert tkv.records(keys, rec[:, 1].clone()) is None    # two tensors
+    moved_k, moved_n = tkv.chains_to(keys, nxt, "cpu")
+    assert _is_records(moved_k, moved_n)
 
 
 # -- the ops entry points against repro.kernels.ops (Pallas, interpret) -----
@@ -293,8 +385,7 @@ def test_ops_regex_match_equals_reference(n, block, pattern):
                             jnp.asarray(dfa.accept), jnp.asarray(arr),
                             block_rows=block)
     trans, accept = convert.dfa_to_torch(dfa, "cpu")
-    got = tops.regex_match(trans, accept, torch.as_tensor(arr),
-                           block_rows=block)
+    got = tops.regex_match(trans, accept, torch.as_tensor(arr))
     assert got.shape == (n,)
     np.testing.assert_array_equal(_np(got), np.asarray(want))
 

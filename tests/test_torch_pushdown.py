@@ -26,6 +26,7 @@ from repro.nmp import select as jsel  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import pushdown as tpd  # noqa: E402
 from repro_torch.kernels import nmp as K  # noqa: E402
+from repro_torch.nmp import kvstore as tkv  # noqa: E402
 from repro_torch.nmp import regex as tregex  # noqa: E402
 from repro_torch.nmp import select as tsel  # noqa: E402
 
@@ -103,6 +104,37 @@ def test_pushdown_regex_one_shard_equals_reference(mesh1, n, capacity,
                              tregex.compile_regex(pattern),
                              torch.as_tensor(t), lo, hi)
     _same_result(got, want)
+
+
+@pytest.mark.parametrize("n,capacity", [(300, 300), (256, 40)])
+def test_pushdown_regex_reads_a_uint8_field_in_place(mesh1, monkeypatch, n,
+                                                     capacity):
+    """A uint8 table's string field reaches the kernel wrapper as a view
+    of the table's own storage (no copy), and the pushdown still equals
+    the reference bit for bit."""
+    t32, lo, hi = _regex_table(n, width=128, lo=8)
+    t = (t32 & 0xFF).astype(np.uint8)
+    seen = []
+    real = K.regex_dfa
+
+    def spy(trans, accept, strings):
+        seen.append(strings)
+        return real(trans, accept, strings)
+
+    monkeypatch.setattr(K, "regex_dfa", spy)
+    table = torch.as_tensor(t)
+    want = jpd.pushdown_regex(mesh1, "x", capacity,
+                              jregex.compile_regex("xyzzy"),
+                              jnp.asarray(t), lo, hi)
+    got = tpd.pushdown_regex(["cpu"], capacity,
+                             tregex.compile_regex("xyzzy"), table, lo, hi)
+    _same_result(got, want)
+    assert len(seen) == 1
+    field = seen[0]
+    assert field.untyped_storage().data_ptr() == \
+        table.untyped_storage().data_ptr()
+    assert field.stride() == (128, 1) and field.shape == (n, hi - lo)
+    assert field.data_ptr() == table.data_ptr() + lo
 
 
 def _kvs_case(n, key_range, seed=SEED):
@@ -211,6 +243,35 @@ def test_build_sharded_kvs_identical_arrays(S, n, key_range, n_buckets):
     back = convert.sharded_kvs_to_torch(want, "cpu")
     for a, b in zip(back[:-1], got[:-1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_build_sharded_kvs_lays_out_records(S):
+    """Keys and nxt of ``build_sharded_kvs`` and of
+    ``convert.sharded_kvs_to_torch`` are the two columns of one
+    ``[S, cap, 2]`` tensor, with the reference's values; each shard's
+    pair stays records when moved, and the lookup equals the
+    reference's."""
+    keys, vals, q = _kvs_case(700, 300)
+    want = jpd.build_sharded_kvs(keys, vals, 64, S)
+    for got in (tpd.build_sharded_kvs(keys, vals, 64, S, device="cpu"),
+                convert.sharded_kvs_to_torch(want, "cpu")):
+        cap = got.keys.shape[1]
+        assert got.keys.stride() == got.nxt.stride() == (2 * cap, 2)
+        assert got.nxt.storage_offset() == got.keys.storage_offset() + 1
+        assert got.keys.untyped_storage().data_ptr() == \
+            got.nxt.untyped_storage().data_ptr()
+        flat = convert.kvs_to_numpy(got)
+        for f in ("keys", "nxt"):
+            np.testing.assert_array_equal(flat[f],
+                                          np.asarray(getattr(want, f)))
+        for s in range(S):
+            assert tkv.records(got.keys[s], got.nxt[s]) is not None
+        res = tpd.pushdown_lookup(["cpu"] * S, got, q, 60)
+        ref = jkv.kvs_lookup(jkv.build_kvs(keys, vals, 64), jnp.asarray(q),
+                             60)
+        for g, w in zip(res, ref):       # the combine's sum makes -0.0 +0.0
+            np.testing.assert_array_equal(_np(g), np.asarray(w))
 
 
 def test_build_sharded_kvs_bucket_past_the_shards_raises():
