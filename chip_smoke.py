@@ -18,9 +18,16 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    edge cases (ragged lengths, storage offsets, a lead axis; for
    ``count_fold`` the running totals ``base``, codes of every kind,
    planes on both sides of its one-CTA size and 1,000 launches back to
-   back), with the kernel's, the plain version's and a one-call PyTorch
-   yardstick's device time (the profiler's CUDA trace); ``credit_rank``
-   and ``count_fold`` must each be one device operation per call;
+   back; for ``packed_any`` one to four planes, strided slices of the
+   packed ``[H, 2, L/H, W]`` view and pending arrays among them; for
+   ``packed_fanout`` the view's planes in place and the home flags), with
+   the kernel's, the plain version's and a one-call PyTorch yardstick's
+   device time (the profiler's CUDA trace; ``packed_any`` timed on one
+   plane and on phase 6's four, ``packed_fanout`` in the step's form and
+   the reference's); ``credit_rank``, ``count_fold``, ``packed_any`` and
+   ``packed_fanout`` must each be one device operation per call; and an
+   empty kernel on the packed kernels' grids through the same ctypes
+   route, the floor a launch-bound kernel cannot go below;
 3. the model substrate: ``flash_attention`` (bf16 on the tensor cores,
    fp32 on the CUDA cores) and ``rglru_scan`` against their plain
    versions on the card, allclose (2e-5/2e-2 and 3e-5/3e-2 in
@@ -28,7 +35,9 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    query heads of 256, window 2048, width 4096, bf16), at the cases of
    ``tests/test_kernels.py``, at the edges of the tensor-core kernel's
    tiles and of the scan's chunks (odd D, ragged S, a storage offset, a
-   near 1 and near 0), timed beside ``scaled_dot_product_attention``;
+   near 1 and near 0), timed beside ``scaled_dot_product_attention``,
+   each one device operation per call and timed by its entries
+   (``ops_ms``);
    the six supported smoke configs, card against CPU in fp32 (forward and
    12 decode steps at 2e-4, one launch per attention or recurrent block);
    the slice's path: recurrentgemma-9b at its published widths and depth
@@ -72,10 +81,12 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    configuration;
 7. the packed two-home path at the main path's width: ``EngineConfig(
    remotes=64, lines=4096, block=32, homes=2, packed=True)``, MOESI,
-   zipfian, W=1, 64 ops per remote (``PACKED_OPS``), validated against
-   the two-home oracle, with its own launch table (``packed_any`` and
-   ``packed_fanout`` run only here) and the directory-state bytes of
-   both layouts.
+   zipfian, W=1, 64 ops per remote (``PACKED_OPS``): the device
+   operations, device time and step-kernel entries of one packed step
+   (``step_profile(packed=True)``), then the run, validated against the
+   two-home oracle, with its own launch table (``packed_any`` 4 and
+   ``packed_fanout`` 1 per step, run only here) and the
+   directory-state bytes of both layouts.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -195,10 +206,12 @@ PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
             "lat_hist": 1, "packed_any": 0, "packed_fanout": 0}
 #: launches per engine step on the packed two-home path: absorb's
 #: no-sharers test in phases 2 and 3, the pending test in phase 4 and
-#: the two grant-precondition tests in phase 6 are ``packed_any``; the
-#: fan-out words of phase 5 are ``packed_fanout``.
+#: the grant-precondition test of phase 6 (one launch over the two
+#: fan-out planes and the two pending planes) are ``packed_any``; the
+#: fan-out words of phase 5, the home side's among them, are
+#: ``packed_fanout``.
 PACKED_PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
-                   "lat_hist": 1, "packed_any": 5, "packed_fanout": 1}
+                   "lat_hist": 1, "packed_any": 4, "packed_fanout": 1}
 #: the CUDA source of each kernel.
 SOURCES = dict.fromkeys(PER_STEP, "src/repro_torch/csrc/coherency_step.cu")
 SOURCES.update(dict.fromkeys(("select_scan", "regex_dfa", "hash_probe"),
@@ -650,17 +663,30 @@ def phase_kernels(dev):
            nbytes=5 * R * L + 4 * R * 10, nops=20 * R * L)
 
     # -- packed_any / packed_fanout: the packed two-home path's word
-    #    planes, [H, L/H, W] int32 words with [H, L/H] per-line inputs ----
+    #    planes, [H, L/H, W] int32 words with [H, L/H] per-line inputs,
+    #    and the [H, 2, L/H, W] view and pending arrays whose planes the
+    #    step reads where they lie --------------------------------------
     from repro_torch.core import directory_mn as dmn
     Lh = L // HOMES
-    pres = dmn.pack_mask(rand_bool((HOMES, R, Lh), 0.3))
-    excl = pres & dmn.pack_mask(rand_bool((HOMES, R, Lh), 0.5))
+    n_lines = HOMES * Lh
+
+    def words(p, lead=(HOMES,), r=R, lines=Lh):
+        return dmn.pack_mask(rand_bool(lead + (r, lines), p))
+
+    pres = words(0.3)
+    excl = pres & words(0.5)
     if tuple(pres.shape) != (HOMES, Lh, NW):
         fail(f"packed words of shape {tuple(pres.shape)}")
-    sparse = pres & dmn.pack_mask(rand_bool((HOMES, R, Lh), 0.01))
+    sparse = pres & words(0.01)
+    view = torch.stack([pres, excl], dim=-3)          # [H, 2, L/H, W]
+    pend = torch.stack([words(0.002), words(0.002)], dim=-3)
+    need_s, need_i = words(0.002), words(0.002)
+    grant = (need_s, need_i, pend[:, 0], pend[:, 1])  # phase 6's planes
+    if any(p.is_contiguous() for p in (view[:, 0], pend[:, 1])):
+        fail("the packed view's planes should be strided slices")
     edge_words = {
-        "W=1 (R=8)": dmn.pack_mask(rand_bool((8, L), 0.1)),
-        "ragged W=2 (R=33)": dmn.pack_mask(rand_bool((33, L), 0.05)),
+        "W=1 (R=8)": words(0.1, (), 8, L),
+        "ragged W=2 (R=33)": words(0.05, (), 33, L),
         "bit 31": torch.full((Lh, NW), -2 ** 31, dtype=torch.int32,
                              device=dev),
         "all zero": torch.zeros((HOMES, Lh, NW), dtype=torch.int32,
@@ -672,11 +698,34 @@ def phase_kernels(dev):
               ref.packed_any_ref(sparse))]
     for what, w_ in edge_words.items():
         cases.append((what, K.packed_any(w_), ref.packed_any_ref(w_)))
-    n_lines = HOMES * Lh
+    several = {
+        "view slices, 2 planes": (view[:, 0], view[:, 1]),
+        "fan-out planes and pending slices, 4 planes": grant,
+        "pending slices, 2 planes": (pend[:, 0], pend[:, 1]),
+        "W=1 (R=8), 3 planes": tuple(words(0.01, (), 8, L)
+                                     for _ in range(3)),
+        "ragged W=2 (R=33), 4 planes": tuple(words(0.005, (), 33, L)
+                                             for _ in range(4)),
+        "bit 31, 2 planes": (edge_words["bit 31"],
+                             edge_words["bit 31"] & 0),
+        "one word off 8 bytes, 4 planes": tuple(view_at(p.contiguous(), 1)
+                                                for p in grant),
+    }
+    for what, planes in several.items():
+        cases.append((what, K.packed_any(*planes),
+                      ref.packed_any_ref(*planes)))
+    # the row times one plane, the form of three of a packed step's four
+    # launches (absorb's no-sharers test twice, the pending test)
     record("packed_any", cases, lambda: K.packed_any(sparse),
            lambda: ref.packed_any_ref(sparse),
            lambda: torch.any(sparse, dim=-1),
-           nbytes=4 * n_lines * NW + n_lines, nops=2 * n_lines * NW)
+           nbytes=4 * n_lines * NW + n_lines, nops=2 * n_lines * NW,
+           ops_per_call=1)
+    time_form("packed_any, 4 planes (phase 6: the fan-out planes and the "
+              "pending slices)", "packed_any", lambda: K.packed_any(*grant),
+              lambda: ref.packed_any_ref(*grant),
+              nbytes=4 * 4 * n_lines * NW + n_lines,
+              nops=8 * n_lines * NW)
 
     node = torch.randint(0, R, (HOMES, Lh), generator=g,
                          dtype=torch.int32).to(dev)
@@ -684,8 +733,16 @@ def phase_kernels(dev):
                                device=dev)
     sh = rand_bool((HOMES, Lh), 0.3)
     ex = rand_bool((HOMES, Lh), 0.3) & ~sh
+    home = rand_bool((HOMES, Lh), 0.1)
+    hr = home & rand_bool((HOMES, Lh), 0.6)
+    hw = home & rand_bool((HOMES, Lh), 0.6)
+    step_args = (view[:, 0], view[:, 1], node, sh, ex, hr, hw)
     cases = [("[2, 2048, 2]", K.packed_fanout(pres, excl, node, sh, ex),
-              ref.packed_fanout_ref(pres, excl, node, sh, ex))]
+              ref.packed_fanout_ref(pres, excl, node, sh, ex)),
+             ("view slices", K.packed_fanout(*step_args[:5]),
+              ref.packed_fanout_ref(*step_args[:5])),
+             ("view slices, home flags", K.packed_fanout(*step_args),
+              ref.packed_fanout_ref(*step_args))]
     for what, w_ in edge_words.items():
         wl = w_.shape[-2]
         lead = tuple(w_.shape[:-2])
@@ -693,21 +750,64 @@ def phase_kernels(dev):
                            dtype=torch.int32).to(dev)
         s_ = rand_bool(lead + (wl,), 0.5)
         x_ = ~s_
+        h_ = rand_bool(lead + (wl,), 0.3)
+        r_, w2 = h_ & rand_bool(lead + (wl,), 0.6), \
+            h_ & rand_bool(lead + (wl,), 0.6)
         e_ = w_ & torch.roll(w_, 1, dims=-2)
-        cases.append((what, K.packed_fanout(w_, e_, n_, s_, x_),
-                      ref.packed_fanout_ref(w_, e_, n_, s_, x_)))
+        for flags in ((), (r_, w2)):
+            cases.append((what + (", home flags" if flags else ""),
+                          K.packed_fanout(w_, e_, n_, s_, x_, *flags),
+                          ref.packed_fanout_ref(w_, e_, n_, s_, x_,
+                                                *flags)))
     ones = torch.ones((HOMES, Lh), dtype=torch.bool, device=dev)
-    cases.append(("all lines requesting", K.packed_fanout(
-        pres, excl, node, ones, ones), ref.packed_fanout_ref(
-        pres, excl, node, ones, ones)))
+    for what, flags in (("all lines requesting", ()),
+                        ("all lines requesting, home flags", (hr, hw)),
+                        ("every line the home's", (ones, ones))):
+        args = (view[:, 0], view[:, 1], node, ones, ones) + flags
+        cases.append((what, K.packed_fanout(*args),
+                      ref.packed_fanout_ref(*args)))
     hot = ref.node_hot(node, NW)
+    # the row times the step's form: the view's planes where they lie,
+    # the home flags
     record("packed_fanout", cases,
-           lambda: K.packed_fanout(pres, excl, node, sh, ex),
-           lambda: ref.packed_fanout_ref(pres, excl, node, sh, ex),
+           lambda: K.packed_fanout(*step_args),
+           lambda: ref.packed_fanout_ref(*step_args),
            lambda: torch.where(sh[..., None], excl & ~hot, 0),
-           nbytes=16 * n_lines * NW + 6 * n_lines,
-           nops=8 * n_lines * NW)
+           nbytes=16 * n_lines * NW + 8 * n_lines,
+           nops=10 * n_lines * NW, ops_per_call=1)
+    time_form("packed_fanout, contiguous planes, no home flags (the "
+              "reference's form)", "packed_fanout",
+              lambda: K.packed_fanout(pres, excl, node, sh, ex),
+              lambda: ref.packed_fanout_ref(pres, excl, node, sh, ex),
+              nbytes=16 * n_lines * NW + 6 * n_lines,
+              nops=8 * n_lines * NW)
+
+    # -- a launch's floor: the empty kernel through the same ctypes route,
+    #    on the two kernels' grids -------------------------------------
+    for what, threads in (("packed_any", n_lines),
+                          ("packed_fanout", n_lines * NW)):
+        blocks = (threads + 255) // 256
+        floor_ms, _ = ops_ms(f"empty kernel on {what}'s grid",
+                             lambda: K.empty_launch(blocks), 100, 1,
+                             "empty_kernel")
+        print(f"launch floor: an empty kernel of {blocks} CTAs of 256 "
+              f"({what}'s grid) through ctypes: device "
+              f"{floor_ms * 1e3:.3f} us per launch")
     return rows
+
+
+def time_form(label: str, own: str, kernel, plain, nbytes, nops,
+              iters: int = 100) -> float:
+    """Print the device time of one more form of a kernel (one device
+    operation a call, its entry named ``own``: ``ops_ms``) beside its
+    plain version's and its bound; return the kernel's ms."""
+    ms, _ = ops_ms(label, kernel, iters, 1, own)
+    plain_ms, plain_ops = device_ms(plain, iters)
+    bound = max(nbytes / HBM_BYTES_PER_S, nops / CUDA_CORE_OPS_PER_S)
+    print(f"kernel {label}: device {ms * 1e3:.3f} us in 1 op (plain "
+          f"{plain_ms * 1e3:.3f} us in {plain_ops:g}, bound "
+          f"{bound * 1e6:.3f} us)")
+    return ms
 
 
 def drive_nmp(name: str, call, reps: int, path):
@@ -1269,7 +1369,7 @@ def model_kernels(dev, rows):
                   lambda: F.scaled_dot_product_attention(
                       q, k, v, attn_mask=mask, enable_gqa=True),
                   nbytes, nops, iters=MODEL_ITERS, tol=ATTN_TOL,
-                  ops_rate=TENSOR_CORE_FLOPS_PER_S)
+                  ops_rate=TENSOR_CORE_FLOPS_PER_S, ops_per_call=1)
     row = rows["flash_attention"]
     print(f"kernel flash_attention (bf16, tensor cores): "
           f"{nops / row['ms'] / 1e9:.1f} TFLOP/s, "
@@ -1306,7 +1406,8 @@ def model_kernels(dev, rows):
           f"written); no one PyTorch call computes the scan")
     record_kernel(rows, "rglru_scan", cases, lambda: MK.rglru_scan(x, a),
                   lambda: ref.rglru_scan_ref(x, a), None, nbytes,
-                  6 * x.numel(), iters=MODEL_ITERS, tol=RGLRU_TOL)
+                  6 * x.numel(), iters=MODEL_ITERS, tol=RGLRU_TOL,
+                  ops_per_call=RGLRU_KERNELS_PER_CALL)
     del cases, q, k, v, x, a
     torch.cuda.empty_cache()
 
@@ -1633,40 +1734,71 @@ def check_no_host_sync(eng, ops: int, width: int, label: str) -> None:
           f"none inside (runs of 8 and 24 steps)")
 
 
-#: the hand-written kernels of the dense step, by a part of their names
-#: in the profiler's trace.
-STEP_KERNELS = ("credit_rank", "arb_winner", "count_fold", "lat_hist")
+#: the hand-written kernels of the coherency step, by a part of their
+#: names in the profiler's trace (the last two run on the packed path
+#: only).
+STEP_KERNELS = ("credit_rank", "arb_winner", "count_fold", "lat_hist",
+                "packed_any", "packed_fanout")
 
 
-def step_profile(dev, lo: int = 8, hi: int = 24) -> None:
-    """Device operations and device time of one dense step (R=64,
-    L=4096, B=32, W=1) from the profiler: the difference between runs of
-    ``hi`` and ``lo`` steps over ``hi - lo``, so a run's set-up and
-    read-out cancel.  Uses only ``run_stream``'s public API, so the same
-    code counts any tree of the port."""
+def step_profile(dev, lo: int = 8, hi: int = 24,
+                 packed: bool = False) -> None:
+    """Device operations and device time of one step from the profiler:
+    the dense step (R=64, L=4096, B=32, W=1) or, with ``packed``, the
+    packed two-home step (H=2, ``PACKED_OPS`` ops per remote); the
+    difference between runs of ``hi`` and ``lo`` steps over ``hi - lo``,
+    so a run's set-up and read-out cancel, with the entries and device
+    time of each step kernel and the host's wall time per step (best of
+    three runs of each length).  Uses only ``run_stream``'s public API,
+    so the same code counts any tree of the port: import ``chip_smoke``,
+    set ``sys.path[0]`` to that tree's ``src``, then call this."""
     import torch
     from repro_torch.traffic import (EngineConfig, StreamConfig,
                                      WorkloadSpec, run_stream)
-    eng = EngineConfig(remotes=R, lines=L, block=B).build(dev)
+    extra = dict(homes=HOMES, packed=True) if packed else {}
+    eng = EngineConfig(remotes=R, lines=L, block=B, **extra).build(dev)
+    ops = PACKED_OPS if packed else WorkloadSpec().ops
 
     def run(n):
         return lambda: run_stream(eng, StreamConfig(
-            workload=WorkloadSpec("zipfian", ops=WorkloadSpec().ops,
-                                  seed=0), width=1, steps=n))
-    tallies = []
+            workload=WorkloadSpec("zipfian", ops=ops, seed=0), width=1,
+            steps=n))
+
+    def wall(n):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(n)()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    tallies, kernels = [], []
     for n in (lo, hi):
         on_card = device_entries(run(n), iters=1)
-        kern = [ev for ev in on_card
-                if any(k in ev.key for k in STEP_KERNELS)]
+        per = {k: [ev for ev in on_card if k in ev.key]
+               for k in STEP_KERNELS}
+        kernels.append({k: (sum(ev.count for ev in evs),
+                            sum(ev.self_device_time_total for ev in evs))
+                        for k, evs in per.items()})
         tallies.append((sum(ev.count for ev in on_card),
                         sum(ev.self_device_time_total for ev in on_card),
-                        sum(ev.count for ev in kern),
-                        sum(ev.self_device_time_total for ev in kern)))
+                        sum(c for c, _ in kernels[-1].values()),
+                        sum(t for _, t in kernels[-1].values())))
     d = [(b - a) / (hi - lo) for a, b in zip(*tallies)]
-    print(f"dense step (R={R} L={L} B={B} W=1, runs of {lo} and {hi} "
-          f"steps): {d[0]:g} device operations per step, device time "
-          f"{d[1]:.3f} us; the step kernels {d[2]:g} entries, "
-          f"{d[3]:.3f} us")
+    each = {k: ((kernels[1][k][0] - kernels[0][k][0]) / (hi - lo),
+                (kernels[1][k][1] - kernels[0][k][1]) / (hi - lo))
+            for k in STEP_KERNELS}
+    ms = (wall(hi) - wall(lo)) / (hi - lo) * 1e3
+    label = (f"packed two-home step (R={R} L={L} B={B} H={HOMES} W=1"
+             if packed else f"dense step (R={R} L={L} B={B} W=1")
+    print(f"{label}, runs of {lo} and {hi} steps): {d[0]:g} device "
+          f"operations per step, device time {d[1]:.3f} us; the step "
+          f"kernels {d[2]:g} entries, {d[3]:.3f} us; host wall "
+          f"{ms:.3f} ms per step")
+    print(f"{label.split(' (')[0]} kernels per step: " + "; ".join(
+        f"{k} {c:g} entries {t:.3f} us" for k, (c, t) in each.items()))
 
 
 def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
@@ -1754,6 +1886,7 @@ def phase_packed_path(dev, rows):
           f"(16*L*W), {nbytes[0] / nbytes[1]:g}x")
     if nbytes != [2 * R * L, 16 * L * NW]:
         fail(f"directory state bytes {nbytes}")
+    step_profile(dev, packed=True)
     check_no_host_sync(cfg.build(dev), ops, 1, "packed path")
     drive(dev, cfg, 1, ops, PACKED_PER_STEP, rows, "packed path W=1")
     for name in ("packed_any", "packed_fanout"):

@@ -23,7 +23,7 @@ is always ``dim=-2`` of a dense ``view``, and a packed ``view`` is
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -90,10 +90,12 @@ def write_bit(words: torch.Tensor, do_set: torch.Tensor,
     return torch.where(do_clear[..., None], words & ~hot, words)
 
 
-def any_bits(words: torch.Tensor) -> torch.Tensor:
+def any_bits(*planes: torch.Tensor) -> torch.Tensor:
     """``[..., L]`` bool — any bit set in the line's words (the packed
-    sharer-present reduction), through the ``packed_any`` kernel."""
-    return K.packed_any(words.contiguous())
+    sharer-present reduction), through the ``packed_any`` kernel; given
+    several ``[..., L, W]`` planes of one shape (up to
+    ``K.MAX_PLANES``), any bit set in their OR, in the same one launch."""
+    return K.packed_any(*planes)
 
 
 class DirectoryMNState(NamedTuple):
@@ -251,33 +253,33 @@ def home_needed_downgrades(st: DirectoryMNState, want_read: torch.Tensor,
 
 
 def needed_words(st: DirectoryMNState, active: torch.Tensor,
-                 msg: torch.Tensor, node: torch.Tensor
+                 msg: torch.Tensor, node: torch.Tensor,
+                 home_read: Optional[torch.Tensor] = None,
+                 home_write: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed twin of ``needed_downgrades``: ``(recall_w, inval_w)``
     ``[..., L, W]`` word planes of the remotes that need HOME_DOWNGRADE_S
     / HOME_DOWNGRADE_I before ``msg`` from ``node`` can be granted, from
-    the ``packed_fanout`` kernel.  ``msg`` is single-valued per line, so
-    the two planes never overlap on a line."""
+    the ``packed_fanout`` kernel, which reads the view's planes where they
+    lie.  ``msg`` is single-valued per line, so the two planes never
+    overlap on a line.  With ``home_read``/``home_write`` (both or
+    neither), the lines where either is set take the home side's planes
+    instead (the packed twin of ``home_needed_downgrades``: a lane that
+    wants both takes HOME_DOWNGRADE_I, so recall masks out the
+    invalidated bits), from the same launch: the engine's parked home
+    transactions, whose lines ``active`` leaves out."""
     shared_req = active & (msg == int(MsgType.REQ_READ_SHARED))
     excl_req = active & ((msg == int(MsgType.REQ_READ_EXCL))
                          | (msg == int(MsgType.REQ_UPGRADE)))
-    return K.packed_fanout(st.view[..., PLANE_PRES, :, :].contiguous(),
-                           st.view[..., PLANE_EXCL, :, :].contiguous(),
+    if home_read is not None:
+        home_read = home_read.contiguous()
+    if home_write is not None:
+        home_write = home_write.contiguous()
+    return K.packed_fanout(st.view[..., PLANE_PRES, :, :],
+                           st.view[..., PLANE_EXCL, :, :],
                            node.to(torch.int32).contiguous(),
-                           shared_req.contiguous(), excl_req.contiguous())
-
-
-def home_needed_words(st: DirectoryMNState, want_read: torch.Tensor,
-                      want_write: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Packed twin of ``home_needed_downgrades``: a lane that wants both
-    (read + write) takes HOME_DOWNGRADE_I, so the recall plane masks out
-    the invalidated bits."""
-    inval_w = torch.where(want_write[..., None],
-                          st.view[..., PLANE_PRES, :, :], 0)
-    recall_w = torch.where(want_read[..., None],
-                           st.view[..., PLANE_EXCL, :, :], 0) & ~inval_w
-    return recall_w, inval_w
+                           shared_req.contiguous(), excl_req.contiguous(),
+                           home_read, home_write)
 
 
 def grant(tables: TorchTables, st: DirectoryMNState, active: torch.Tensor,

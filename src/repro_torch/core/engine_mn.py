@@ -409,7 +409,10 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     # trip is outstanding AND no grant response is still in flight.
     resp_in_flight = tp.any_in_flight(ch_resp)
     if packed:
-        pend_any = dmn.any_bits(_pend_or(hreq_pending))
+        # the pending words before phase 5's update: phases 4 and 5 read
+        # them, so they are ORed once.
+        pend_w = _pend_or(hreq_pending)
+        pend_any = dmn.any_bits(pend_w)
     else:
         pend_any = (hreq_pending != _NOP).any(dim=-2)
     line_free = (st.txn_msg == _NOP) & ~pend_any & ~resp_in_flight
@@ -458,20 +461,18 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     if packed:
         # recall (HD_S) / invalidate (HD_I) targets as word planes, then
         # widened to the dense [R, L] lane mask the transport submit
-        # takes.  The planes are disjoint per line, so the HD_S-first
-        # combine matches the dense expression.
-        ns_w, ni_w = dmn.needed_words(
-            dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c)
-        nsh_w, nih_w = dmn.home_needed_words(
-            dstate, want_read & is_home_txn, want_write & is_home_txn)
-        iht = is_home_txn[..., None]
-        need_s_w = torch.where(iht, nsh_w, ns_w)
-        need_i_w = torch.where(iht, nih_w, ni_w)
+        # takes.  One launch gives the remote requests' planes and, on a
+        # parked HOME transaction's lines (left out of the active mask),
+        # the home side's.  The planes are disjoint per line, so the
+        # HD_S-first combine matches the dense expression.
+        need_s_w, need_i_w = dmn.needed_words(
+            dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c,
+            home_read=want_read & is_home_txn,
+            home_write=want_write & is_home_txn)
         needed = (dmn.unpack_mask(need_i_w, R).to(torch.int8)
                   * int(MsgType.HOME_DOWNGRADE_I)).masked_fill(
             dmn.unpack_mask(need_s_w, R), int(MsgType.HOME_DOWNGRADE_S))
-        send_h = (needed != _NOP) & \
-            ~dmn.unpack_mask(_pend_or(hreq_pending), R)
+        send_h = (needed != _NOP) & ~dmn.unpack_mask(pend_w, R)
     else:
         needed_r = dmn.needed_downgrades(
             dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c,
@@ -503,9 +504,11 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     # `needed` must be EMPTY, not merely pending-free: a fan-out refused
     # for credit leaves the sharer's view intact.
     if packed:
-        complete = active_txn & ~dmn.any_bits(need_s_w | need_i_w) & \
-            ~dmn.any_bits(_pend_or(hreq_pending)) & ~in_flight_vol & \
-            ~in_flight_h
+        # one launch over the fan-out planes and the updated pending
+        # planes, read where they lie: any(x) | any(y) == any(x | y).
+        complete = active_txn & ~dmn.any_bits(
+            need_s_w, need_i_w, hreq_pending[..., 0, :, :],
+            hreq_pending[..., 1, :, :]) & ~in_flight_vol & ~in_flight_h
     else:
         complete = active_txn & ~(needed != _NOP).any(dim=-2) & \
             ~(hreq_pending != _NOP).any(dim=-2) & ~in_flight_vol & \

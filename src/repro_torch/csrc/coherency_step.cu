@@ -1,8 +1,9 @@
 // Coherency-step kernels for Hopper (sm_90a): the per-step inner plane of
 // the N-remote engine (repro_torch.core.engine_mn, traffic.counters).
 //
-// Six integer kernels with a plain C interface, built by nvcc into a
-// shared library and bound with ctypes (repro_torch/kernels/build.py,
+// Six integer kernels with a plain C interface (and an empty one, timed as
+// a launch's floor), built by nvcc into a shared library and bound with
+// ctypes (repro_torch/kernels/build.py,
 // repro_torch/kernels/coherency_step.py).  Every entry point launches on
 // the caller's stream, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -589,65 +590,155 @@ lat_hist_kernel(const int32_t* __restrict__ lat,
 }
 
 // --------------------------------------------------------------------------
-// packed_any (replaces packed_any, coherency_step.py:257)
+// Word planes where they lie (packed_any, packed_fanout).
 //
-// out[l] = any bit set in the W int32 words of line l (the reference's
-// popcount-over-words > 0; an OR of the words gives the same verdict).
-// The words are the reference's uint32 bits held as int32.
-//
-// One thread per line: W <= 2 words at R <= 64, so the W loads of a
-// thread are one 4- or 8-byte read, and neighbouring threads read
-// neighbouring lines.  Bound: 4W bytes in, 1 byte out per line.
+// A packed word plane is [..., L, W] int32 with its last two dims dense and
+// its leading dims collapsed into one axis of [L, W] blocks at a stride of
+// the plane's own (the wrapper's plane_stride).  So a slice [..., p, :, :]
+// of the packed [H, 2, L/H, W] view or pending mask is read where it lies,
+// at stride 2 * (L/H) * W, and a contiguous plane at stride L * W: the
+// engine's fold copies no plane out for these kernels.
 // --------------------------------------------------------------------------
 
-__global__ void packed_any_kernel(const int32_t* __restrict__ words,
-                                  bool* __restrict__ out, int64_t n, int W) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t* w = words + i * W;
+struct Plane {
+  const int32_t* w;   // the plane's first word
+  long long stride;   // words between its [L, W] blocks
+};
+
+// The index arithmetic is 32-bit: a division is a few instructions, not
+// the 64-bit routine's dozens, and at a launch's floor those show.  So
+// the wrappers refuse planes with a word 2^31 or more past their start
+// (8 GiB; the engine's are a few hundred KiB): check_plane_span.
+__device__ __forceinline__ const int32_t* plane_word(const Plane& p,
+                                                     uint32_t b,
+                                                     uint32_t off) {
+  return p.w + (b * (uint32_t)p.stride + off);
+}
+
+// --------------------------------------------------------------------------
+// packed_any (replaces packed_any, coherency_step.py:257)
+//
+// out[l] = any bit set in the W words of line l of the OR of n_planes <= 4
+// planes (the reference's popcount-over-words > 0 of one plane; an OR of
+// the words gives the same verdict, and any(x) | any(y) == any(x | y)).
+// The words are the reference's uint32 bits held as int32.
+//
+// Bound: 4 W bytes in per plane and 1 byte out per line, a few hundred
+// KiB at most on the packed step; at that size one launch is the cost, so
+// the kernel's work is to spare launches: the engine's grant test ORs the
+// two fan-out planes and the two pending planes in one launch, reading
+// the pending slices in place.  One thread per line, every plane's load
+// issued before any is used (one memory round trip): a plane's W = 2
+// words are one 8-byte load (kPair, when every plane's lines are 8-byte
+// aligned), W = 1 one 4-byte load, and neighbouring threads read
+// neighbouring lines and write neighbouring bytes.
+// --------------------------------------------------------------------------
+
+constexpr int kAnyPlanes = 4;
+constexpr int kAnyThreads = 256;
+
+struct AnyPlanes {
+  Plane p[kAnyPlanes];
+};
+
+template <bool kPair>
+__global__ void packed_any_kernel(const AnyPlanes planes, int n_planes,
+                                  bool* __restrict__ out, uint32_t n_lines,
+                                  uint32_t L, uint32_t W) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_lines) return;
+  const uint32_t b = i / L, off = (i - b * L) * W;
   int32_t acc = 0;
-  for (int k = 0; k < W; ++k) acc |= w[k];
+#pragma unroll
+  for (int k = 0; k < kAnyPlanes; ++k) {
+    if (k < n_planes) {
+      const int32_t* w = plane_word(planes.p[k], b, off);
+      if (kPair) {
+        const int2 v = __ldg(reinterpret_cast<const int2*>(w));
+        acc |= v.x | v.y;
+      } else {
+        for (uint32_t j = 0; j < W; ++j) acc |= __ldg(w + j);
+      }
+    }
+  }
   out[i] = acc != 0;
 }
 
 // --------------------------------------------------------------------------
 // packed_fanout (replaces packed_fanout, coherency_step.py:298)
 //
-// hot     = the one-bit word of remote node[l] in word w (zero elsewhere)
+// hot      = the one-bit word of remote node[l] in word w (zero elsewhere)
 // rec[l,w] = shared_req[l] ? excl[l,w] & ~hot : 0   (HOME_DOWNGRADE_S)
 // inv[l,w] = excl_req[l]   ? pres[l,w] & ~hot : 0   (HOME_DOWNGRADE_I)
 //
+// and, with the home flags (kHome), on a line where home_read or
+// home_write is set, the home-side fan-out instead (the reference's
+// home_needed_words, which the engine selected with two torch.where):
+//
+// inv[l,w] = home_write[l] ? pres[l,w] : 0
+// rec[l,w] = home_read[l]  ? excl[l,w] & ~inv[l,w] : 0
+//
 // One thread per (line, word), so the word planes are read and written
-// coalesced.  The hot bit is built by shifting an unsigned 1 (a signed
-// 1 << 31 would overflow) and then read as int32; node >> 5 and node & 31
-// are the reference's floor division and modulo by 32.  Bound: 8 bytes
-// in and 8 out per word, 6 bytes in per line.
+// coalesced; pres and excl are read where they lie (two slices of the
+// packed view), and every input is loaded before any is used, so a
+// thread waits for one memory round trip, not one for the home flags and
+// another for the request's inputs.  The hot bit is built
+// by shifting an unsigned 1 (a signed 1 << 31 would overflow) and then
+// read as int32; node >> 5 and node & 31 are the reference's floor
+// division and modulo by 32.  Bound: 8 bytes in and 8 out per word, 6 (8
+// with the home flags) bytes in per line; like packed_any it is one
+// launch's floor, so what it saves is the engine's plane copies,
+// home-side ops and merges around it.
 // --------------------------------------------------------------------------
 
-__global__ void packed_fanout_kernel(const int32_t* __restrict__ pres,
-                                     const int32_t* __restrict__ excl,
+template <bool kHome>
+__global__ void packed_fanout_kernel(const Plane pres, const Plane excl,
                                      const int32_t* __restrict__ node,
                                      const bool* __restrict__ shared_req,
                                      const bool* __restrict__ excl_req,
+                                     const bool* __restrict__ home_read,
+                                     const bool* __restrict__ home_write,
                                      int32_t* __restrict__ rec,
                                      int32_t* __restrict__ inv,
-                                     int64_t n_lines, int W) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+                                     uint32_t n_lines, uint32_t L,
+                                     uint32_t W) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_lines * W) return;
-  const int64_t l = i / W;
-  const int w = (int)(i - l * W);
-  const int nd = node[l];
-  const unsigned hot_u = (w == (nd >> 5)) ? (1u << (nd & 31)) : 0u;
+  const uint32_t line = i / W, w = i - line * W;
+  const uint32_t b = line / L, off = (line - b * L) * W + w;
+  const int32_t p = __ldg(plane_word(pres, b, off));
+  const int32_t e = __ldg(plane_word(excl, b, off));
+  const int nd = __ldg(node + line);
+  const bool sh = shared_req[line], ex = excl_req[line];
+  const bool hr = kHome && home_read[line];
+  const bool hw = kHome && home_write[line];
+  const unsigned hot_u =
+      (nd >= 0 && w == (uint32_t)(nd >> 5)) ? (1u << (nd & 31)) : 0u;
   const int32_t keep = ~(int32_t)hot_u;
-  rec[i] = shared_req[l] ? (excl[i] & keep) : 0;
-  inv[i] = excl_req[l] ? (pres[i] & keep) : 0;
+  int32_t r = sh ? (e & keep) : 0;
+  int32_t v = ex ? (p & keep) : 0;
+  if (hr || hw) {
+    v = hw ? p : 0;
+    r = hr ? (e & ~v) : 0;
+  }
+  rec[i] = r;
+  inv[i] = v;
 }
+
+// --------------------------------------------------------------------------
+// An empty kernel: the device time of one launch that does no work, timed
+// through the same ctypes route as the kernels above (the floor that a
+// launch-bound kernel such as packed_any cannot go below).
+// --------------------------------------------------------------------------
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C entry points.  Shapes are validated by the Python wrappers; the checks
-// here only refuse what would launch an invalid grid.
+// here only refuse what would launch an invalid grid or, for the packed
+// kernels, index past 32 bits.
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -709,32 +800,65 @@ int coh_lat_hist(const void* lat, const void* retired, void* out, int rows,
   return (int)cudaGetLastError();
 }
 
-int coh_packed_any(const void* words, void* out, long long n, int W,
-                   void* stream) {
-  if (n > 0 && W > 0) {
-    const int threads = 256;
-    const long long blocks = (n + threads - 1) / threads;
-    packed_any_kernel<<<(unsigned)blocks, threads, 0,
-                        (cudaStream_t)stream>>>(
-        (const int32_t*)words, (bool*)out, (int64_t)n, W);
+int coh_packed_any(const void* w0, const void* w1, const void* w2,
+                   const void* w3, long long s0, long long s1, long long s2,
+                   long long s3, int n_planes, void* out, long long n_lines,
+                   long long L, int W, void* stream) {
+  if (n_planes < 1 || n_planes > kAnyPlanes)
+    return (int)cudaErrorInvalidValue;
+  if (n_lines <= 0 || L <= 0 || W <= 0) return (int)cudaGetLastError();
+  const void* ptr[kAnyPlanes] = {w0, w1, w2, w3};
+  const long long stride[kAnyPlanes] = {s0, s1, s2, s3};
+  AnyPlanes planes;
+  bool pair = W == 2;
+  for (int k = 0; k < kAnyPlanes; ++k) {
+    planes.p[k].w = (const int32_t*)ptr[k];
+    planes.p[k].stride = stride[k];
+    if (k < n_planes)
+      pair = pair && (uintptr_t)ptr[k] % 8 == 0 && stride[k] % 2 == 0;
   }
+  const unsigned blocks = (unsigned)((n_lines + kAnyThreads - 1) /
+                                     kAnyThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (pair)
+    packed_any_kernel<true><<<blocks, kAnyThreads, 0, st>>>(
+        planes, n_planes, (bool*)out, (uint32_t)n_lines, (uint32_t)L, W);
+  else
+    packed_any_kernel<false><<<blocks, kAnyThreads, 0, st>>>(
+        planes, n_planes, (bool*)out, (uint32_t)n_lines, (uint32_t)L, W);
   return (int)cudaGetLastError();
 }
 
-int coh_packed_fanout(const void* pres, const void* excl, const void* node,
-                      const void* shared_req, const void* excl_req,
-                      void* rec, void* inv, long long n_lines, int W,
-                      void* stream) {
-  const long long total = n_lines * (long long)W;
-  if (total > 0) {
-    const int threads = 256;
-    const long long blocks = (total + threads - 1) / threads;
-    packed_fanout_kernel<<<(unsigned)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(
-        (const int32_t*)pres, (const int32_t*)excl, (const int32_t*)node,
-        (const bool*)shared_req, (const bool*)excl_req, (int32_t*)rec,
-        (int32_t*)inv, (int64_t)n_lines, W);
-  }
+int coh_packed_fanout(const void* pres, long long pres_stride,
+                      const void* excl, long long excl_stride,
+                      const void* node, const void* shared_req,
+                      const void* excl_req, const void* home_read,
+                      const void* home_write, void* rec, void* inv,
+                      long long n_lines, long long L, int W, void* stream) {
+  if (n_lines <= 0 || L <= 0 || W <= 0) return (int)cudaGetLastError();
+  const Plane planes[2] = {{(const int32_t*)pres, pres_stride},
+                           {(const int32_t*)excl, excl_stride}};
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n_lines * W + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* nd = (const int32_t*)node;
+  const bool* sh = (const bool*)shared_req;
+  const bool* ex = (const bool*)excl_req;
+  if (home_read != nullptr && home_write != nullptr)
+    packed_fanout_kernel<true><<<blocks, threads, 0, st>>>(
+        planes[0], planes[1], nd, sh, ex, (const bool*)home_read,
+        (const bool*)home_write, (int32_t*)rec, (int32_t*)inv,
+        (uint32_t)n_lines, (uint32_t)L, W);
+  else
+    packed_fanout_kernel<false><<<blocks, threads, 0, st>>>(
+        planes[0], planes[1], nd, sh, ex, nullptr, nullptr, (int32_t*)rec,
+        (int32_t*)inv, (uint32_t)n_lines, (uint32_t)L, W);
+  return (int)cudaGetLastError();
+}
+
+int coh_empty(int blocks, int threads, void* stream) {
+  if (blocks > 0)
+    empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

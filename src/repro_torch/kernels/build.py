@@ -108,9 +108,9 @@ class Library:
         for k in self.launches:
             self.launches[k] = 0
 
-    def launch(self, kernel: str, sym: str, *args) -> None:
-        """Call ``sym`` with ``args`` and the current stream; raise if the
-        launch failed, else count one launch of ``kernel``."""
+    def call(self, sym: str, *args) -> int:
+        """Call ``sym`` with ``args`` and the current stream, binding the
+        library at the first call; the entry point's error code."""
         import torch
         if not self._fns:
             lib = load(self.name)
@@ -119,7 +119,12 @@ class Library:
                 fn.argtypes = tuple(argtypes) + (ctypes.c_void_p,)
                 fn.restype = ctypes.c_int
                 self._fns[s] = fn
-        err = self._fns[sym](*args, torch.cuda.current_stream().cuda_stream)
+        return self._fns[sym](*args, torch.cuda.current_stream().cuda_stream)
+
+    def launch(self, kernel: str, sym: str, *args) -> None:
+        """Call ``sym`` with ``args`` and the current stream; raise if the
+        launch failed, else count one launch of ``kernel``."""
+        err = self.call(sym, *args)
         if err != 0:
             raise RuntimeError(f"{kernel}: CUDA launch failed with error "
                                f"{err}")

@@ -9,16 +9,19 @@ Each wrapper replaces one Pallas kernel of ``repro.kernels.coherency_step``:
   included (``core.engine._count``);
 * ``lat_hist``    — the retirement-latency histogram
   (``traffic.counters.update_counters``);
-* ``packed_any``  — any bit set per line of a packed word plane
-  (``core.directory_mn.any_bits``);
-* ``packed_fanout`` — the packed fan-out target words
+* ``packed_any``  — any bit set per line of a packed word plane, or of
+  the OR of up to four (``core.directory_mn.any_bits``);
+* ``packed_fanout`` — the packed fan-out target words, with the home-side
+  fan-out on the lines of optional home flags
   (``core.directory_mn.needed_words``).
 
 Dispatch is by the device of the tensors given: on the CPU a wrapper runs
 its plain version (``kernels.ref``); on a CUDA device it checks device,
-dtype, shape and contiguity, launches its kernel on the current stream
+dtype, shape and layout, launches its kernel on the current stream
 (adding one to ``launches[name]``) and raises if the launch fails.  There
-is no fallback from the card to the plain version.
+is no fallback from the card to the plain version.  The packed kernels
+read their word planes where they lie (``plane_stride``): a slice of the
+packed ``[H, 2, L, W]`` view is no copy.
 
 What bounds each kernel on the card, and how its design answers it, is
 noted beside each kernel in ``csrc/coherency_step.cu``.
@@ -39,14 +42,15 @@ LAT_EDGES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGS = {
     "coh_credit_rank": (_P, _P, _P, _I, _I),
     "coh_arb_winner": (_P, _P, _P, _I, _I, _I),
-    "coh_count_fold": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _I),
+    "coh_count_fold": (_P, _P, _P, _P, _P, _P, _LL, _P, _I),
     "coh_lat_hist": (_P, _P, _P, _I, _I),
-    "coh_packed_any": (_P, _P, ctypes.c_longlong, _I),
-    "coh_packed_fanout": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                          _I),
+    "coh_packed_any": (_P,) * 4 + (_LL,) * 4 + (_I, _P, _LL, _LL, _I),
+    "coh_packed_fanout": (_P, _LL, _P, _LL) + (_P,) * 7 + (_LL, _LL, _I),
+    "coh_empty": (_I, _I),
 }
 _LIB = Library("coherency_step", _SIGS,
                ("credit_rank", "arb_winner", "count_fold", "lat_hist",
@@ -67,8 +71,9 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
     """Raise unless ``t`` lies on the CUDA ``device`` with ``dtype`` and
     the argument's ``layout``: ``"contiguous"``; ``"rows"``, a 2-D tensor
     whose rows are contiguous, at any row stride of at least their width
-    and any storage offset (``rows_stride`` gives the stride); or
-    ``"strided"``, no rule here, the wrapper checks the strides itself."""
+    and any storage offset (``rows_stride`` gives the stride); ``"plane"``,
+    a word plane that ``plane_stride`` takes; or ``"strided"``, no rule
+    here, the wrapper checks the strides itself."""
     if device.type != "cuda":
         raise ValueError(f"{name}: runs on 'cuda' or 'cpu' tensors, got "
                          f"{device}")
@@ -78,18 +83,73 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if layout == "contiguous" and not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
-    if layout == "rows" and not (
-            t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1)
-            and rows_stride(t) >= t.shape[1]):
+    if layout == "rows" and not rows_layout(t):
         raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} and "
                          f"strides {t.stride()}, expected [rows, width] "
                          f"with contiguous rows at a stride >= width")
+    if layout == "plane" and plane_stride(t) is None:
+        raise ValueError(f"{name}: word plane of shape {tuple(t.shape)} "
+                         f"and strides {t.stride()}, expected [..., L, W] "
+                         f"with its last two dims dense and its leading "
+                         f"dims one axis at any stride")
 
 
 def rows_stride(t: torch.Tensor) -> int:
     """The row stride, in elements, of a 2-D tensor (its width when it
     has one row, whatever stride PyTorch gives that row)."""
     return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def rows_layout(t: torch.Tensor) -> bool:
+    """Whether ``t`` is ``[rows, width]`` with contiguous rows at a row
+    stride of at least their width (``_check``'s ``"rows"``)."""
+    return (t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1)
+            and rows_stride(t) >= t.shape[1])
+
+
+def plane_stride(t: torch.Tensor) -> Optional[int]:
+    """The words between the ``[L, W]`` blocks of a word plane ``[..., L,
+    W]`` whose last two dims are dense and whose leading dims collapse into
+    one axis (``L * W`` for a contiguous plane, ``2 * L * W`` for a slice
+    ``[..., p, :, :]`` of the packed ``[..., 2, L, W]`` view); None for
+    any other layout."""
+    if t.dim() < 2:
+        return None
+    L, W = t.shape[-2:]
+    if (W > 1 and t.stride(-1) != 1) or (L > 1 and t.stride(-2) != W):
+        return None
+    stride, span = L * W, None
+    for size, st in zip(reversed(t.shape[:-2]), reversed(t.stride()[:-2])):
+        if size == 1:
+            continue
+        if span is None:
+            stride = st
+        elif st != span:
+            return None
+        span = st * size
+    return stride
+
+
+#: the packed kernels index words in 32 bits: every word they read or
+#: write lies below this many words past its plane's start.
+WORD_INDEX_LIMIT = 1 << 31
+
+
+def check_plane_span(name: str, *planes: torch.Tensor) -> None:
+    """Raise unless the packed kernels' 32-bit index reaches every word of
+    the ``[..., L, W]`` word ``planes`` (one shape, each of a layout that
+    ``plane_stride`` takes) and of a contiguous output of their shape."""
+    L, W = planes[0].shape[-2:]
+    blocks = planes[0].numel() // max(L * W, 1)
+    spans = [planes[0].numel()] + [
+        (blocks - 1) * plane_stride(p) + L * W if blocks else 0
+        for p in planes]
+    if max(spans) >= WORD_INDEX_LIMIT:
+        raise ValueError(f"{name}: word planes of shape "
+                         f"{tuple(planes[0].shape)} and strides "
+                         f"{[p.stride() for p in planes]} span "
+                         f"{max(spans)} words; the kernels index fewer "
+                         f"than 2^31")
 
 
 def credit_rank(active: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -198,46 +258,95 @@ def lat_hist(lat: torch.Tensor, retired: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def packed_any(words: torch.Tensor) -> torch.Tensor:
-    """[..., L] bool: any bit set in the line's ``[..., L, W]`` int32
-    words."""
-    if words.device.type == "cpu":
-        return ref.packed_any_ref(words)
-    _check("packed_any", words, torch.int32, words.device)
-    W = words.shape[-1]
-    out = torch.empty(words.shape[:-1], dtype=torch.bool,
-                      device=words.device)
-    _launch("packed_any", "coh_packed_any", words.data_ptr(),
-            out.data_ptr(), out.numel(), W)
+#: word planes one ``packed_any`` launch ORs together.
+MAX_PLANES = 4
+
+
+def packed_any(*planes: torch.Tensor) -> torch.Tensor:
+    """[..., L] bool: any bit set in the line's words of the OR of 1 to
+    ``MAX_PLANES`` ``[..., L, W]`` int32 word planes of one shape (with
+    one plane the reference's ``packed_any``; with several the OR of its
+    verdicts, since ``any(x) | any(y) == any(x | y)``).  On the card each
+    plane is read where it lies (``plane_stride``), and planes with a
+    word 2^31 or more past their start are refused
+    (``check_plane_span``)."""
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"packed_any: {len(planes)} word planes, expected "
+                         f"1 to {MAX_PLANES}")
+    if planes[0].device.type == "cpu":
+        return ref.packed_any_ref(*planes)
+    shape, dev = tuple(planes[0].shape), planes[0].device
+    if len(shape) < 2 or any(tuple(p.shape) != shape for p in planes):
+        raise ValueError(f"packed_any: word planes of shapes "
+                         f"{[tuple(p.shape) for p in planes]}, expected one "
+                         f"[..., L, W] shape")
+    ptrs, strides = [None] * MAX_PLANES, [0] * MAX_PLANES
+    for k, p in enumerate(planes):
+        _check("packed_any", p, torch.int32, dev, layout="plane")
+        ptrs[k], strides[k] = p.data_ptr(), plane_stride(p)
+    check_plane_span("packed_any", *planes)
+    L, W = shape[-2:]
+    out = torch.empty(shape[:-1], dtype=torch.bool, device=dev)
+    _launch("packed_any", "coh_packed_any", *ptrs, *strides, len(planes),
+            out.data_ptr(), out.numel(), L, W)
     return out
 
 
 def packed_fanout(pres: torch.Tensor, excl: torch.Tensor,
                   node: torch.Tensor, shared_req: torch.Tensor,
-                  excl_req: torch.Tensor
+                  excl_req: torch.Tensor,
+                  home_read: Optional[torch.Tensor] = None,
+                  home_write: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(recall_w, inval_w) ``[..., L, W]`` int32: ``excl & ~hot(node)``
     on the lines of ``shared_req`` and ``pres & ~hot(node)`` on those of
-    ``excl_req``, zero elsewhere."""
+    ``excl_req``, zero elsewhere.  With the per-line ``home_read`` and
+    ``home_write`` (both or neither), a line where either is set takes the
+    home-side fan-out instead: ``inval = pres`` where ``home_write``,
+    ``recall = excl & ~inval`` where ``home_read`` (the reference's
+    ``home_needed_words``).  On the card ``pres`` and ``excl`` are read
+    where they lie (``plane_stride``; planes with a word 2^31 or more
+    past their start are refused, ``check_plane_span``), the per-line
+    inputs contiguous."""
+    if (home_read is None) != (home_write is None):
+        raise ValueError("packed_fanout: home_read and home_write go "
+                         "together")
     if pres.device.type == "cpu":
-        return ref.packed_fanout_ref(pres, excl, node, shared_req, excl_req)
+        return ref.packed_fanout_ref(pres, excl, node, shared_req, excl_req,
+                                     home_read, home_write)
     lines = tuple(pres.shape[:-1])
-    if tuple(excl.shape) != tuple(pres.shape) or not (
-            tuple(node.shape) == tuple(shared_req.shape)
-            == tuple(excl_req.shape) == lines):
+    per_line = [node, shared_req, excl_req] + (
+        [] if home_read is None else [home_read, home_write])
+    if tuple(excl.shape) != tuple(pres.shape) or \
+            any(tuple(t.shape) != lines for t in per_line):
         raise ValueError(f"packed_fanout: word planes {tuple(pres.shape)} "
                          f"and {tuple(excl.shape)} need per-line inputs "
                          f"of shape {lines}")
     dev = pres.device
-    _check("packed_fanout", pres, torch.int32, dev)
-    _check("packed_fanout", excl, torch.int32, dev)
+    _check("packed_fanout", pres, torch.int32, dev, layout="plane")
+    _check("packed_fanout", excl, torch.int32, dev, layout="plane")
+    check_plane_span("packed_fanout", pres, excl)
     _check("packed_fanout", node, torch.int32, dev)
-    _check("packed_fanout", shared_req, torch.bool, dev)
-    _check("packed_fanout", excl_req, torch.bool, dev)
-    recall = torch.empty_like(pres)
-    inval = torch.empty_like(pres)
+    for t in per_line[1:]:
+        _check("packed_fanout", t, torch.bool, dev)
+    recall = torch.empty(pres.shape, dtype=torch.int32, device=dev)
+    inval = torch.empty(pres.shape, dtype=torch.int32, device=dev)
+    home = (None, None) if home_read is None else \
+        (home_read.data_ptr(), home_write.data_ptr())
     _launch("packed_fanout", "coh_packed_fanout", pres.data_ptr(),
-            excl.data_ptr(), node.data_ptr(), shared_req.data_ptr(),
-            excl_req.data_ptr(), recall.data_ptr(), inval.data_ptr(),
-            node.numel(), pres.shape[-1])
+            plane_stride(pres), excl.data_ptr(), plane_stride(excl),
+            node.data_ptr(), shared_req.data_ptr(), excl_req.data_ptr(),
+            *home, recall.data_ptr(), inval.data_ptr(), node.numel(),
+            pres.shape[-2], pres.shape[-1])
     return recall, inval
+
+
+def empty_launch(blocks: int, threads: int = 256) -> None:
+    """Launch the empty kernel, ``blocks`` CTAs of ``threads``, on the
+    current stream: the device time of a launch that does no work, through
+    the same ctypes route as the kernels (``chip_smoke.py`` times it).  It
+    adds to no launch count."""
+    err = _LIB.call("coh_empty", blocks, threads)
+    if err != 0:
+        raise RuntimeError(f"empty kernel: CUDA launch failed with error "
+                           f"{err}")

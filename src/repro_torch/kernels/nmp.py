@@ -117,6 +117,15 @@ def regex_dfa(trans: torch.Tensor, accept: torch.Tensor,
     return out
 
 
+def chains_layout(keys: torch.Tensor, nxt: torch.Tensor) -> bool:
+    """Whether ``hash_probe`` takes ``keys`` and ``nxt`` on the card: the
+    two columns of one 8-byte-aligned ``[n, 2]`` tensor (chased as they
+    lie), or two contiguous arrays (interleaved first)."""
+    rec = records(keys, nxt)
+    return (rec is not None and rec.data_ptr() % 8 == 0) or \
+        (keys.is_contiguous() and nxt.is_contiguous())
+
+
 def hash_probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
                queries: torch.Tensor, max_chain: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,12 +149,12 @@ def hash_probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
         _check("hash_probe", t, torch.int32, dev)
     for t in (keys, nxt):
         _check("hash_probe", t, torch.int32, dev, layout="strided")
+    if not chains_layout(keys, nxt):
+        raise ValueError("hash_probe: keys and nxt must be the two "
+                         "columns of one [n, 2] tensor, 8-byte aligned, or "
+                         "two contiguous arrays")
     rec = records(keys, nxt)
     if rec is None or rec.data_ptr() % 8:
-        if not (keys.is_contiguous() and nxt.is_contiguous()):
-            raise ValueError("hash_probe: keys and nxt must be the two "
-                             "columns of one [n, 2] tensor, 8-byte "
-                             "aligned, or two contiguous arrays")
         rec = torch.stack((keys, nxt), 1)
     found = torch.empty(queries.shape, dtype=torch.int32, device=dev)
     steps = torch.empty(queries.shape, dtype=torch.int32, device=dev)

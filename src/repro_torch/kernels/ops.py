@@ -9,6 +9,13 @@ first, and ``probe`` slices the padding off.  ``attention`` and
 shapes that reach its Pallas kernel reach the wrapper in
 ``kernels.models``, the others its plain versions, on either device.
 One call launches at most one kernel.
+
+The wrappers refuse some layouts on the card that the reference's entry
+points take (a strided table, rows that are not contiguous, keys and
+next pointers that are neither records nor two arrays, a bf16 attention
+operand off a 16-byte boundary).  Each entry point here copies such an
+argument into a layout its kernel takes first, and hands every other
+argument on as it lies: a view that the kernel reads in place stays one.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 from . import models as _models
 from . import nmp as _nmp
 from . import ref as _ref
+from .coherency_step import rows_layout
 
 
 def pad_fill(dtype: torch.dtype):
@@ -45,14 +53,17 @@ def select(table: torch.Tensor, x, y, *, block_rows: int = 256
     ``pad_fill(table.dtype)`` in every column, so they match only when
     ``x`` is below that value (``x = -inf``)."""
     padded, _ = _pad_rows(table, block_rows, pad_fill(table.dtype))
-    return _nmp.select_scan(padded, x, y, block_rows)
+    return _nmp.select_scan(padded.contiguous(), x, y, block_rows)
 
 
 def regex_match(trans: torch.Tensor, accept: torch.Tensor,
                 strings: torch.Tensor) -> torch.Tensor:
     """[rows] bool: whether each NUL-padded row of ``strings`` matches.
     The kernel takes any number of rows (the reference pads to its
-    block), so a view of a table's string columns is read in place."""
+    block), so a view of a table's string columns is read in place; a
+    field whose rows are not contiguous is copied first."""
+    if not rows_layout(strings):
+        strings = strings.contiguous()
     return _nmp.regex_dfa(trans, accept, strings)
 
 
@@ -60,7 +71,12 @@ def probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
           queries: torch.Tensor, *, max_chain: int = 32, block_q: int = 256
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(found_idx [q] int32, -1 on a miss; steps [q] int32) of a chained
-    probe of at most ``max_chain`` entries per query."""
+    probe of at most ``max_chain`` entries per query.  ``keys`` and
+    ``nxt`` in another layout than the two the kernel takes are
+    interleaved into records first."""
+    if not _nmp.chains_layout(keys, nxt):
+        rec = torch.stack((keys, nxt), 1)
+        keys, nxt = rec[:, 0], rec[:, 1]
     padded, n = _pad_rows(queries, block_q)
     found, steps = _nmp.hash_probe(heads, keys, nxt, padded, max_chain)
     return found[:n], steps[:n]
@@ -92,9 +108,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                           kv_length=kv_length)
         return _ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window, softcap=softcap)
-    return _models.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
-                                   window=window, softcap=softcap)
+    return _models.flash_attention(_operand(q), _operand(k), _operand(v),
+                                   causal=causal, window=window,
+                                   softcap=softcap)
+
+
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """An attention operand as the kernel takes it: contiguous, and for
+    bf16 (TMA's rule) starting on a 16-byte boundary — a fresh aligned
+    clone of a contiguous tensor that does not."""
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        t = t.clone()
+    return t
 
 
 def rglru(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -126,16 +126,22 @@ def lat_hist_ref(lat: torch.Tensor, retired: torch.Tensor,
     return (onehot & retired[..., None]).sum(1, dtype=torch.int32)
 
 
-def packed_any_ref(words: torch.Tensor) -> torch.Tensor:
+def packed_any_ref(*planes: torch.Tensor) -> torch.Tensor:
     """[..., L] bool — any bit set per line of a packed ``[..., L, W]``
     int32 plane (``directory_mn.any_bits``: the packed ``no_sharers`` and
-    pending-home-downgrade reductions)."""
+    pending-home-downgrade reductions), or of the OR of several planes of
+    one shape."""
+    words = planes[0]
+    for p in planes[1:]:
+        words = words | p
     return (words != 0).any(dim=-1)
 
 
 def packed_fanout_ref(pres: torch.Tensor, excl: torch.Tensor,
                       node: torch.Tensor, shared_req: torch.Tensor,
-                      excl_req: torch.Tensor
+                      excl_req: torch.Tensor,
+                      home_read: Optional[torch.Tensor] = None,
+                      home_write: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed fan-out target sets (``directory_mn.needed_words``).
 
@@ -145,11 +151,20 @@ def packed_fanout_ref(pres: torch.Tensor, excl: torch.Tensor,
     inval_w)``: recall (HOME_DOWNGRADE_S) goes to the EM holders other
     than the requester on a shared read, invalidate (HOME_DOWNGRADE_I)
     to every non-I holder other than the requester on an exclusive or
-    upgrade request."""
+    upgrade request.  With the per-line ``home_read``/``home_write``, a
+    line where either is set takes the home side's sets instead
+    (the reference's ``directory_mn.home_needed_words``): invalidate every holder for a
+    write, recall the EM holders not invalidated for a read."""
     hot = node_hot(node, pres.shape[-1])
     recall_w = torch.where(shared_req[..., None], excl & ~hot, 0)
     inval_w = torch.where(excl_req[..., None], pres & ~hot, 0)
-    return recall_w, inval_w
+    if home_read is None:
+        return recall_w, inval_w
+    inval_h = torch.where(home_write[..., None], pres, 0)
+    recall_h = torch.where(home_read[..., None], excl, 0) & ~inval_h
+    home = (home_read | home_write)[..., None]
+    return (torch.where(home, recall_h, recall_w),
+            torch.where(home, inval_h, inval_w))
 
 
 def select_scan_ref(table: torch.Tensor, x, y, block_rows: int

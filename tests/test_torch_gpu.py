@@ -267,6 +267,136 @@ def test_packed_fanout_kernel(cuda, lead, L, W):
         assert torch.equal(g.cpu(), w)
 
 
+def _mask_words(rng, lead, R, L, p):
+    """``[*lead, L, W]`` packed words of a random ``[*lead, R, L]`` mask."""
+    from repro_torch.core.directory_mn import pack_mask
+    return pack_mask(_bools(rng, lead + (R, L), p))
+
+
+#: the multi-plane ``packed_any`` cases: (R, lines), and how the planes
+#: lie — as planes of their own, as slices ``[:, p]`` of two ``[H, 2,
+#: L/H, W]`` arrays (the step's view and pending mask), or one word past
+#: an 8-byte boundary (no paired loads).
+ANY_PLANE_CASES = {"W=1 (R=8)": (8, 40, "own"),
+                   "ragged W=2 (R=33)": (33, 40, "own"),
+                   "bit 31": (64, 40, "own"),
+                   "[2, 2, 2048, 2] slices": (64, 2048, "slices"),
+                   "one word off 8 bytes": (64, 300, "offset")}
+
+
+def _any_planes_on_card(rng, case, n, cuda):
+    R, L, lay = ANY_PLANE_CASES[case]
+    lead = (2,) if lay == "slices" else ()
+    planes = []
+    for _ in range(n + n % 2 if lay == "slices" else n):
+        if case == "bit 31":
+            w = torch.zeros((L, 2), dtype=torch.int32)
+            w[_bools(rng, (L,), 0.2), 0] = -2 ** 31
+        else:
+            w = _mask_words(rng, lead, R, L, 0.01)
+        planes.append(w)
+    if lay == "own":
+        return [w.to(cuda) for w in planes]
+    if lay == "offset":
+        out = []
+        for w in planes:
+            flat = torch.zeros(w.numel() + 1, dtype=torch.int32, device=cuda)
+            out.append(flat[1:].view(w.shape).copy_(w))
+        return out
+    arrs = [torch.stack(planes[i:i + 2], dim=-3).to(cuda)
+            for i in range(0, len(planes), 2)]
+    return [a[:, p] for a in arrs for p in (0, 1)][:n]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", list(ANY_PLANE_CASES))
+def test_packed_any_kernel_planes(cuda, case, n):
+    """One launch over the OR of 1-4 planes, each read where it lies,
+    equals the plain twin (and, per plane, the one-plane kernel)."""
+    planes = _any_planes_on_card(np.random.default_rng(SEED + n), case, n,
+                                 cuda)
+    if case.endswith("slices"):
+        assert not any(p.is_contiguous() for p in planes)
+    want = ref.packed_any_ref(*[p.cpu() for p in planes])
+    K.reset_launches()
+    got = K.packed_any(*planes).cpu()
+    assert K.launches["packed_any"] == 1
+    assert torch.equal(got, want)
+    per_plane = [K.packed_any(p).cpu() for p in planes]
+    assert torch.equal(torch.stack(per_plane).any(0), want)
+
+
+@pytest.mark.parametrize("lead,L,W", [((), 16, 1), ((), 8, 2),
+                                      ((2,), 2048, 2), ((2,), 7, 3),
+                                      ((), 1, 1)])
+def test_packed_fanout_kernel_home_flags(cuda, lead, L, W):
+    """The fan-out kernel on the planes of a packed ``[*lead, 2, L, W]``
+    view, read where they lie, with and without the home flags (home
+    lanes, remote lanes and both request flags), equals the plain
+    twin."""
+    rng = np.random.default_rng(SEED + 7 * L + W)
+    pres = _words(rng, lead + (L, W))
+    excl = pres & _words(rng, lead + (L, W))
+    view = torch.stack([pres, excl], dim=-3).to(cuda)
+    node = rng.integers(0, 32 * W, lead + (L,)).astype(np.int32)
+    edge = [0, 31, 32 * W - 1, 32 * (W - 1)]
+    node.reshape(-1)[:len(edge)] = edge[:node.size]
+    node = torch.as_tensor(node)
+    sh, ex = _bools(rng, lead + (L,), 0.5), _bools(rng, lead + (L,), 0.5)
+    home = _bools(rng, lead + (L,), 0.4)
+    hr = home & _bools(rng, lead + (L,), 0.6)
+    hw = home & _bools(rng, lead + (L,), 0.6)
+    for flags in ((), (hr, hw)):
+        got = K.packed_fanout(view[..., 0, :, :], view[..., 1, :, :],
+                              node.to(cuda), sh.to(cuda), ex.to(cuda),
+                              *(f.to(cuda) for f in flags))
+        want = ref.packed_fanout_ref(pres, excl, node, sh, ex, *flags)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_packed_kernels_refuse_planes_not_dense(cuda):
+    """A word plane whose last two dims are not dense, or whose leading
+    dims do not collapse into one axis, is refused; so are planes of two
+    shapes, more than four planes, and one home flag without the other."""
+    w = torch.zeros((4, 8, 2), dtype=torch.int32, device=cuda)
+    b = torch.zeros((4, 8), dtype=torch.bool, device=cuda)
+    node = b.to(torch.int32)
+    lead = torch.zeros((4, 4, 8, 2), dtype=torch.int32, device=cuda)
+    for bad in (w[..., :1], w[:, ::2], lead[::2, :2]):
+        with pytest.raises(ValueError, match="word plane"):
+            K.packed_any(bad)
+        with pytest.raises(ValueError, match="word plane"):
+            K.packed_any(bad.contiguous(), bad)
+    with pytest.raises(ValueError, match="word plane"):
+        K.packed_fanout(w[..., :1], w[..., :1], node, b, b)
+    with pytest.raises(ValueError):
+        K.packed_any(w, w[:2])
+    with pytest.raises(ValueError):
+        K.packed_any(*[w] * 5)
+    with pytest.raises(ValueError):
+        K.packed_fanout(w, w, node, b, b, home_write=b)
+    with pytest.raises(TypeError):
+        K.packed_fanout(w, w, node, b, b, b.to(torch.int8), b)
+
+
+def test_packed_kernels_refuse_planes_past_32_bit_index(cuda):
+    """Planes whose words the kernels' 32-bit index cannot reach are
+    refused before any launch, with the limit named: here 2^31 output
+    words from one broadcast [2, 1] block, which takes no memory."""
+    w = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    big = w.expand(2 ** 30, 2, 1)
+    lines = torch.zeros((1, 1), dtype=torch.bool, device=cuda)
+    lines = lines.expand(2 ** 30, 2)
+    node = w.view(1, 2).expand(2 ** 30, 2)
+    before = dict(K.launches)
+    with pytest.raises(ValueError, match="2\\^31"):
+        K.packed_any(big)
+    with pytest.raises(ValueError, match="2\\^31"):
+        K.packed_fanout(big, big, node, lines, lines)
+    assert dict(K.launches) == before
+
+
 def test_kernels_refuse_wrong_inputs(cuda):
     b = torch.zeros((4, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(TypeError):
@@ -547,6 +677,64 @@ def test_nmp_kernels_one_device_operation_per_call(cuda):
     assert len(ops) == 1 and "hash_probe" in ops[0]
     ops = _device_ops(lambda: NK.hash_probe(kv.heads, keys, nxt, keys, 40))
     assert len(ops) == 2 and any("hash_probe" in k for k in ops)
+
+
+OPS_ODD_LAYOUTS = ["select, strided table", "regex_match, rows not "
+                   "contiguous", "probe, strided columns",
+                   "attention, bf16 off a 16-byte boundary"]
+
+
+@pytest.mark.parametrize("case", OPS_ODD_LAYOUTS)
+def test_ops_take_odd_layouts_on_card(cuda, case):
+    """Each ``ops`` entry point takes on the card a layout its wrapper
+    refuses (the wrapper still does, called directly), and its answer
+    equals the plain twin's on the same values."""
+    entry = case.split(",")[0]
+    if entry == "select":
+        wide = make_table(SEED, 512, 16, 0.3, device="cpu")
+        t = wide.to(cuda)[:, ::2]
+        with pytest.raises(ValueError):
+            NK.select_scan(t, 0.0, 1.0)
+        got, want = ops.select(t, 0.0, 1.0), ops.select(t.cpu(), 0.0, 1.0)
+        assert torch.equal(_bits(got[0].cpu()), _bits(want[0]))
+        assert torch.equal(got[1].cpu(), want[1])
+    elif entry == "regex_match":
+        dfa = compile_regex("xyzzy")
+        trans, accept = dfa_tables(dfa, "cpu")
+        s = _strings(np.random.default_rng(SEED), 3000, 62, b"xyz")
+        field = s.t().contiguous().to(cuda).t()       # column-major rows
+        assert field.stride(1) != 1
+        with pytest.raises(ValueError):
+            NK.regex_dfa(trans.to(cuda), accept.to(cuda), field)
+        got = ops.regex_match(trans.to(cuda), accept.to(cuda), field)
+        assert torch.equal(got.cpu(), ref.regex_dfa_ref(trans, accept, s))
+    elif entry == "probe":
+        rng = np.random.default_rng(SEED)
+        keys = rng.integers(1, 2 ** 32, 5000, dtype=np.uint64)
+        kv = nkv.build_kvs(keys.astype(np.uint32), np.ones((5000, 1),
+                                                            np.float32),
+                           256, device="cpu")
+        q = torch.cat([kv.keys[::3], kv.keys[:100] ^ 0x5A5A])
+        three = torch.stack([kv.keys, kv.nxt, kv.nxt], 1).to(cuda)
+        k, nx = three[:, 0], three[:, 1]
+        with pytest.raises(ValueError):
+            NK.hash_probe(kv.heads.to(cuda), k, nx, q.to(cuda), 40)
+        got = ops.probe(kv.heads.to(cuda), k, nx, q.to(cuda), max_chain=40)
+        want = ref.hash_probe_ref(kv.heads, kv.keys, kv.nxt, q, 40)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+    else:
+        g = torch.Generator(device="cpu").manual_seed(SEED)
+        shape = (2, 4, 256, 64)
+        q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16)
+                   .to(cuda) for _ in range(3))
+        flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        odd = flat[1:].view(shape).copy_(q)
+        with pytest.raises(ValueError, match="16-byte"):
+            MK.flash_attention(odd, k, v)
+        got = ops.attention(odd, k, v).float()
+        want = ref.flash_attention_ref(q, k, v).float()
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
 
 
 def test_ops_launch_their_kernel_once(cuda):

@@ -407,6 +407,94 @@ def test_ops_probe_equals_reference(nq, block_q, max_chain):
     np.testing.assert_array_equal(_np(st), np.asarray(sj))
 
 
+OPS_LAYOUTS = ["select, strided table", "select, contiguous table",
+               "regex_match, rows not contiguous",
+               "regex_match, a field in place", "probe, strided columns",
+               "probe, records", "attention, bf16 off a 16-byte boundary",
+               "attention, fp32 transposed"]
+
+
+@pytest.mark.parametrize("case", OPS_LAYOUTS)
+def test_ops_hand_the_wrappers_a_layout_they_take(case, monkeypatch):
+    """Each ``ops`` entry point hands its wrapper a layout the card's
+    kernel takes: an argument the wrapper would refuse there is copied
+    first (and the answer is the reference's on the same values), one it
+    takes is handed on as it lies."""
+    from repro_torch.kernels import models as MK
+    from repro_torch.kernels.coherency_step import rows_layout
+    entry = case.split(",")[0]
+    wrapper = {"select": (K, "select_scan"), "regex_match": (K, "regex_dfa"),
+               "probe": (K, "hash_probe"),
+               "attention": (MK, "flash_attention")}[entry]
+    seen = []
+    real = getattr(*wrapper)
+    monkeypatch.setattr(*wrapper, lambda *a, **kw: (seen.append(a),
+                                                    real(*a, **kw))[1])
+    if entry == "select":
+        wide = _table(256, 16, 0.3)
+        t = wide[:, ::2] if "strided" in case else wide[:, :8].contiguous()
+        pj, cj = jops.select(jnp.asarray(_np(t)), 0.0, 1.0)
+        pt, ct = tops.select(t, 0.0, 1.0)
+        np.testing.assert_array_equal(_np(ct), np.asarray(cj))
+        np.testing.assert_array_equal(_bits(_np(pt)), _bits(pj))
+        arg = seen[0][0]
+        assert arg.is_contiguous() and torch.equal(arg, t)
+        assert (arg.data_ptr() == t.data_ptr()) == t.is_contiguous()
+    elif entry == "regex_match":
+        dfa = jregex.compile_regex("ab+c")
+        arr = _strings(64, 12, ["abbbc", "xyzzy"])
+        want = jops.regex_match(jnp.asarray(dfa.transitions),
+                                jnp.asarray(dfa.accept), jnp.asarray(arr))
+        trans, accept = convert.dfa_to_torch(dfa, "cpu")
+        field = (torch.as_tensor(arr.T.copy()).t() if "not" in case
+                 else _in_place(arr, 128, 8)[1])
+        got = tops.regex_match(trans, accept, field)
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+        arg = seen[0][2]
+        assert rows_layout(arg) and torch.equal(arg, field)
+        assert (arg.data_ptr() == field.data_ptr()) == rows_layout(field)
+    elif entry == "probe":
+        keys, vals = _kvs_inputs(300, 200)
+        kvs = jkv.build_kvs(keys, vals, 16)
+        q = np.concatenate([keys[:40], np.arange(20, dtype=np.uint32) * 97])
+        fj, sj = jops.probe(kvs.heads, kvs.keys, kvs.nxt, jnp.asarray(q),
+                            max_chain=12)
+        tk = convert.kvstore_to_torch(kvs, "cpu")
+        k, nx = tk.keys, tk.nxt
+        if "strided" in case:
+            three = torch.stack([k, nx, nx], 1)
+            k, nx = three[:, 0], three[:, 1]
+        ft, st = tops.probe(tk.heads, k, nx, tkv.key_bits(q, "cpu"),
+                            max_chain=12)
+        np.testing.assert_array_equal(_np(ft), np.asarray(fj))
+        np.testing.assert_array_equal(_np(st), np.asarray(sj))
+        _, ak, an = seen[0][:3]
+        assert _is_records(ak, an) and K.chains_layout(ak, an)
+        assert (ak is k and an is nx) == ("records" in case)
+    else:
+        dtype = torch.bfloat16 if "bf16" in case else torch.float32
+        g = torch.Generator().manual_seed(SEED)
+        shape = (1, 2, 64, 32)
+        q, k, v = (torch.randn(shape, generator=g).to(dtype)
+                   for _ in range(3))
+        if dtype == torch.bfloat16:
+            flat = torch.zeros(q.numel() + 1, dtype=dtype)
+            q = flat[1:].view(shape).copy_(q)
+            assert q.data_ptr() % 16
+        else:
+            k = k.transpose(2, 3).contiguous().transpose(2, 3)
+            assert not k.is_contiguous()
+        got = tops.attention(q, k, v)
+        aq, ak, av = seen[0]
+        assert all(t.is_contiguous() for t in (aq, ak, av))
+        assert dtype != torch.bfloat16 or \
+            all(t.data_ptr() % 16 == 0 for t in (aq, ak, av))
+        want = tref.flash_attention_ref(q.clone(), k.contiguous(),
+                                        v).to(dtype)
+        assert torch.equal(got, want)
+    assert len(seen) == 1
+
+
 # -- dispatch ----------------------------------------------------------------
 
 def test_cpu_wrappers_take_the_plain_versions():

@@ -10,7 +10,9 @@ bit-exact.
 * the word helpers and the packed directory functions, each against
   ``repro.core.directory_mn`` at R in {8, 33, 64} (W = 1, ragged 2, 2);
 * the plain versions of ``packed_any``/``packed_fanout`` against
-  ``repro.kernels.ref`` and the Pallas kernels run in interpret mode;
+  ``repro.kernels.ref`` and the Pallas kernels run in interpret mode,
+  and their extended forms (several planes read as slices of the packed
+  view; the home flags) against the compositions they replace;
 * ``step_mn`` leaf by leaf after every step on ``PACKED_CASES`` and on
   the dense H=2, ``home_bw=1`` and ``hreq_shared`` options.
 
@@ -212,11 +214,15 @@ def test_view_of_needed_and_home_needed_words(R, lead):
             jdmn.needed_words(jd, jnp.asarray(active), jnp.asarray(msg),
                               jnp.asarray(node))):
         _assert_words(got, want, "needed_words")
+    # The home side: ``needed_words`` with the home flags and no request
+    # active gives the reference's ``home_needed_words`` on every line.
     wr = rng.random(lead + (L,)) < 0.5
     ww = rng.random(lead + (L,)) < 0.5
     for got, want in zip(
-            dmn.home_needed_words(td, torch.as_tensor(wr),
-                                  torch.as_tensor(ww)),
+            dmn.needed_words(td, torch.zeros(lead + (L,), dtype=torch.bool),
+                             torch.as_tensor(msg), torch.as_tensor(node),
+                             home_read=torch.as_tensor(wr),
+                             home_write=torch.as_tensor(ww)),
             jdmn.home_needed_words(jd, jnp.asarray(wr), jnp.asarray(ww))):
         _assert_words(got, want, "home_needed_words")
 
@@ -299,21 +305,193 @@ def test_packed_fanout_plain_equals_reference(R, L, lead):
         _assert_words(g, p)
 
 
+#: the multi-plane ``packed_any`` cases: one-word (R=8), ragged two-word
+#: (R=33) and bit-31-only planes, and strided slices of the packed
+#: ``[H, 2, L/H, W]`` view and pending arrays, as the step's grant test
+#: reads them.
+ANY_CASES = ["W=1 (R=8)", "ragged W=2 (R=33)", "bit 31", "view slices"]
+
+
+def _any_planes(rng, case, n, L=40):
+    """(reference uint32 planes, port int32 planes) of ``n`` sparse word
+    planes of one shape for ``case``.  Line 0 is empty in every plane and
+    line 1 set only in the last, so the OR differs from its first plane."""
+    R = {"W=1 (R=8)": 8, "ragged W=2 (R=33)": 33}.get(case, 64)
+    lead = (2,) if case == "view slices" else ()
+    masks = []
+    for k in range(n + n % 2 if lead else n):
+        m = _mask(rng, lead + (R, L), 0.01)
+        if case == "bit 31":
+            m = np.zeros_like(m)
+            m[..., 31, :] = rng.random(lead + (L,)) < 0.15
+        m[..., :, :2] = False
+        masks.append(m)
+    masks[n - 1][..., 31 if case == "bit 31" else R - 1, 1] = True
+    words = [np.asarray(jdmn.pack_mask(jnp.asarray(m))) for m in masks]
+    if not lead:
+        return words, [_t(w) for w in words]
+    # two [H, 2, L/H, W] arrays, each plane a slice [:, p] of one of them
+    arrs = [np.stack(words[i:i + 2], axis=-3) for i in (0, 2)[:len(words)
+                                                             // 2]]
+    t_arrs = [_t(a) for a in arrs]
+    j = [a[:, p] for a in arrs for p in (0, 1)][:n]
+    t = [a[:, p] for a in t_arrs for p in (0, 1)][:n]
+    assert all(not x.is_contiguous() for x in t)
+    return j, t
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ANY_CASES)
+def test_packed_any_planes_equal_reference(case, n):
+    """The multi-plane twin (and ``any_bits``) equals the reference's
+    ``packed_any`` of the planes' OR, the Pallas kernel's of it in
+    interpret mode, and the OR of the reference's verdicts per plane."""
+    rng = np.random.default_rng(SEED + 11 * n + ANY_CASES.index(case))
+    jp, tp = _any_planes(rng, case, n)
+    acc = jp[0]
+    for p in jp[1:]:
+        acc = acc | p
+    want = np.asarray(jref.packed_any_ref(jnp.asarray(acc)))
+    assert want.any() and not want.all() and want[..., 1].all()
+    np.testing.assert_array_equal(
+        want, np.logical_or.reduce([np.asarray(jref.packed_any_ref(
+            jnp.asarray(p))) for p in jp]))
+    np.testing.assert_array_equal(
+        np.asarray(jcoh.packed_any(jnp.asarray(acc), interpret=True)), want)
+    for got in (tref.packed_any_ref(*tp), K.packed_any(*tp),
+                dmn.any_bits(*tp)):
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("layout,want", [
+    ("contiguous", 15), ("view slice", 30), ("one home's slice", 15),
+    ("nested lead dims", 30), ("broadcast lead", 0),
+    ("words not dense", None), ("lines not dense", None),
+    ("lead dims that do not nest", None), ("transposed", None),
+    ("one dim", None)])
+def test_plane_stride_reads_planes_where_they_lie(layout, want):
+    """The words between a plane's ``[L, W]`` blocks, for the layouts the
+    packed kernels read in place; None for those they refuse."""
+    v = torch.zeros((2, 2, 5, 3), dtype=torch.int32)      # [H, 2, L, W]
+    w = torch.zeros((3, 4, 5, 3), dtype=torch.int32)
+    t = {"contiguous": v[0, 0], "view slice": v[:, 1],
+         "one home's slice": v[1, 0], "nested lead dims": w[:, ::2],
+         "broadcast lead": v[0, 0].expand(4, 5, 3),
+         "words not dense": v[..., :2], "lines not dense": v[:, :, ::2],
+         "lead dims that do not nest": w[::2, :2],
+         "transposed": v[:, 0].transpose(0, 1),
+         "one dim": v[0, 0, 0]}[layout]
+    assert K.plane_stride(t) == want
+
+
+@pytest.mark.parametrize("case,fits", [
+    ("view slices, 2^29 blocks", True),
+    ("view slices, 2^29 + 1 blocks", False),
+    ("contiguous, 2^31 - 1 words", True),
+    ("contiguous, 2^31 words", False),
+    ("broadcast plane, 2^31 output words", False)])
+def test_plane_span_refused_past_32_bit_index(case, fits):
+    """The packed wrappers refuse planes that the kernels' 32-bit index
+    cannot reach, naming the limit (meta tensors: no memory is taken)."""
+    L, W = 2, 1
+    big = torch.empty(2 ** 32, dtype=torch.int32, device="meta")
+    # The two planes of a [blocks, 2, L, W] view: each spans
+    # (blocks - 1) * 2 * L * W + L * W words, 2^31 - 2 at 2^29 blocks.
+    blocks = 2 ** 29 if fits else 2 ** 29 + 1
+    planes = {
+        "view slices": lambda: (big.as_strided((blocks, L, W),
+                                               (2 * L * W, W, 1), L * W),
+                                big.as_strided((blocks, L, W),
+                                               (2 * L * W, W, 1))),
+        "contiguous": lambda: (big[:n].view(-1, 1, W),),
+        "broadcast plane": lambda: (big[:L * W].view(L, W)
+                                    .expand(2 ** 30, L, W),)}
+    n = 2 ** 31 - 1 if fits else 2 ** 31
+    got = planes[case.split(",")[0]]()
+    assert all(K.plane_stride(p) is not None for p in got)
+    if fits:
+        K.check_plane_span("packed_any", *got)
+    else:
+        with pytest.raises(ValueError, match="2\\^31"):
+            K.check_plane_span("packed_any", *got)
+
+
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["flat", "homes"])
+@pytest.mark.parametrize("R", RS)
+def test_packed_fanout_home_flags_equal_reference(R, lead):
+    """The home-flag twin equals the reference's remote and home fan-out
+    merged by ``jnp.where`` on the flagged lines, on a state with home
+    lanes, remote lanes and both request flags, the planes read as slices
+    of the packed view; and ``needed_words`` with the home flags equals
+    ``where(is_home_txn, home_needed_words, needed_words)``, the merge the
+    engine's fan-out phase made before."""
+    rng = np.random.default_rng(SEED + 13 * R + len(lead))
+    L = 32
+    shape = lead + (L,)
+    jd, td = _dir_pair(rng, R, L, lead)
+    node = rng.integers(0, R, shape).astype(np.int32)
+    node.reshape(-1)[:2] = [R - 1, min(31, R - 1)]
+    is_home = rng.random(shape) < 0.4
+    hr = is_home & (rng.random(shape) < 0.6)
+    hw = is_home & (rng.random(shape) < 0.6)
+    sh, ex = rng.random(shape) < 0.5, rng.random(shape) < 0.5
+    home = hr | hw
+    assert (sh & ex & ~home).any() and (hr & hw).any() and \
+        (hr & ~hw).any() and (hw & ~hr).any() and (is_home & ~home).any()
+    pres, excl = jd.view[..., 0, :, :], jd.view[..., 1, :, :]
+    remote = jref.packed_fanout_ref(pres, excl, jnp.asarray(node),
+                                    jnp.asarray(sh), jnp.asarray(ex))
+    home_w = jdmn.home_needed_words(jd, jnp.asarray(hr), jnp.asarray(hw))
+    want = [jnp.where(jnp.asarray(home)[..., None], h, r)
+            for h, r in zip(home_w, remote)]
+    tpres, texcl = td.view[..., 0, :, :], td.view[..., 1, :, :]
+    args = (tpres, texcl, torch.as_tensor(node), torch.as_tensor(sh),
+            torch.as_tensor(ex), torch.as_tensor(hr), torch.as_tensor(hw))
+    for got in (tref.packed_fanout_ref(*args), K.packed_fanout(*args)):
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == shape + (dmn.n_words(R),)
+            _assert_words(g, w)
+    active = rng.random(shape) < 0.8
+    msg = rng.integers(0, 16, shape).astype(np.int8)
+    msg[is_home] = 100                      # the engine's HOME_TXN code
+    act = active & ~is_home
+    merged = [jnp.where(jnp.asarray(is_home)[..., None], h, r)
+              for h, r in zip(home_w, jdmn.needed_words(
+                  jd, jnp.asarray(act), jnp.asarray(msg),
+                  jnp.asarray(node)))]
+    got = dmn.needed_words(td, torch.as_tensor(act), torch.as_tensor(msg),
+                           torch.as_tensor(node),
+                           home_read=torch.as_tensor(hr),
+                           home_write=torch.as_tensor(hw))
+    for g, w in zip(got, merged):
+        _assert_words(g, w)
+
+
 def test_cpu_packed_wrappers_take_the_plain_versions():
     """On CPU tensors the packed wrappers return the plain results and
-    launch nothing."""
+    launch nothing, in every form: one plane or several, with or without
+    the home flags (which go together)."""
     rng = np.random.default_rng(SEED)
     K.reset_launches()
     w = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (2, 16, 2),
                                      dtype=np.int64).astype(np.int32))
     assert torch.equal(K.packed_any(w), tref.packed_any_ref(w))
+    assert torch.equal(K.packed_any(w, ~w, w), tref.packed_any_ref(w, ~w, w))
     node = torch.as_tensor(rng.integers(0, 64, (2, 16)).astype(np.int32))
     sh = torch.as_tensor(rng.random((2, 16)) < 0.5)
     ex = ~sh
-    for a, b in zip(K.packed_fanout(w, w, node, sh, ex),
-                    tref.packed_fanout_ref(w, w, node, sh, ex)):
-        assert torch.equal(a, b)
+    for flags in ((), (sh, ex)):
+        for a, b in zip(K.packed_fanout(w, w, node, sh, ex, *flags),
+                        tref.packed_fanout_ref(w, w, node, sh, ex, *flags)):
+            assert torch.equal(a, b)
     assert K.launches["packed_any"] == K.launches["packed_fanout"] == 0
+    with pytest.raises(ValueError):
+        K.packed_any()
+    with pytest.raises(ValueError):
+        K.packed_any(*[w] * (K.MAX_PLANES + 1))
+    with pytest.raises(ValueError):
+        K.packed_fanout(w, w, node, sh, ex, home_read=sh)
 
 
 # ---------------------------------------------------------------------------
