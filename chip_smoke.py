@@ -69,16 +69,20 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    step from the profiler (``step_profile``); ``run_stream`` on zipfian
    traffic at R=64 remotes,
    L=4096 lines of B=32 fp32 words (128-byte lines), MOESI, issue width
-   W=1 at the ``WorkloadSpec`` default of 128 ops per remote and W=4 at
-   32 (``W4_OPS``), each with the default step budget for its ops and
-   validated by the port's own ``validate_run`` against its own
-   ``MultiNodeRef``, with the launch count of every kernel in that run;
+   W=1 at 64 ops per remote (``W1_OPS``) and W=4 at 32 (``W4_OPS``),
+   each with the default step budget for its ops and validated by the
+   port's own ``validate_run`` against its own ``MultiNodeRef``, with the
+   launch count of every kernel in that run;
 6. small streams (L=16, B=4) on the card through the kernels and on the
    CPU through the plain versions — dense R=8 MESI and MOESI, packed
    two-home R=33 MESI and R=64 MOESI, two homes with ``home_bw=1``,
-   shared credits: counters, message counts and retirement trace
-   bit-identical, and each packed run equal to the dense run of the same
-   configuration;
+   shared credits, and open-loop and observed streams (Poisson arrivals
+   with the admission cap, bursty arrivals, a packed two-home stream
+   under admission, an observed stream with an injected request):
+   counters, message counts, retirement trace, sojourn and
+   admission-wait histograms, backlog and the observability digest
+   (words, verdicts, phase histograms) bit-identical, and each packed run
+   equal to the dense run of the same configuration;
 7. the packed two-home path at the main path's width: ``EngineConfig(
    remotes=64, lines=4096, block=32, homes=2, packed=True)``, MOESI,
    zipfian, W=1, 64 ops per remote (``PACKED_OPS``): the device
@@ -86,7 +90,21 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    (``step_profile(packed=True)``), then the run, validated against the
    two-home oracle, with its own launch table (``packed_any`` 4 and
    ``packed_fanout`` 1 per step, run only here) and the
-   directory-state bytes of both layouts.
+   directory-state bytes of both layouts;
+8. open loop and observation at the main path's width (R=64, L=4096,
+   B=32, MOESI, dense, W=1): the device operations and host wall time of
+   one step under the admission loop and under the observability plane
+   (``step_profile(mode=...)``); no host synchronisation in either loop;
+   Poisson arrivals at 0.01 ops/step/remote (``SOJ_RATE``, seed 1) with
+   ``ADMISSION``, 16 ops per remote and the auto budget, which must
+   complete oracle-exact with no backlog and ``PER_STEP`` launches per
+   step, its sojourn and admission-wait percentiles printed; the same at
+   0.05 (``OVERLOAD_RATE``) over the arrival span, which must end with a
+   backlog; an observed run (8 ops per remote, ``OBS_CAPACITY`` words)
+   equal bit for bit to the plain run, with no violation online or in
+   ``check_trace`` over its ring; and a request injected into an open
+   request window, which must be latched at its (step, line) and flagged
+   by ``check_trace``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -115,12 +133,23 @@ CUDA_CORE_OPS_PER_S = 67e12
 TENSOR_CORE_FLOPS_PER_S = 989e12
 
 R, L, B, P = 64, 4096, 32, 65
-#: ops per remote of the dense W=4 run and of the packed two-home W=1
-#: run, cut from the ``WorkloadSpec`` default of 128 so that the script
-#: keeps a margin under its 1200 s limit on a slow host (see PERF.md,
-#: section 4); the dense W=1 run is not cut.
+#: ops per remote of the dense W=1 and W=4 runs and of the packed
+#: two-home W=1 run, cut from the ``WorkloadSpec`` default of 128 so that
+#: the script keeps a margin under its 1200 s limit on a slow host (see
+#: PERF.md, section 4).
+W1_OPS = 64
 W4_OPS = 32
 PACKED_OPS = 64
+
+#: phase 8, open loop and observation at the main path's width: Poisson
+#: arrivals at 0.01 ops/step/remote (about 47% of the closed loop's
+#: capacity here, 0.0213) and at 0.05 (about 2.3 times it), 16 ops per
+#: remote, the admission cap (max_inflight, reserve) of the reference's
+#: knee at R=8, (16, 2), scaled by R; the observed run at 8 ops per
+#: remote into a ring of 65,536 words.
+SOJ_RATE, OVERLOAD_RATE, OPEN_OPS = 0.01, 0.05, 16
+ADMISSION = (128, 16)
+OBS_OPS, OBS_CAPACITY = 8, 1 << 16
 
 #: the packed two-home path: homes, words per line at R=64.
 HOMES, NW = 2, 2
@@ -1707,10 +1736,12 @@ def phase_model(dev, rows):
     print(f"model phase {time.perf_counter() - t0:.1f} s")
 
 
-def check_no_host_sync(eng, ops: int, width: int, label: str) -> None:
+def check_no_host_sync(eng, ops: int, width: int, label: str,
+                       **stream) -> None:
     """The step loop makes no host synchronisation: the synchronising
     calls counted by CUDA's sync debug mode do not grow with the step
-    count."""
+    count.  ``stream`` are further ``StreamConfig`` fields (arrivals,
+    admission, observe)."""
     import torch
     from repro_torch.traffic import StreamConfig, WorkloadSpec, run_stream
     syncs = []
@@ -1721,7 +1752,7 @@ def check_no_host_sync(eng, ops: int, width: int, label: str) -> None:
             try:
                 run_stream(eng, StreamConfig(
                     workload=WorkloadSpec("zipfian", ops=ops, seed=0),
-                    width=width, steps=n, collect_trace=True))
+                    width=width, steps=n, collect_trace=True, **stream))
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         syncs.append(sum("synchroniz" in str(w.message) for w in caught))
@@ -1741,11 +1772,14 @@ STEP_KERNELS = ("credit_rank", "arb_winner", "count_fold", "lat_hist",
                 "packed_any", "packed_fanout")
 
 
-def step_profile(dev, lo: int = 8, hi: int = 24,
-                 packed: bool = False) -> None:
+def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
+                 mode: str = "") -> None:
     """Device operations and device time of one step from the profiler:
     the dense step (R=64, L=4096, B=32, W=1) or, with ``packed``, the
-    packed two-home step (H=2, ``PACKED_OPS`` ops per remote); the
+    packed two-home step (H=2, ``PACKED_OPS`` ops per remote); ``mode``
+    "admission" runs the dense step under the admission loop (every op
+    arrived at step 0, ``ADMISSION``'s cap), "observed" under the
+    observability plane (``ObserveConfig(capacity=OBS_CAPACITY)``); the
     difference between runs of ``hi`` and ``lo`` steps over ``hi - lo``,
     so a run's set-up and read-out cancel, with the entries and device
     time of each step kernel and the host's wall time per step (best of
@@ -1753,16 +1787,22 @@ def step_profile(dev, lo: int = 8, hi: int = 24,
     so the same code counts any tree of the port: import ``chip_smoke``,
     set ``sys.path[0]`` to that tree's ``src``, then call this."""
     import torch
-    from repro_torch.traffic import (EngineConfig, StreamConfig,
-                                     WorkloadSpec, run_stream)
+    from repro_torch.traffic import (AdmissionConfig, ArrivalSpec,
+                                     EngineConfig, ObserveConfig,
+                                     StreamConfig, WorkloadSpec, run_stream)
     extra = dict(homes=HOMES, packed=True) if packed else {}
     eng = EngineConfig(remotes=R, lines=L, block=B, **extra).build(dev)
     ops = PACKED_OPS if packed else WorkloadSpec().ops
+    stream = {"": {},
+              "admission": dict(arrivals=ArrivalSpec("at_step0"),
+                                admission=AdmissionConfig(*ADMISSION)),
+              "observed": dict(observe=ObserveConfig(
+                  capacity=OBS_CAPACITY))}[mode]
 
     def run(n):
         return lambda: run_stream(eng, StreamConfig(
             workload=WorkloadSpec("zipfian", ops=ops, seed=0), width=1,
-            steps=n))
+            steps=n, **stream))
 
     def wall(n):
         best = float("inf")
@@ -1792,7 +1832,8 @@ def step_profile(dev, lo: int = 8, hi: int = 24,
             for k in STEP_KERNELS}
     ms = (wall(hi) - wall(lo)) / (hi - lo) * 1e3
     label = (f"packed two-home step (R={R} L={L} B={B} H={HOMES} W=1"
-             if packed else f"dense step (R={R} L={L} B={B} W=1")
+             if packed else f"{mode or 'dense'} step (R={R} L={L} B={B} "
+             f"W=1")
     print(f"{label}, runs of {lo} and {hi} steps): {d[0]:g} device "
           f"operations per step, device time {d[1]:.3f} us; the step "
           f"kernels {d[2]:g} entries, {d[3]:.3f} us; host wall "
@@ -1802,20 +1843,21 @@ def step_profile(dev, lo: int = 8, hi: int = 24,
 
 
 def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
-          label: str) -> None:
-    """One run of ``ops`` per remote and the default step budget through
-    ``run_stream``, with every launch count set to 0 just before it and
-    read just after; oracle-validated, all ops retired, launches exactly
-    ``per_step`` times the step count."""
+          label: str, steps: int = 0, validate: bool = True, **stream):
+    """One run of ``ops`` per remote through ``run_stream`` (the default
+    step budget unless ``steps``; ``stream`` are further ``StreamConfig``
+    fields), with every launch count set to 0 just before it and read
+    just after: launches exactly ``per_step`` times the step count and,
+    with ``validate``, oracle-validated with all ops retired.  Returns
+    the run and its wall time in seconds."""
     import torch
     from repro_torch.kernels import coherency_step as K
-    from repro_torch.traffic import (StreamConfig, WorkloadSpec,
-                                     default_steps, run_stream, summarize,
-                                     validate_run)
-    steps = default_steps(ops, cfg_engine.remotes)
+    from repro_torch.traffic import (StreamConfig, WorkloadSpec, run_stream,
+                                     summarize, validate_run)
     eng = cfg_engine.build(dev)
     cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=ops, seed=0),
-                       width=width, collect_trace=True)
+                       width=width, steps=steps, collect_trace=validate,
+                       **stream)
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1823,9 +1865,11 @@ def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launches)
+    steps = int(run.counters.steps)
     s = summarize(run.counters, run.msg_count, run.payload_msgs)
     t1 = time.perf_counter()
-    validate_run(run, moesi=cfg_engine.moesi, n_homes=cfg_engine.homes)
+    if validate:
+        validate_run(run, moesi=cfg_engine.moesi, n_homes=cfg_engine.homes)
     t_val = time.perf_counter() - t1
     print(f"{label}: completed={run.completed} "
           f"ops_retired={s['ops_retired']} "
@@ -1840,24 +1884,23 @@ def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
             fail(f"{label}: kernel {name}: {n} launches, expected "
                  f"{per_step[name]} x {steps}")
         rows[name]["launches"] += n
-    if s["ops_retired"] != cfg_engine.remotes * ops:
+    if validate and s["ops_retired"] != cfg_engine.remotes * ops:
         fail(f"{label}: retired {s['ops_retired']} of "
              f"{cfg_engine.remotes * ops}")
+    return run, wall
 
 
 def phase_main_path(dev, rows):
     """Phase 5: the closed-loop stream at R=64, L=4096, B=32."""
-    from repro_torch.traffic import EngineConfig, WorkloadSpec, \
-        default_steps
-    ops = WorkloadSpec().ops
+    from repro_torch.traffic import EngineConfig, default_steps
     print(f"main path: zipfian R={R} L={L} B={B} (fp32, "
-          f"{4 * B}-byte lines) MOESI, W=1 at {ops} ops per remote "
-          f"({default_steps(ops, R)} steps, the default budget), W=4 cut "
-          f"to {W4_OPS} ({default_steps(W4_OPS, R)} steps)")
+          f"{4 * B}-byte lines) MOESI, W=1 at {W1_OPS} ops per remote "
+          f"({default_steps(W1_OPS, R)} steps, the default budget), W=4 "
+          f"at {W4_OPS} ({default_steps(W4_OPS, R)} steps)")
     cfg = EngineConfig(remotes=R, lines=L, block=B)
     step_profile(dev)
-    check_no_host_sync(cfg.build(dev), ops, 4, "main path")
-    for width, n_ops in ((1, ops), (4, W4_OPS)):
+    check_no_host_sync(cfg.build(dev), W1_OPS, 4, "main path")
+    for width, n_ops in ((1, W1_OPS), (4, W4_OPS)):
         drive(dev, cfg, width, n_ops, PER_STEP, rows,
               f"main path W={width}")
     for name in ("credit_rank", "arb_winner", "count_fold", "lat_hist"):
@@ -1895,53 +1938,219 @@ def phase_packed_path(dev, rows):
 
 
 def _same_run(a, b) -> bool:
+    """Counters, message counts, the trace, the open loop's histograms
+    and backlog, and the observability digest equal."""
     import numpy as np
     import torch
+    hists = all(
+        (x is None and y is None) or np.array_equal(x, y)
+        for x, y in ((a.sojourn_hist, b.sojourn_hist),
+                     (a.admit_wait_hist, b.admit_wait_hist)))
+    obs = (a.obs is None and b.obs is None) or (
+        a.obs is not None and b.obs is not None
+        and np.array_equal(a.obs.words, b.obs.words)
+        and a.obs.metrics() == b.obs.metrics())
     return (np.array_equal(a.msg_count, b.msg_count)
             and a.payload_msgs == b.payload_msgs
             and np.array_equal(a.trace.retire_step, b.trace.retire_step)
             and all(torch.equal(x.cpu(), y.cpu())
-                    for x, y in zip(a.counters, b.counters)))
+                    for x, y in zip(a.counters, b.counters))
+            and hists and a.backlog == b.backlog and obs)
 
 
 def phase_small_stream(dev):
     """Phase 6: the card's kernel runs equal the CPU's plain runs, and
     each packed run equals the dense run of its configuration."""
-    from repro_torch.traffic import (EngineConfig, StreamConfig,
-                                     WorkloadSpec, run_stream,
+    import torch
+    from repro_torch.core.messages import MsgType
+    from repro_torch.traffic import (AdmissionConfig, ArrivalSpec,
+                                     EngineConfig, ObserveConfig,
+                                     StreamConfig, WorkloadSpec, run_stream,
                                      validate_run)
 
-    # (ops per remote, engine options); the wide packed streams take 8
-    # ops, since their step budget grows with R * ops and each runs three
-    # times (card, CPU, and dense on the card).
+    poisson = dict(arrivals=ArrivalSpec("poisson", rate=0.2, seed=1),
+                   admission=AdmissionConfig(16, 2))
+    # (ops per remote, engine options, stream options); the wide packed
+    # streams and the open-loop and observed ones take 8 ops, since their
+    # step budget grows with R * ops (and with the last arrival) and each
+    # runs two or three times (card, CPU, and dense on the card).
     cases = [
-        (32, dict(remotes=8, moesi=False)),
-        (32, dict(remotes=8, moesi=True)),
-        (8, dict(remotes=33, homes=2, packed=True, moesi=False)),
-        (8, dict(remotes=64, homes=2, packed=True, moesi=True)),
-        (32, dict(remotes=8, homes=2, home_bw=1)),
-        (32, dict(remotes=8, shared_credits=True, credits=4)),
+        (32, dict(remotes=8, moesi=False), {}),
+        (32, dict(remotes=8, moesi=True), {}),
+        (8, dict(remotes=33, homes=2, packed=True, moesi=False), {}),
+        (8, dict(remotes=64, homes=2, packed=True, moesi=True), {}),
+        (32, dict(remotes=8, homes=2, home_bw=1), {}),
+        (32, dict(remotes=8, shared_credits=True, credits=4), {}),
+        (8, dict(remotes=8), poisson),
+        (8, dict(remotes=8), dict(arrivals=ArrivalSpec("bursty", rate=0.2,
+                                                       seed=2))),
+        (8, dict(remotes=33, homes=2, packed=True, moesi=False), poisson),
+        (8, dict(remotes=8), dict(observe=ObserveConfig(
+            specs=("req_resp", "single_writer", "readonly"),
+            inject=(40, 3, int(MsgType.REQ_READ_SHARED))))),
     ]
-    for ops, kw in cases:
-        cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=ops, seed=3),
-                           width=2, collect_trace=True)
-        gpu, cpu = (run_stream(EngineConfig(lines=16, block=4, **kw)
-                               .build(d), cfg) for d in (dev, "cpu"))
-        if not _same_run(gpu, cpu):
-            fail(f"small stream {kw}: card and CPU differ")
-        if kw.get("packed"):
-            dense_kw = dict(kw, packed=False)
-            dense = run_stream(EngineConfig(lines=16, block=4, **dense_kw)
-                               .build(dev), cfg)
-            if not _same_run(gpu, dense):
-                fail(f"small stream {kw}: packed and dense runs differ")
-        validate_run(gpu, moesi=kw.get("moesi", True),
-                     n_homes=kw.get("homes", 1))
-        print(f"small stream {json.dumps(kw)} ops={ops}: card == CPU "
-              f"(counters, msg_count {int(gpu.msg_count.sum())}, payload "
-              f"{gpu.payload_msgs}, trace)"
-              f"{', == dense' if kw.get('packed') else ''}, "
-              f"oracle-validated")
+    # the plain path's tensors are tiny: one intra-op thread keeps the
+    # CPU's searchsorted and bucketize off a busy thread pool.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for ops, kw, skw in cases:
+            t0 = time.perf_counter()
+            cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=ops,
+                                                     seed=3),
+                               width=2, collect_trace=True, **skw)
+            gpu, cpu = (run_stream(EngineConfig(lines=16, block=4, **kw)
+                                   .build(d), cfg) for d in (dev, "cpu"))
+            what = json.dumps({**kw, **{k: repr(v) for k, v in
+                                        skw.items()}})
+            if not _same_run(gpu, cpu):
+                fail(f"small stream {what}: card and CPU differ")
+            if kw.get("packed"):
+                dense_kw = dict(kw, packed=False)
+                dense = run_stream(EngineConfig(lines=16, block=4,
+                                                **dense_kw).build(dev), cfg)
+                if not _same_run(gpu, dense):
+                    fail(f"small stream {what}: packed and dense runs "
+                         f"differ")
+            validate_run(gpu, moesi=kw.get("moesi", True),
+                         n_homes=kw.get("homes", 1))
+            extra = ""
+            if gpu.sojourn_hist is not None:
+                extra += (f", sojourn {gpu.sojourn_hist.tolist()}, "
+                          f"backlog {gpu.backlog}")
+            if gpu.obs is not None:
+                extra += (f", {gpu.obs.captured_total} words, violations "
+                          f"{[str(v) for v in gpu.obs.violations]}, "
+                          f"phase_hist {gpu.obs.phase_hist.tolist()}")
+            print(f"small stream {what} ops={ops}: card == CPU "
+                  f"(counters, msg_count {int(gpu.msg_count.sum())}, "
+                  f"payload {gpu.payload_msgs}, trace{extra})"
+                  f"{', == dense' if kw.get('packed') else ''}, "
+                  f"oracle-validated, {int(gpu.counters.steps)} steps, "
+                  f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.set_num_threads(threads)
+
+
+def open_window(tb):
+    """(step, line) one step after a request parked two or more steps
+    before its grant, from a captured trace: a second request on the
+    line is illegal there."""
+    from repro_torch.core import transport as tp
+    from repro_torch.core.messages import MsgType
+    reqs = (int(MsgType.REQ_READ_SHARED), int(MsgType.REQ_READ_EXCL),
+            int(MsgType.REQ_UPGRADE))
+    open_at = {}
+    for m in tb.messages():
+        klass = m.vc // 2
+        if klass == tp.CLASS_REMOTE_REQ and m.msg_type in reqs:
+            open_at[m.line] = m.txn
+        elif klass == tp.CLASS_HOME_RESP and m.line in open_at:
+            s = open_at.pop(m.line)
+            if m.txn > s + 1:
+                return s + 1, m.line
+    fail("no open request window in the observed run's trace")
+
+
+def phase_open_loop(dev, rows):
+    """Phase 8: open loop and observation at the main path's width."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.core.messages import MsgType
+    from repro_torch.core.tracing import SPECS, check_trace
+    from repro_torch.traffic import (AdmissionConfig, ArrivalSpec,
+                                     EngineConfig, ObserveConfig,
+                                     StreamConfig, WorkloadSpec, run_stream,
+                                     sojourn_summary)
+    t0 = time.perf_counter()
+    cfg = EngineConfig(remotes=R, lines=L, block=B)
+    adm = AdmissionConfig(*ADMISSION)
+    print(f"open loop: zipfian R={R} L={L} B={B} MOESI dense W=1, "
+          f"{OPEN_OPS} ops per remote, Poisson arrivals (seed 1) at "
+          f"{SOJ_RATE} and {OVERLOAD_RATE} ops/step/remote, admission "
+          f"{ADMISSION}; observed against plain at {OBS_OPS} ops per "
+          f"remote, ring of {OBS_CAPACITY} words")
+    for mode in ("", "admission", "observed"):     # the dense step beside
+        step_profile(dev, mode=mode)
+    eng = cfg.build(dev)
+    check_no_host_sync(eng, OPEN_OPS, 1, "open loop",
+                       arrivals=ArrivalSpec("at_step0"), admission=adm)
+    check_no_host_sync(eng, OBS_OPS, 1, "observed",
+                       observe=ObserveConfig(capacity=OBS_CAPACITY))
+
+    # ---- below the knee: completes, oracle-exact, no backlog -------------
+    run, wall = drive(dev, cfg, 1, OPEN_OPS, PER_STEP, rows,
+                      f"open loop rate {SOJ_RATE}",
+                      arrivals=ArrivalSpec("poisson", rate=SOJ_RATE, seed=1),
+                      admission=adm)
+    s = sojourn_summary(run)
+    steps = int(run.counters.steps)
+    print(f"open loop rate {SOJ_RATE}: sojourn "
+          f"p50={s['sojourn_percentiles']['p50']} "
+          f"p99={s['sojourn_percentiles']['p99']} "
+          f"p999={s['sojourn_percentiles']['p999']} admit_wait "
+          f"p99={s['admit_wait_percentiles']['p99']} backlog={run.backlog} "
+          f"steps={steps} steps_per_s={steps / wall:.1f}")
+    if not run.completed or run.backlog != 0:
+        fail(f"open loop rate {SOJ_RATE}: completed={run.completed} "
+             f"backlog={run.backlog}")
+
+    # ---- past the knee: a fixed window of the arrival span --------------
+    over = ArrivalSpec("poisson", rate=OVERLOAD_RATE, seed=1)
+    last = int(over.materialize(OPEN_OPS, R).step.max())
+    run, wall = drive(dev, cfg, 1, OPEN_OPS, PER_STEP, rows,
+                      f"open loop rate {OVERLOAD_RATE}", steps=last,
+                      validate=False, arrivals=over, admission=adm)
+    s = sojourn_summary(run)
+    print(f"open loop rate {OVERLOAD_RATE}: completed={run.completed} "
+          f"backlog={run.backlog} sojourn p50="
+          f"{s['sojourn_percentiles']['p50']} "
+          f"p99={s['sojourn_percentiles']['p99']} admit_wait p99="
+          f"{s['admit_wait_percentiles']['p99']} steps={last}")
+    if run.completed or run.backlog <= 0:
+        fail(f"open loop rate {OVERLOAD_RATE}: expected overload, got "
+             f"completed={run.completed} backlog={run.backlog}")
+
+    # ---- observed against plain ------------------------------------------
+    wl = WorkloadSpec("zipfian", ops=OBS_OPS, seed=0)
+    obs_cfg = ObserveConfig(capacity=OBS_CAPACITY)
+    plain, seen = (run_stream(eng, StreamConfig(workload=wl, observe=o,
+                                                collect_trace=True))
+                   for o in (None, obs_cfg))
+    a, b = (convert.flatten(convert.engine_state_to_numpy(x.state))
+            for x in (plain, seen))
+    same_state = a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) for k in a)
+    if not (same_state and _same_run(plain, seen._replace(obs=None))):
+        fail("observed run differs from the plain run")
+    if seen.obs.violations:
+        fail(f"observed run: violations {seen.obs.violations}")
+    tb = seen.obs.trace_buffer()
+    host = {n: len(check_trace(SPECS[n], tb)) for n in obs_cfg.specs}
+    print(f"observed: == plain (state, counters, msg_count, trace), "
+          f"captured_total={seen.obs.captured_total} "
+          f"dropped={seen.obs.dropped} "
+          f"delivered={int(seen.msg_count.sum())} violations=0 "
+          f"host check_trace {host} phase p99 "
+          f"{ {k: v['p99'] for k, v in seen.obs.phase_percentiles().items()} }")
+    if any(host.values()) or seen.obs.captured_total + seen.obs.dropped \
+            != int(seen.msg_count.sum()):
+        fail("observed: host check or word count disagrees")
+
+    # ---- an injected violation, latched at its (step, line) -------------
+    istep, iline = open_window(tb)
+    bad = run_stream(eng, StreamConfig(
+        workload=wl, steps=istep + 8, observe=obs_cfg._replace(
+            inject=(istep, iline, int(MsgType.REQ_READ_SHARED)))))
+    v = [v for v in bad.obs.violations if v.spec == "req_resp"]
+    hv = check_trace(SPECS["req_resp"], bad.obs.trace_buffer())
+    print(f"inject REQ_READ_SHARED at step {istep} line {iline}: online "
+          f"{[str(x) for x in v]}; host check_trace "
+          f"{[str(x) for x in hv[:1]]}")
+    if not v or (v[0].step, v[0].line) != (istep, iline) or \
+            not any(x.line == iline for x in hv):
+        fail("the injected violation was not latched at its step and line")
+    print(f"open loop and observation phase {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1989,6 +2198,7 @@ def main() -> int:
     phase_main_path(dev, rows)
     phase_small_stream(dev)
     phase_packed_path(dev, rows)
+    phase_open_loop(dev, rows)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

@@ -36,8 +36,11 @@ message-counter folds (``count_fold``) and, on packed planes, the five
 any-bit reductions (``packed_any``) and the fan-out words
 (``packed_fanout``).
 
-Not ported yet (they raise ``NotImplementedError``): wire-event emission
-(ROADMAP Queue 1 item 11) and the fleet's home emulation (item 12).
+``emit_events=True`` also returns the step's wire events
+(``StepEvents``), the feed of the observability plane
+(``traffic.observe``).  Not ported yet (it raises
+``NotImplementedError``): the fleet's home emulation (ROADMAP Queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -212,6 +215,47 @@ def _unfold_state_mn(st: EngineMNState, flat: EngineMNState
         step_no=st.step_no)
 
 
+class StepEvents(NamedTuple):
+    """Wire events of ONE engine step, in delivery order: the feed of the
+    observability plane (``traffic.observe``).
+
+    The five sites are the step's ``_count`` sites in phase order
+    (hresp arrivals, voluntary downgrades, request acceptance, grant
+    issue, home-downgrade delivery).  Per-remote sites are ``[R, L]``;
+    the home-side sites (one transaction per line) are ``[L]``.
+    ``step_mn`` returns them on flat global lines; ``step_folded``
+    returns them in its state's layout (``unfold_events`` flattens)."""
+
+    hresp_arr: torch.Tensor    # [R, L] bool — downgrade replies at home
+    hresp_msg: torch.Tensor    # [R, L] int8
+    hresp_dirty: torch.Tensor  # [R, L] bool
+    vol_arr: torch.Tensor      # [R, L] bool — voluntary downgrades absorbed
+    vol_msg: torch.Tensor      # [R, L] int8
+    vol_dirty: torch.Tensor    # [R, L] bool
+    req_acc: torch.Tensor      # [L] bool — remote request parked (wins arb)
+    req_msg: torch.Tensor      # [L] int8
+    req_node: torch.Tensor     # [L] int32
+    grant: torch.Tensor        # [L] bool — grant response issued
+    grant_msg: torch.Tensor    # [L] int8
+    grant_node: torch.Tensor   # [L] int32
+    grant_pay: torch.Tensor    # [L] bool — the grant carries line data
+    hd_arr: torch.Tensor       # [R, L] bool — HOME_DOWNGRADE_* delivered
+    hd_msg: torch.Tensor       # [R, L] int8
+
+
+#: the ``[L]`` (home-side) fields of ``StepEvents``; the rest are [R, L].
+_EVENT_LINE_FIELDS = frozenset({"req_acc", "req_msg", "req_node", "grant",
+                                "grant_msg", "grant_node", "grant_pay"})
+
+
+def unfold_events(ev: StepEvents) -> StepEvents:
+    """Events of a home-major fold (``[H, R, L/H]``, ``[H, L/H]``) on
+    flat global lines."""
+    return StepEvents(**{
+        f: (_u_l(x) if f in _EVENT_LINE_FIELDS else _u_rl(x))
+        for f, x in ev._asdict().items()})
+
+
 def make_engine_mn_state(backing: torch.Tensor, n_remotes: int,
                          packed: bool = False) -> EngineMNState:
     """A quiescent engine over ``backing`` ([L, B], on its device);
@@ -304,7 +348,7 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
             delays: torch.Tensor, credits: torch.Tensor,
             hreq_shared: bool = False, n_homes: int = 1, home_bw: int = 0,
             emit_events: bool = False, home_group=None, home_bw_t=None
-            ) -> Tuple[EngineMNState, StepMNOutput]:
+            ) -> tuple:
     """One engine step over all remotes and lines (see the module doc).
 
     ``tables`` come from ``protocol.device_tables`` on the state's
@@ -316,38 +360,41 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     transactions per step (0 = unbounded): the flat state is folded
     into the home-major layout, stepped by ``step_folded`` and unfolded
     again.  The state's layout (dense int8 or packed int32 planes) is
-    read from ``hreq_pending``'s dtype.  The step makes no host
-    synchronisation."""
-    if emit_events:
-        _not_ported("wire-event emission (emit_events)", 11)
+    read from ``hreq_pending``'s dtype.  ``emit_events`` returns
+    ``(state, output, StepEvents)`` on flat lines.  The step makes no
+    host synchronisation."""
     if home_group is not None or home_bw_t is not None:
         _not_ported("the fleet's home emulation (home_group/home_bw_t)", 12)
     if n_homes == 1:
         return step_folded(tables, st, op, op_val, want_read, want_write,
                            wval, delays, credits, hreq_shared=hreq_shared,
-                           home_bw=home_bw)
+                           home_bw=home_bw, emit_events=emit_events)
     H = n_homes
-    new, out = step_folded(
+    res = step_folded(
         tables, _fold_state_mn(st, H), _f_rl(op, H), _f_rl(op_val, H),
         _f_l(want_read, H), _f_l(want_write, H), _f_l(wval, H), delays,
-        credits, hreq_shared=hreq_shared, home_bw=home_bw)
-    return _unfold_state_mn(new, st), StepMNOutput(
+        credits, hreq_shared=hreq_shared, home_bw=home_bw,
+        emit_events=emit_events)
+    new, out = res[:2]
+    flat = (_unfold_state_mn(new, st), StepMNOutput(
         load_done=_u_rl(out.load_done), load_val=_u_rl(out.load_val),
         hread_done=_u_l(out.hread_done), hread_val=_u_l(out.hread_val),
-        accepted=_u_rl(out.accepted))
+        accepted=_u_rl(out.accepted)))
+    return flat + (unfold_events(res[2]),) if emit_events else flat
 
 
 def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
                 op_val: torch.Tensor, want_read: torch.Tensor,
                 want_write: torch.Tensor, wval: torch.Tensor,
                 delays: torch.Tensor, credits: torch.Tensor,
-                hreq_shared: bool = False, home_bw: int = 0
-                ) -> Tuple[EngineMNState, StepMNOutput]:
+                hreq_shared: bool = False, home_bw: int = 0,
+                emit_events: bool = False) -> tuple:
     """The step body over a home-major state: the flat ``[R, L]`` layout
     of one home, or the ``[H, R, L/H]`` fold of H homes (``_fold_state_mn``;
     the inputs folded alike), whose leading axis batches every phase.
-    The outputs keep the state's layout.  ``run_stream`` keeps a
-    multi-home state folded across its whole loop and calls this."""
+    The outputs (and, with ``emit_events``, the ``StepEvents`` appended
+    to them) keep the state's layout.  ``run_stream`` keeps a multi-home
+    state folded across its whole loop and calls this."""
     # R/L come from the (always dense) agent plane: the directory and
     # MSHR slabs change layout under the packed planes.
     R, L = ag.plane_shape(st.agents)
@@ -402,6 +449,8 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
                         ch_req.payload)
     msg_count, payload_msgs = _count(msg_count, payload_msgs, pop_vol,
                                      ch_req.msg, ch_req.dirty)
+    # observability site 2: voluntary downgrades as absorbed (pre-pop).
+    vol_msg, vol_dirty = ch_req.msg, ch_req.dirty
 
     # ---- 4. arbitration: remotes AND the home compete per free line ------
     req_ready = ready_req & ~is_vol
@@ -601,8 +650,19 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
         msg_count=msg_count, payload_msgs=payload_msgs,
         step_no=st.step_no + 1,
     )
-    return new, StepMNOutput(load_done, load_val, hread_done, hread_val,
-                             accepted & ~parked)
+    out = StepMNOutput(load_done, load_val, hread_done, hread_val,
+                       accepted & ~parked)
+    if not emit_events:
+        return new, out
+    return new, out, StepEvents(
+        hresp_arr=hr_arr, hresp_msg=ch_hresp_in.msg,
+        hresp_dirty=ch_hresp_in.dirty,
+        vol_arr=pop_vol, vol_msg=vol_msg, vol_dirty=vol_dirty,
+        req_acc=accept_line & ~home_win, req_msg=win_msg,
+        req_node=win_node,
+        grant=resp != _NOP, grant_msg=resp, grant_node=node_c,
+        grant_pay=carries,
+        hd_arr=h_arr, hd_msg=ch_hreq_in.msg)
 
 
 def busy_flag_mn(st: EngineMNState) -> torch.Tensor:

@@ -96,17 +96,20 @@ class Library:
     to its ``argtypes`` before the stream, which every entry point takes
     last; each returns ``cudaGetLastError()``.  Built and bound at the
     first launch.  ``launches[kernel]`` counts the launches of each of
-    ``kernels``."""
+    ``kernels``, and ``symbol_launches[sym]`` those of each entry point,
+    which tells apart the entry points that one kernel name covers."""
 
     def __init__(self, name: str, sigs: Dict[str, Tuple],
                  kernels: Iterable[str]):
         self.name, self.sigs = name, sigs
         self.launches: Dict[str, int] = dict.fromkeys(kernels, 0)
+        self.symbol_launches: Dict[str, int] = dict.fromkeys(sigs, 0)
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
 
     def reset_launches(self) -> None:
-        for k in self.launches:
-            self.launches[k] = 0
+        for counts in (self.launches, self.symbol_launches):
+            for k in counts:
+                counts[k] = 0
 
     def call(self, sym: str, *args) -> int:
         """Call ``sym`` with ``args`` and the current stream, binding the
@@ -123,9 +126,10 @@ class Library:
 
     def launch(self, kernel: str, sym: str, *args) -> None:
         """Call ``sym`` with ``args`` and the current stream; raise if the
-        launch failed, else count one launch of ``kernel``."""
+        launch failed, else count one launch of ``kernel`` and of ``sym``."""
         err = self.call(sym, *args)
         if err != 0:
             raise RuntimeError(f"{kernel}: CUDA launch failed with error "
                                f"{err}")
         self.launches[kernel] += 1
+        self.symbol_launches[sym] += 1

@@ -6,7 +6,8 @@ Each wrapper replaces one Pallas kernel of ``repro.kernels``:
   causal masking, a sliding window and the gemma2 softcap
   (``repro.kernels.flash_attention``): bf16 on the tensor cores
   (``flash_attention_tc_kernel``), fp32 on the CUDA cores
-  (``flash_attention_simt_kernel``), both counted as ``flash_attention``;
+  (``flash_attention_simt_kernel``), both counted as ``flash_attention``
+  and told apart by ``symbol_launches``;
 * ``rglru_scan``      — the RG-LRU linear recurrence with an fp32 carry
   (``repro.kernels.rglru_scan``).
 
@@ -49,6 +50,9 @@ _SIGS = {
 _LIB = Library("models", _SIGS, ("flash_attention", "rglru_scan"))
 #: kernel launches per wrapper since the last ``reset_launches()``.
 launches: Dict[str, int] = _LIB.launches
+#: launches per C entry point since the last ``reset_launches()``: bf16
+#: attention is ``models_flash_attention_tc``, fp32 ``models_flash_attention``.
+symbol_launches: Dict[str, int] = _LIB.symbol_launches
 reset_launches = _LIB.reset_launches
 _launch = _LIB.launch
 

@@ -33,6 +33,13 @@ from ..kernels import coherency_step as K
 LAT_EDGES = np.asarray(K.LAT_EDGES, np.int32)
 N_LAT_BUCKETS = len(LAT_EDGES) + 1
 
+#: sojourn (arrival -> retirement) histogram edges for OPEN-LOOP runs;
+#: sojourn includes queue wait, which under overload grows with the run
+#: length, so the range reaches far past LAT_EDGES: a p99 in the 8192
+#: overflow bucket is the knee curve's "past saturation" signal.
+SOJOURN_EDGES = np.asarray([1 << i for i in range(14)], np.int32)
+N_SOJ_BUCKETS = len(SOJOURN_EDGES) + 1
+
 #: the four coherence channel classes, in Counters.occ_* order.
 CHANNELS = ("req", "resp", "hreq", "hresp")
 
@@ -127,6 +134,29 @@ def hist_percentiles(hist: np.ndarray, edges: np.ndarray = LAT_EDGES,
         idx = int(np.searchsorted(cdf, q * total, side="left"))
         out[key] = float(uppers[min(idx, len(uppers) - 1)])
     return out
+
+
+def sojourn_summary(run) -> Dict[str, object]:
+    """Host-side digest of an OPEN-LOOP run's serving metrics.
+
+    Sojourn is arrival -> retirement (queue wait + service); admit wait is
+    arrival -> admission.  Percentiles are ``hist_percentiles``'s upper
+    bucket edges over ``SOJOURN_EDGES`` (``inf`` past the last edge);
+    ``backlog`` counts the arrived-but-never-issued ops left when the
+    step budget ran out, > 0 under overload."""
+    if run.sojourn_hist is None:
+        raise ValueError("sojourn_summary needs an open-loop StreamRun "
+                         "(StreamConfig.arrivals set)")
+    return {
+        "sojourn_percentiles":
+            hist_percentiles(run.sojourn_hist, SOJOURN_EDGES),
+        "admit_wait_percentiles":
+            hist_percentiles(run.admit_wait_hist, SOJOURN_EDGES),
+        "sojourn_hist": np.asarray(run.sojourn_hist).tolist(),
+        "admit_wait_hist": np.asarray(run.admit_wait_hist).tolist(),
+        "backlog": int(run.backlog),
+        "completed": bool(run.completed),
+    }
 
 
 def _np(x) -> np.ndarray:

@@ -1,8 +1,8 @@
-"""Quiescence-free streaming driver for the N-remote engine (closed loop).
+"""Quiescence-free streaming driver for the N-remote engine.
 
-The port of ``repro.traffic.driver.run_stream`` for closed-loop runs:
-every remote issues new ops from its stream EVERY step while earlier
-transactions are still in flight.
+The port of ``repro.traffic.driver.run_stream``: every remote issues new
+ops from its stream EVERY step while earlier transactions are still in
+flight.
 
 * backpressure comes from the engine: an op it cannot take this step is
   not in the ``accepted`` mask and its slot retries next step;
@@ -27,6 +27,24 @@ An accepted op retires once the agent's MSHR for its line is clear again
 (hits the same step, misses when the grant lands).  The retirement TRACE
 is what ``traffic.counters.validate_run`` replays into the atomic
 ``MultiNodeRef``.
+
+**Open loop** (``StreamConfig.arrivals``): each workload slot carries an
+arrival step (``traffic.arrivals``).  A slot becomes an issue candidate
+only once it has ARRIVED and, when ``StreamConfig.admission`` caps the
+batch, only while the transactions in flight stay below ``max_inflight -
+reserve``, the candidates admitted FIFO by arrival stamp (a stable
+argsort).  Admission gates WHEN an op enters flight, never what it does,
+so the oracle replay stays exact; sojourn (arrival -> retirement) and
+admission wait fold into ``SOJOURN_EDGES`` histograms carried apart from
+``Counters``, and the backlog (arrived, never issued) is counted on the
+host after the loop.  With ``arrivals=None`` the loop runs the
+closed-loop code alone.
+
+**Observation** (``StreamConfig.observe``): every step also returns its
+wire events (``engine_mn.StepEvents``, unfolded to flat lines under
+several homes) and folds them into the observability carry
+(``traffic.observe.fold_obs``); the run's ``ObsResult`` is read once,
+after the loop.
 """
 from __future__ import annotations
 
@@ -37,12 +55,16 @@ import torch
 
 from ..core.engine_mn import (EngineMN, EngineMNState, _f_l, _f_rl,
                               _fold_state_mn, _u_rl, _unfold_state_mn,
-                              busy_flag_mn, step_folded)
+                              busy_flag_mn, step_folded, unfold_events)
 from ..core.messages import MsgType
 from ..core.protocol import LocalOp
-from .config import StreamConfig, WorkloadSpec
-from .counters import Counters, RetirementTrace, make_counters, \
-    update_counters
+from .arrivals import check_schedule
+from .config import (AdmissionConfig, ArrivalSpec, StreamConfig,
+                     WorkloadSpec)
+from .counters import (N_SOJ_BUCKETS, SOJOURN_EDGES, Counters,
+                       RetirementTrace, make_counters, update_counters)
+from .observe import (ObserveConfig, ObsResult, compiled_specs,
+                      finalize_obs, fold_obs, make_obs_carry, obs_tables)
 
 # the issue window scatters ops into dense planes where a zero is "no op".
 assert int(LocalOp.NOP) == 0 and int(MsgType.NOP) == 0
@@ -50,7 +72,8 @@ assert int(LocalOp.NOP) == 0 and int(MsgType.NOP) == 0
 
 def default_steps(ops: int, n_remotes: int, last_arrival: int = 0) -> int:
     """Step budget covering an ``ops``-per-remote stream plus drain tail
-    (the reference's rule: it scales with TOTAL ops, ``R * ops``)."""
+    (the reference's rule: it scales with TOTAL ops, ``R * ops``), shifted
+    out by the last arrival stamp of an open-loop run."""
     return 2 * ops * n_remotes + 12 * ops + 64 + int(last_arrival)
 
 
@@ -63,14 +86,51 @@ class StreamRun(NamedTuple):
     payload_msgs: int         # messages that carried line data, this run
     trace: Optional[RetirementTrace]
     completed: bool           # stream fully consumed AND engine quiescent
+    obs: Optional[ObsResult] = None   # observability digest (observe=...)
+    # ---- open-loop serving results (cfg.arrivals set; else None/0) ------
+    sojourn_hist: Optional[np.ndarray] = None     # [N_SOJ_BUCKETS] int64
+    admit_wait_hist: Optional[np.ndarray] = None  # [N_SOJ_BUCKETS] int64
+    backlog: int = 0          # arrived-but-never-issued ops at budget end
+
+
+def _check_filters(engine: EngineMN, observe: Optional[ObserveConfig],
+                   line_filter, type_filter) -> None:
+    """Entry validation of the capture filters."""
+    if (line_filter is not None or type_filter is not None) \
+            and observe is None:
+        raise ValueError(
+            "line_filter/type_filter restrict the observability capture "
+            "ring — they require observe=ObserveConfig(...)")
+    for name, filt, shape, what in (
+            ("line_filter", line_filter, (engine.n_lines,),
+             "[n_lines]"),
+            ("type_filter", type_filter, (16,), "[16] (MsgType-indexed)")):
+        if filt is None:
+            continue
+        arr = np.asarray(filt)
+        if arr.shape != shape:
+            raise ValueError(
+                f"{name} must be a {what} bool mask, shape {shape}; "
+                f"got shape {arr.shape}")
+        if arr.dtype != np.bool_:
+            raise ValueError(
+                f"{name} must have bool dtype; got {arr.dtype} "
+                f"(pass np.asarray(..., bool))")
+
+
+def _hist_count(hist: torch.Tensor, bucket: torch.Tensor,
+                mask: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``hist`` plus the count of ``mask``ed lanes in each bucket."""
+    return hist + ((bucket[..., None] == ids) & mask[..., None]).sum((0, 1))
 
 
 def run_stream(engine: EngineMN, cfg: StreamConfig,
                st: Optional[EngineMNState] = None) -> StreamRun:
-    """Drive one closed-loop streaming run of ``engine`` under ``cfg``.
+    """Drive one streaming run of ``engine`` under ``cfg``.
 
     ``st`` optionally continues from an earlier run's state.  The whole
-    ``[T, R]`` op stream is checked against the engine's protocol subset
+    ``[T, R]`` op stream is checked against the engine's protocol subset,
+    and the arrival schedule and capture filters against their shapes,
     before anything is submitted."""
     if not isinstance(cfg, StreamConfig):
         raise TypeError("run_stream(engine, StreamConfig(...))")
@@ -89,6 +149,25 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
                          f"{engine.n_remotes}")
     W = int(cfg.width)
     dev = engine.device
+    obs = cfg.observe
+    _check_filters(engine, obs, cfg.line_filter, cfg.type_filter)
+
+    # ---- open-loop pieces: arrival schedule + admission ----------------
+    open_loop = cfg.arrivals is not None
+    adm = cfg.admission if cfg.admission is not None else AdmissionConfig()
+    if adm.max_inflight and not open_loop:
+        raise ValueError(
+            "admission control needs an arrival schedule — set "
+            "StreamConfig.arrivals (use arrivals.at_step0 for a "
+            "closed-loop-equivalent run)")
+    last_arrival = 0
+    if open_loop:
+        arr = cfg.arrivals
+        if isinstance(arr, ArrivalSpec):
+            arr = arr.materialize(T, engine.n_remotes)
+        check_schedule(arr, T, engine.n_remotes)
+        arr_np = np.asarray(arr.step)
+        last_arrival = int(arr_np.max()) if T else 0
 
     st0 = engine.init() if st is None else st
     H = engine.n_homes
@@ -96,7 +175,7 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
     # state carries [2, L, W] int32 words instead of [R, L] int8).
     R, L = st0.agents.remote_state.shape
     B = st0.dir.backing.shape[1]
-    steps = cfg.steps or default_steps(T, R)
+    steps = cfg.steps or default_steps(T, R, last_arrival)
     base_msgs = st0.msg_count.cpu().numpy().astype(np.int64)
     base_payload = int(st0.payload_msgs)
 
@@ -132,6 +211,24 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         # row T is a scratch row the non-retiring lanes write into.
         retire = torch.full((T + 1, R), -1, dtype=torch.int32, device=dev)
 
+    if open_loop:
+        wl_arr = torch.as_tensor(arr_np, dtype=torch.int32).to(dev)
+        soj_edges = torch.as_tensor(SOJOURN_EDGES).to(dev)
+        soj_ids = torch.arange(N_SOJ_BUCKETS, device=dev)
+        soj_born = torch.zeros((R, L), dtype=torch.int32, device=dev)
+        soj_hist = torch.zeros(N_SOJ_BUCKETS, dtype=torch.int64, device=dev)
+        admit_hist = torch.zeros_like(soj_hist)
+        if adm.max_inflight:
+            int_max = torch.iinfo(torch.int32).max
+            lanes = torch.arange(R * W, device=dev)
+    if obs is not None:
+        comp = compiled_specs(obs.specs)
+        tables = obs_tables(comp, dev)
+        oc = make_obs_carry(obs, R, L, comp, dev)
+        lf, tf = (None if f is None else
+                  torch.as_tensor(np.asarray(f, bool)).to(dev)
+                  for f in (cfg.line_filter, cfg.type_filter))
+
     def plane(tgt, src, dtype):
         """Scatter ``[R, W]`` slot values into a dense ``[R, L]`` plane at
         columns ``tgt``; column L is a scratch column, sliced off."""
@@ -155,6 +252,26 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         if W > 1:
             same = s_line[:, :, None] == s_line[:, None, :]  # [R, Wk, Wj]
             can = can & ~(real[:, None, :] & same & earlier[None]).any(-1)
+        if open_loop:
+            # ---- continuous-batching admission --------------------------
+            # a slot is a candidate only once its stamp has ARRIVED (the
+            # conflict mask above keeps every queued real slot, arrived or
+            # not, so per-line program order survives any schedule); with
+            # a cap, the FIFO-by-stamp earliest candidates fill what the
+            # reserve watermark leaves open.
+            s_arr = wl_arr[idxc, ar]                        # [R, W]
+            arrived = s_arr <= t
+            can = can & arrived
+            if adm.max_inflight:
+                budget = torch.clamp(adm.max_inflight - adm.reserve
+                                     - outstanding.sum(), min=0)
+                # stable argsort: FIFO by stamp, program order on ties;
+                # non-candidates sort to the back.
+                order = torch.argsort(
+                    torch.where(can, s_arr, int_max).reshape(-1),
+                    stable=True)
+                rank = torch.empty_like(order).scatter_(0, order, lanes)
+                can = can & (rank.view(R, W) < budget)
         # scatter the issuable slots into dense [R, L] planes: at most one
         # issuable slot per (remote, line); the rest go to scratch column L.
         tgt = torch.where(can, s_line, L)
@@ -163,10 +280,12 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         born_d = plane(tgt, slot_born, torch.int32)
 
         # ---- one engine step under sustained traffic --------------------
-        st2, out = step_folded(engine.tables, stt, fold(opd), fold(vald),
-                               zb, zb, zwv, engine.delays, engine.credits,
-                               hreq_shared=engine.shared_credits,
-                               home_bw=engine.home_bw)
+        res = step_folded(engine.tables, stt, fold(opd), fold(vald), zb,
+                          zb, zwv, engine.delays, engine.credits,
+                          hreq_shared=engine.shared_credits,
+                          home_bw=engine.home_bw,
+                          emit_events=obs is not None)
+        st2, out = res[:2]
 
         # ---- adopt newly accepted ops, detect retirements ---------------
         newly = unfold(out.accepted)
@@ -183,9 +302,29 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
             row = torch.where(retired, out_idx, T)
             retire.index_put_((row, ar_rl), tsteps[t])
 
-        # ---- slide each window past its issued prefix -------------------
+        # ---- sojourn + admission-wait histograms (open loop) ------------
         slot_acc = can & newly[ar, s_line]
-        issued = issued | slot_acc | (pending & is_nop)
+        nop_skip = pending & is_nop
+        if open_loop:
+            soj_born = torch.where(newly, plane(tgt, s_arr, torch.int32),
+                                   soj_born)
+            soj_hist = _hist_count(
+                soj_hist, torch.bucketize(t - soj_born, soj_edges,
+                                          right=True), retired, soj_ids)
+            admit_hist = _hist_count(
+                admit_hist, torch.bucketize(t - s_arr, soj_edges,
+                                            right=True), slot_acc, soj_ids)
+            # a NOP slot is consumed at its arrival, not before.
+            nop_skip = nop_skip & arrived
+
+        # ---- observability plane ----------------------------------------
+        if obs is not None:
+            ev = unfold_events(res[2]) if H > 1 else res[2]
+            oc = fold_obs(obs, tables, oc, ev, t, lf, tf, newly=newly,
+                          born_d=born_d, retired=retired)
+
+        # ---- slide each window past its issued prefix -------------------
+        issued = issued | slot_acc | nop_skip
         shift = torch.cumprod(issued.to(torch.int32), dim=1).sum(1)
         k2 = wr[None, :] + shift[:, None]
         in_w = k2 < W
@@ -216,6 +355,18 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
             retire_step=retire[:-1].cpu().numpy(),
             op=op_np, line=np.asarray(wl.line), value=np.asarray(wl.value),
             n_lines=L)
+    soj = {}
+    if open_loop:
+        # backlog = arrived-but-never-issued ops when the budget ran out:
+        # the cursor counts each remote's consumed prefix; issued slots
+        # past it still sit in the window flags.
+        cur = cursor.cpu().numpy()
+        idx = cur[:, None] + np.arange(W)[None, :]
+        issued_total = int(cur.sum()) + int(
+            (issued.cpu().numpy() & (idx < T)).sum())
+        soj = dict(sojourn_hist=soj_hist.cpu().numpy(),
+                   admit_wait_hist=admit_hist.cpu().numpy(),
+                   backlog=int((arr_np < steps).sum()) - issued_total)
     return StreamRun(
         state=stt,
         counters=Counters(*(x.cpu() for x in ctr)),
@@ -223,4 +374,6 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         payload_msgs=int(stt.payload_msgs) - base_payload,
         trace=trace,
         completed=completed,
+        obs=None if obs is None else finalize_obs(obs, oc, comp),
+        **soj,
     )

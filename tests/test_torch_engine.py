@@ -132,8 +132,7 @@ def test_drain_and_quiescence():
         te.drain(st2, 1)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(emit_events=True), "item 11"), (dict(home_group=2), "item 12")])
+@pytest.mark.parametrize("kwargs,item", [(dict(home_group=2), "item 12")])
 def test_unported_step_options_raise(kwargs, item):
     te = EngineMN(np.zeros((8, 2), np.float32), n_remotes=2, device="cpu")
     st = te.init()
