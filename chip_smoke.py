@@ -104,7 +104,21 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    equal bit for bit to the plain run, with no violation online or in
    ``check_trace`` over its ring; and a request injected into an open
    request window, which must be latched at its (step, line) and flagged
-   by ``check_trace``.
+   by ``check_trace``;
+9. fleets and the command line (R=64, L=4096, B=32, MOESI, zipfian,
+   ``FLEET_OPS`` ops per remote): the device operations and host wall
+   time of one step of each fleet beside the dense step's
+   (``step_profile(mode="grid"|"homes")``); no host synchronisation in
+   the member-batched loop; an R x W grid fleet (``FLEET_GRID``) and a
+   homes fleet (H in ``FLEET_HOMES`` at R=64, ``home_bw=1``, credits
+   4,096) through ``run_fleet``, ``PER_STEP`` launches per fleet step,
+   every member oracle-validated and two members of each bit-identical
+   to their solo ``run_stream``, with member-steps/s against the solo
+   runs' wall time; a small fleet (R <= 8, L=16) card against CPU; the
+   grouped ``count_fold`` timed at the grid's ``[4, 64, 4096]``; the
+   command line's ``--smoke`` on the card (every case PASS) and one run at
+   R=64, L=4096 whose ``--artifacts`` config.json, read back through
+   ``--config``, prints the same summary.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -153,6 +167,14 @@ OBS_OPS, OBS_CAPACITY = 8, 1 << 16
 
 #: the packed two-home path: homes, words per line at R=64.
 HOMES, NW = 2, 2
+
+#: phase 9, fleets at the main path's width: 8 ops per remote (1,184
+#: steps, the budget of R=64), an R x W grid and a homes sweep at R=64 with
+#: a per-home acceptance cap of 1; credits of 4,096 a VC, since the
+#: fleet's home emulation is exact only while credits cover the lines.
+FLEET_OPS = 8
+FLEET_GRID = ((16, 1), (16, 4), (64, 1), (64, 4))
+FLEET_HOMES, FLEET_HOME_BW, FLEET_CREDITS = (1, 2, 4), 1, 4096
 
 #: the near-memory phase, at the sizes of the paper's §5 (PERF.md §4):
 #: SELECT over 16 Mi rows of 32 fp32 (128-byte rows, 2 GiB) and regex over
@@ -635,6 +657,27 @@ def phase_kernels(dev):
                   torch.cumsum(torch.stack([steps[i % 2]
                                             for i in range(1000)]),
                                dim=0, dtype=torch.int32)))
+    # the grouped form (a fleet's members): G groups in one launch, each
+    # on its own base row; G = 1 is the ungrouped call's launch
+    for G, n in ((1, R * L), (3, L + 1), (12, 2049), (4, R * L)):
+        m_, p_ = rand_bool((G, n), 0.05), rand_bool((G, n), 0.5)
+        g_ = codes((G, n))
+        bg = (torch.randint(0, 2 ** 20, (G, 16), generator=g,
+                            dtype=torch.int32).to(dev),
+              torch.randint(0, 2 ** 20, (G,), generator=g,
+                            dtype=torch.int32).to(dev))
+        cases.append((f"grouped G={G} n={n}",
+                      K.count_fold(m_, g_, p_, grouped=True),
+                      ref.count_fold_ref(m_, g_, p_, grouped=True)))
+        cases.append((f"grouped G={G} n={n} base",
+                      K.count_fold(m_, g_, p_, base=bg, grouped=True),
+                      ref.count_fold_ref(m_, g_, p_, base=bg,
+                                         grouped=True)))
+    one = K.count_fold(msk[None], mixed[None], pay[None],
+                       base=(b_[0][None], b_[1][None]), grouped=True)
+    cases.append(("grouped G=1 == the ungrouped launch",
+                  (one[0][0], one[1][0]),
+                  K.count_fold(msk, mixed, pay, base=b_)))
     msg64 = msg.reshape(-1).to(torch.int64)
     wts = msk.reshape(-1).to(torch.float32)
     b0 = base()                 # the main path's call folds the totals
@@ -1772,6 +1815,24 @@ STEP_KERNELS = ("credit_rank", "arb_winner", "count_fold", "lat_hist",
                 "packed_any", "packed_fanout")
 
 
+def fleet_members(homes: bool = False, ops: int = FLEET_OPS,
+                  trace: bool = True):
+    """Phase 9's fleets: the R x W grid (``FLEET_GRID``) or the homes
+    sweep (``FLEET_HOMES`` at R=64), at the main path's L and B."""
+    from repro_torch.traffic import (EngineConfig, StreamConfig,
+                                     WorkloadSpec)
+    wl = WorkloadSpec("zipfian", ops=ops, seed=0)
+    if homes:
+        return tuple((EngineConfig(remotes=R, lines=L, block=B, homes=h,
+                                   home_bw=FLEET_HOME_BW,
+                                   credits=FLEET_CREDITS),
+                      StreamConfig(workload=wl, collect_trace=trace))
+                     for h in FLEET_HOMES)
+    return tuple((EngineConfig(remotes=r, lines=L, block=B),
+                  StreamConfig(workload=wl, width=w, collect_trace=trace))
+                 for r, w in FLEET_GRID)
+
+
 def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
                  mode: str = "") -> None:
     """Device operations and device time of one step from the profiler:
@@ -1779,7 +1840,9 @@ def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
     packed two-home step (H=2, ``PACKED_OPS`` ops per remote); ``mode``
     "admission" runs the dense step under the admission loop (every op
     arrived at step 0, ``ADMISSION``'s cap), "observed" under the
-    observability plane (``ObserveConfig(capacity=OBS_CAPACITY)``); the
+    observability plane (``ObserveConfig(capacity=OBS_CAPACITY)``),
+    "grid" and "homes" one step of phase 9's grid and homes fleets
+    (``run_fleet``, every member on one leading axis); the
     difference between runs of ``hi`` and ``lo`` steps over ``hi - lo``,
     so a run's set-up and read-out cancel, with the entries and device
     time of each step kernel and the host's wall time per step (best of
@@ -1788,8 +1851,9 @@ def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
     set ``sys.path[0]`` to that tree's ``src``, then call this."""
     import torch
     from repro_torch.traffic import (AdmissionConfig, ArrivalSpec,
-                                     EngineConfig, ObserveConfig,
-                                     StreamConfig, WorkloadSpec, run_stream)
+                                     EngineConfig, FleetConfig,
+                                     ObserveConfig, StreamConfig,
+                                     WorkloadSpec, run_fleet, run_stream)
     extra = dict(homes=HOMES, packed=True) if packed else {}
     eng = EngineConfig(remotes=R, lines=L, block=B, **extra).build(dev)
     ops = PACKED_OPS if packed else WorkloadSpec().ops
@@ -1797,9 +1861,14 @@ def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
               "admission": dict(arrivals=ArrivalSpec("at_step0"),
                                 admission=AdmissionConfig(*ADMISSION)),
               "observed": dict(observe=ObserveConfig(
-                  capacity=OBS_CAPACITY))}[mode]
+                  capacity=OBS_CAPACITY)),
+              "grid": {}, "homes": {}}[mode]
 
     def run(n):
+        if mode in ("grid", "homes"):
+            members = fleet_members(mode == "homes", trace=False)
+            return lambda: run_fleet(FleetConfig(members=members, steps=n),
+                                     device=dev)
         return lambda: run_stream(eng, StreamConfig(
             workload=WorkloadSpec("zipfian", ops=ops, seed=0), width=1,
             steps=n, **stream))
@@ -1831,9 +1900,15 @@ def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
                 (kernels[1][k][1] - kernels[0][k][1]) / (hi - lo))
             for k in STEP_KERNELS}
     ms = (wall(hi) - wall(lo)) / (hi - lo) * 1e3
-    label = (f"packed two-home step (R={R} L={L} B={B} H={HOMES} W=1"
-             if packed else f"{mode or 'dense'} step (R={R} L={L} B={B} "
-             f"W=1")
+    if mode in ("grid", "homes"):
+        what = (f"H={FLEET_HOMES} at R={R} W=1" if mode == "homes" else
+                f"(R, W)={FLEET_GRID}")
+        label = (f"{mode} fleet step (M={len(fleet_members(mode == 'homes'))}"
+                 f" members, {what}, L={L} B={B}")
+    elif packed:
+        label = f"packed two-home step (R={R} L={L} B={B} H={HOMES} W=1"
+    else:
+        label = f"{mode or 'dense'} step (R={R} L={L} B={B} W=1"
     print(f"{label}, runs of {lo} and {hi} steps): {d[0]:g} device "
           f"operations per step, device time {d[1]:.3f} us; the step "
           f"kernels {d[2]:g} entries, {d[3]:.3f} us; host wall "
@@ -2153,6 +2228,172 @@ def phase_open_loop(dev, rows):
     print(f"open loop and observation phase {time.perf_counter() - t0:.1f} s")
 
 
+def check_fleet_no_host_sync(dev) -> None:
+    """The member-batched loop makes no host synchronisation: the syncs
+    CUDA's sync debug mode counts do not grow with the step count."""
+    import torch
+    from repro_torch.traffic import FleetConfig, run_fleet
+    members = fleet_members(homes=True)
+    syncs = []
+    for n in (2, 8, 24):        # the first run builds the cached constants
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_fleet(FleetConfig(members=members, steps=n), device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    if syncs[2] == 0:
+        fail("CUDA's sync debug mode reported no synchronisation at all")
+    if syncs[1] != syncs[2]:
+        fail(f"fleet: the member-batched loop synchronises with the host: "
+             f"{syncs[1]} syncs in 8 steps, {syncs[2]} in 24")
+    print(f"fleet: {syncs[2]} host syncs per run outside the step loop, "
+          f"none inside (runs of 8 and 24 steps)")
+
+
+def drive_fleet(dev, homes: bool, rows, solo_at) -> None:
+    """One fleet of phase 9 through ``run_fleet``, launch counts set to 0
+    just before it and read just after (``PER_STEP`` per fleet step: the
+    members share each launch); every member completes and replays into
+    its oracle; the members at ``solo_at`` run solo through
+    ``run_stream`` at the fleet's budget and must be bit-identical."""
+    import torch
+    from repro_torch.kernels import coherency_step as K
+    from repro_torch.traffic import (FleetConfig, StreamConfig, fleet_steps,
+                                     run_fleet, run_stream, summarize,
+                                     validate_run)
+    fleet = FleetConfig(members=fleet_members(homes))
+    steps = fleet_steps(fleet)
+    label = "homes fleet" if homes else "grid fleet"
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    runs = run_fleet(fleet, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    print(f"{label}: launches {json.dumps(counts)}")
+    for name, n in counts.items():
+        if n != PER_STEP[name] * steps:
+            fail(f"{label}: kernel {name}: {n} launches, expected "
+                 f"{PER_STEP[name]} x {steps} (one per fleet step)")
+        rows[name]["launches"] += n
+    M = len(runs)
+    for (e, s), run in zip(fleet.members, runs):
+        sm = summarize(run.counters, run.msg_count, run.payload_msgs)
+        validate_run(run, moesi=e.moesi, n_homes=e.homes)
+        if sm["ops_retired"] != e.remotes * s.workload.ops:
+            fail(f"{label}: member R={e.remotes} W={s.width} H={e.homes} "
+                 f"retired {sm['ops_retired']}")
+        print(f"{label} member R={e.remotes} W={s.width} H={e.homes}: "
+              f"completed={run.completed} ops_retired={sm['ops_retired']} "
+              f"ops_per_step={float(sm['ops_per_step']):.6f} "
+              f"max_wait={max(sm['max_wait'])} "
+              f"msgs={int(run.msg_count.sum())} oracle-validated")
+    solo_wall = 0.0
+    for i in solo_at:
+        e, s = fleet.members[i]
+        eng = e.build(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo = run_stream(eng, StreamConfig(
+            workload=s.workload, width=s.width, steps=steps,
+            collect_trace=True))
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        solo_wall += w
+        if not _same_run(runs[i], solo):
+            fail(f"{label}: member {i} differs from its solo run")
+        print(f"{label}: member {i} (R={e.remotes} W={s.width} "
+              f"H={e.homes}) == its solo run_stream, solo wall_s={w:.3f} "
+              f"steps_per_s={steps / w:.1f}")
+    print(f"{label}: M={M} members x {steps} steps in wall_s={wall:.3f}: "
+          f"member_steps_per_s={M * steps / wall:.1f} fleet_steps_per_s="
+          f"{steps / wall:.1f}; the {len(solo_at)} solo runs "
+          f"wall_s={solo_wall:.3f} ({len(solo_at) * steps / solo_wall:.1f}"
+          f" member-steps/s)")
+
+
+def phase_fleet(dev, rows):
+    """Phase 9: fleets and the command line on the card."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import coherency_step as K
+    from repro_torch.kernels import ref
+    from repro_torch.traffic import (EngineConfig, FleetConfig, StreamConfig,
+                                     WorkloadSpec, fleet_steps, run_fleet)
+    from repro_torch.traffic import run as cli
+    t0 = time.perf_counter()
+    print(f"fleets: zipfian L={L} B={B} MOESI, {FLEET_OPS} ops per remote; "
+          f"grid (R, W) in {FLEET_GRID}; homes H in {FLEET_HOMES} at R={R} "
+          f"home_bw={FLEET_HOME_BW} credits={FLEET_CREDITS}")
+    for mode in ("", "grid", "homes"):          # the dense step beside
+        step_profile(dev, mode=mode)
+    check_fleet_no_host_sync(dev)
+    drive_fleet(dev, False, rows, solo_at=(0, 3))      # R=16 W=1, R=64 W=4
+    drive_fleet(dev, True, rows, solo_at=(1, 2))       # H=2, H=4
+
+    # ---- a small fleet, card against CPU -------------------------------
+    small = FleetConfig(members=tuple(
+        (EngineConfig(remotes=r, lines=16, block=4, homes=h, home_bw=bw),
+         StreamConfig(workload=WorkloadSpec("zipfian", ops=8, seed=sd),
+                      width=w, collect_trace=True))
+        for r, w, h, bw, sd in ((2, 1, 1, 0, 1), (8, 2, 2, 1, 2),
+                                (5, 3, 4, 0, 3))))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        card, cpu = (run_fleet(small, device=d) for d in (dev, "cpu"))
+    finally:
+        torch.set_num_threads(threads)
+    if not all(_same_run(a, b) for a, b in zip(card, cpu)):
+        fail("small fleet: card and CPU differ")
+    print(f"small fleet (R<=8, L=16, {len(card)} members, "
+          f"{fleet_steps(small)} steps): card == CPU")
+
+    # ---- the grouped count_fold at a fleet's shape ------------------------
+    M = len(FLEET_GRID)
+    g = torch.Generator().manual_seed(9)
+    mk = (torch.rand((M, R * L), generator=g) < 0.05).to(dev)
+    pk = (torch.rand((M, R * L), generator=g) < 0.5).to(dev)
+    ck = torch.randint(0, 16, (M, R * L), generator=g,
+                       dtype=torch.int8).to(dev)
+    bk = (torch.zeros((M, 16), dtype=torch.int32, device=dev),
+          torch.zeros(M, dtype=torch.int32, device=dev))
+    time_form(f"count_fold grouped [{M}, {R}, {L}] (one launch for the "
+              f"fleet's members)", "count_fold",
+              lambda: K.count_fold(mk, ck, pk, base=bk, grouped=True),
+              lambda: ref.count_fold_ref(mk, ck, pk, base=bk, grouped=True),
+              nbytes=3 * M * R * L + 2 * 4 * 17 * M, nops=4 * M * R * L)
+
+    # ---- the command line on the card ---------------------------------
+    if cli.smoke(device=dev.type) != 0:
+        fail("python -m repro_torch.traffic.run --smoke: a case failed")
+    art = os.path.join(HERE, "build", "cli_artifacts")
+    argv = ["--device", dev.type, "--remotes", str(R), "--lines", str(L),
+            "--ops", str(FLEET_OPS), "--validate"]
+    outs = []
+    for extra in (["--artifacts", art],
+                  ["--config", os.path.join(art, "config.json")]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + extra)
+        outs.append(json.loads(buf.getvalue()))
+    print(f"cli: --remotes {R} --lines {L} --ops {FLEET_OPS} --validate: "
+          f"completed={outs[0]['completed']} "
+          f"ops_retired={outs[0]['ops_retired']} steps={outs[0]['steps']} "
+          f"wall_s={outs[0]['wall_s']}; replayed through --config "
+          f"wall_s={outs[1]['wall_s']}")
+    for out in outs:
+        out.pop("wall_s")
+    if outs[0] != outs[1] or not outs[0]["completed"]:
+        fail("cli: the --config replay printed another summary")
+    print(f"fleets and command line phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2199,6 +2440,7 @@ def main() -> int:
     phase_small_stream(dev)
     phase_packed_path(dev, rows)
     phase_open_loop(dev, rows)
+    phase_fleet(dev, rows)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

@@ -337,7 +337,8 @@ def grant(tables: TorchTables, st: DirectoryMNState, active: torch.Tensor,
     resp = resp.masked_fill(is_upgrade_race, int(MsgType.RESP_NACK))
     bad = active & ~legal & ~is_upgrade_race
     new = st._replace(home_state=home_state, view=view, backing=backing,
-                      illegal=st.illegal + bad.sum(dtype=torch.int32))
+                      illegal=st.illegal + bad.flatten(st.illegal.dim())
+                      .sum(-1, dtype=torch.int32))
     return new, resp, val
 
 

@@ -38,9 +38,17 @@ any-bit reductions (``packed_any``) and the fan-out words
 
 ``emit_events=True`` also returns the step's wire events
 (``StepEvents``), the feed of the observability plane
-(``traffic.observe``).  Not ported yet (it raises
-``NotImplementedError``): the fleet's home emulation (ROADMAP Queue 1
-item 12).
+(``traffic.observe``).
+
+Fleets (``traffic.fleet``): ``step_folded`` takes a state whose leading
+axis is a MEMBER axis — one independent engine per member, each with
+its own ``msg_count [M, 16]`` and ``payload_msgs [M]`` (the counter
+fold is then grouped by member) — and the home emulation
+``home_group``/``home_bw_t``: H address-interleaved homes emulated over
+the flat layout, VC parity from the plane-local line index and each
+home's new-transaction acceptance capped in the folded plane's rotating
+order, bit-identical to the ``[H, R, L/H]`` fold while VC credits never
+bind.
 """
 from __future__ import annotations
 
@@ -70,12 +78,6 @@ HOME_TXN = 100
 _NOP = int(MsgType.NOP)
 _VOL_I = int(MsgType.VOL_DOWNGRADE_I)
 _VOL_S = int(MsgType.VOL_DOWNGRADE_S)
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"repro_torch: {what} is not ported yet (ROADMAP.md, Queue 1 "
-        f"item {item})")
 
 
 class EngineMNState(NamedTuple):
@@ -325,6 +327,76 @@ def _consts(lead: Tuple[int, ...], R: int, L: int, device: str) -> _Consts:
         zero_f=torch.zeros((), dtype=torch.float32, device=device))
 
 
+class _Emul(NamedTuple):
+    """Constants of the home emulation over ``lead`` (``()`` or ``(M,)``)
+    flat ``[L]`` line planes, built once per (home plan, device).
+
+    Sequence position ``k`` lists each home's lines in plane order, home
+    by home: home ``h_k = k // Lh``, plane position ``r_k = k % Lh``; the
+    line at ``k`` in the plane's order rotated by ``off`` is ``((r_k +
+    off) % Lh) * hg + h_k``, and line ``l`` (home ``l % hg``, plane
+    position ``l // hg``) sits at ``k = (l % hg) * Lh + (l // hg - off) %
+    Lh``."""
+
+    vc4: Optional[torch.Tensor]  # [4, *lead, 1, L] (lead ()): [4, L]) VC
+    #                              of each line; None when every hg is 1
+    cap: Optional[torch.Tensor]  # [*lead, 1] int32 acceptance cap (L + 1
+    #                              = none); None when no member caps
+    hg: torch.Tensor             # [*lead, 1] int64 homes
+    lh: torch.Tensor             # [*lead, 1] int64 lines per home
+    h_k: torch.Tensor            # [*lead, L] int64
+    r_k: torch.Tensor            # [*lead, L] int64
+    seg: torch.Tensor            # [*lead, L] int64: first k of h_k's run
+    h_l: torch.Tensor            # [*lead, L] int64: l % hg
+    q_l: torch.Tensor            # [*lead, L] int64: l // hg
+
+
+@functools.lru_cache(maxsize=None)
+def _emul(home_group: Tuple[int, ...], home_bw_t: Tuple[int, ...],
+          members: bool, L: int, device: str) -> _Emul:
+    for hg in home_group:
+        if hg < 1 or L % hg:
+            raise ValueError(f"home_group={hg} must be >= 1 and divide "
+                             f"the {L} lines")
+    lead = (len(home_group),) if members else ()
+
+    def col(vals):
+        return torch.tensor(vals, dtype=torch.int64,
+                            device=device).reshape(lead + (1,))
+
+    hg = col(home_group)
+    lh = L // hg
+    ar = torch.arange(L, device=device).expand(lead + (L,))
+    h_k, r_k = ar // lh, ar % lh
+    vc4 = None
+    if any(h != 1 for h in home_group):
+        par = (ar // hg) & 1
+        if members:
+            par = par[:, None, :]                    # [M, 1, L]
+        classes = (tp.CLASS_REMOTE_REQ, tp.CLASS_HOME_RESP,
+                   tp.CLASS_HOME_REQ, tp.CLASS_REMOTE_RESP)
+        vc4 = torch.stack([2 * k + par for k in classes])
+    cap = None
+    if any(home_bw_t):
+        cap = col([b if b > 0 else L + 1 for b in home_bw_t]).to(torch.int32)
+    return _Emul(vc4=vc4, cap=cap, hg=hg, lh=lh, h_k=h_k, r_k=r_k,
+                 seg=h_k * lh, h_l=ar % hg, q_l=ar // hg)
+
+
+def _emul_rank(e: _Emul, accept_line: torch.Tensor,
+               step_no: torch.Tensor) -> torch.Tensor:
+    """[*lead, L] int32: each accepted line's rank among its home's
+    accepted lines in the plane's order rotated by ``step_no % Lh`` — the
+    reference's ``[L, L]`` comparison count, as an exclusive cumsum over
+    the lines sorted by (home, rotated position)."""
+    off = step_no % e.lh
+    seq = ((e.r_k + off) % e.lh) * e.hg + e.h_k
+    rolled = accept_line.gather(-1, seq).to(torch.int32)
+    excl = torch.cumsum(rolled, -1, dtype=torch.int32) - rolled
+    rank_k = excl - excl.gather(-1, e.seg)
+    return rank_k.gather(-1, e.h_l * e.lh + (e.q_l - off) % e.lh)
+
+
 def _ready(ch: tp.Channel, delay_l: torch.Tensor) -> torch.Tensor:
     """[R, L] mask of in-flight messages whose VC delay has elapsed."""
     return (ch.msg != _NOP) & (ch.age >= delay_l)
@@ -362,13 +434,22 @@ def step_mn(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     again.  The state's layout (dense int8 or packed int32 planes) is
     read from ``hreq_pending``'s dtype.  ``emit_events`` returns
     ``(state, output, StepEvents)`` on flat lines.  The step makes no
-    host synchronisation."""
+    host synchronisation.
+
+    ``home_group``/``home_bw_t`` (ints; fleet use, with the defaults of
+    ``n_homes`` and ``home_bw``) emulate ``home_group`` homes of
+    ``home_bw_t`` new transactions a step each (0 = no cap) over the flat
+    layout (see the module doc); ``home_group = 1`` with ``home_bw_t =
+    0`` is the default step, bit for bit."""
     if home_group is not None or home_bw_t is not None:
-        _not_ported("the fleet's home emulation (home_group/home_bw_t)", 12)
+        assert n_homes == 1 and not home_bw, \
+            "home_group emulation composes with the FLAT layout only " \
+            "(n_homes/home_bw must stay at their defaults)"
     if n_homes == 1:
         return step_folded(tables, st, op, op_val, want_read, want_write,
                            wval, delays, credits, hreq_shared=hreq_shared,
-                           home_bw=home_bw, emit_events=emit_events)
+                           home_bw=home_bw, emit_events=emit_events,
+                           home_group=home_group, home_bw_t=home_bw_t)
     H = n_homes
     res = step_folded(
         tables, _fold_state_mn(st, H), _f_rl(op, H), _f_rl(op_val, H),
@@ -388,23 +469,45 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
                 want_write: torch.Tensor, wval: torch.Tensor,
                 delays: torch.Tensor, credits: torch.Tensor,
                 hreq_shared: bool = False, home_bw: int = 0,
-                emit_events: bool = False) -> tuple:
+                emit_events: bool = False, home_group=None,
+                home_bw_t=None) -> tuple:
     """The step body over a home-major state: the flat ``[R, L]`` layout
     of one home, or the ``[H, R, L/H]`` fold of H homes (``_fold_state_mn``;
     the inputs folded alike), whose leading axis batches every phase.
     The outputs (and, with ``emit_events``, the ``StepEvents`` appended
     to them) keep the state's layout.  ``run_stream`` keeps a multi-home
-    state folded across its whole loop and calls this."""
+    state folded across its whole loop and calls this.
+
+    A fleet state (``msg_count [M, 16]``) leads with its member axis
+    instead, and ``home_group``/``home_bw_t`` are then tuples of M ints,
+    one per member (see ``step_mn`` for the emulation; ``None`` for
+    both is every member's ``home_group = 1``, ``home_bw_t = 0``)."""
     # R/L come from the (always dense) agent plane: the directory and
     # MSHR slabs change layout under the packed planes.
     R, L = ag.plane_shape(st.agents)
     packed = st.hreq_pending.dtype == torch.int32
     lead = tuple(st.txn_msg.shape[:-1])
-    c = _consts(lead, R, L, str(st.txn_msg.device))
+    dev = str(st.txn_msg.device)
+    c = _consts(lead, R, L, dev)
+    emul = None
+    if home_group is not None or home_bw_t is not None:
+        assert not home_bw, "home_group emulation replaces home_bw"
+        members = st.msg_count.dim() == 2
+        n = lead[0] if members else 1
+
+        def per(v, default):
+            if v is None:
+                return (default,) * n
+            return tuple(int(x) for x in v) if members else (int(v),)
+
+        emul = _emul(per(home_group, 1), per(home_bw_t, 0), members, L,
+                     dev)
     rids = c.rids
     msg_count, payload_msgs = st.msg_count, st.payload_msgs
-    # one gather of the per-line delays of the four classes.
-    dly_req, dly_resp, dly_hreq, dly_hresp = delays[c.vc4]
+    # one gather of the per-line delays of the four classes.  VC parity
+    # follows the plane-local line index under the home emulation.
+    vc4 = c.vc4 if emul is None or emul.vc4 is None else emul.vc4
+    dly_req, dly_resp, dly_hreq, dly_hresp = delays[vc4]
 
     # accumulate new home-side wants.
     want_read = st.want_read | want_read
@@ -473,7 +576,13 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     ready_all = torch.cat([req_ready, home_ready[..., None, :]], dim=-2)
     winner = K.arb_winner(ready_all, st.arb_rr)
     accept_line = any_req & line_free
-    if home_bw:
+    if emul is not None and emul.cap is not None:
+        # the emulated homes' acceptance cap: each home keeps its first
+        # ``home_bw_t`` accepted lines in the folded plane's rotating
+        # order (``_emul_rank``).
+        accept_line = accept_line & \
+            (_emul_rank(emul, accept_line, st.step_no) < emul.cap)
+    elif home_bw:
         # each home parks at most ``home_bw`` NEW transactions per step
         # (in-flight ones proceed); the priority order's origin line
         # rotates every step, so a saturated low range cannot starve the
@@ -668,13 +777,20 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
 def busy_flag_mn(st: EngineMNState) -> torch.Tensor:
     """[] bool tensor: any transaction, channel slot or home want is
     still in flight (stays on the device; no host synchronisation).
-    Works on both layouts of ``hreq_pending``."""
+    Works on both layouts of ``hreq_pending``; a fleet state (``msg_count
+    [M, 16]``) gets one flag per member, ``[M]``."""
     # the [R, L] int8 code planes are non-zero exactly where busy, so one
     # OR of them carries every per-lane test.
     lanes = (st.agents.pending_req | st.agents.pending_op | st.ch_req.msg
              | st.ch_resp.msg | st.ch_hreq.msg | st.ch_hresp.msg)
-    return (lanes.any() | st.hreq_pending.any() | st.txn_msg.any()
-            | st.want_read.any() | st.want_write.any())
+    if st.msg_count.dim() == 2:
+        def anym(x):
+            return x.flatten(1).any(1)
+    else:
+        def anym(x):
+            return x.any()
+    return (anym(lanes) | anym(st.hreq_pending) | anym(st.txn_msg)
+            | anym(st.want_read) | anym(st.want_write))
 
 
 class EngineMN:

@@ -4,8 +4,8 @@ A copy of the table side of ``repro.core.protocol`` (numpy, as there):
 the 2-node tables and their dense bake (``bake``), the protocol-subset
 lattice (``ProtocolSubset``, ``FULL_MOESI``/``ENHANCED_MESI``/
 ``READ_ONLY``/``STATELESS``) and the N-remote sharer-vector tables
-(``bake_mn``/``mn_tables``).  The ``verify_envelope*`` checks are not
-ported yet.
+(``bake_mn``/``mn_tables``), and the envelope checks of the §3.3
+requirements over both (``verify_envelope``, ``verify_envelope_mn``).
 
 ``device_tables`` puts one subset's baked tables on a device as tensors,
 once per (subset, device): the engine's step gathers from those, never
@@ -14,13 +14,14 @@ from numpy.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, FrozenSet, NamedTuple, Tuple
+from typing import Dict, FrozenSet, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .messages import MsgType
-from .states import HomeState, RemoteState, RemoteView
+from .states import (JOINT_RANK, HomeState, RemoteState, RemoteView,
+                     joint_name)
 
 # ---------------------------------------------------------------------------
 # Local operations the remote application issues against its agent.
@@ -486,6 +487,139 @@ SUBSETS: Dict[str, ProtocolSubset] = {
 }
 
 
+def subset_reachable_views(subset: ProtocolSubset) -> FrozenSet[int]:
+    """Remote views reachable under the subset's workload guarantee: S
+    needs LOAD, EM needs STORE.  READ_ONLY/STATELESS collapse the sharer
+    VECTOR to a presence BITMAP (views ∈ {I, S} only) — the §3.4 state
+    reduction, checked per lattice member by ``verify_envelope_mn``."""
+    views = {int(RemoteView.I)}
+    if int(LocalOp.LOAD) in subset.local_ops:
+        views.add(int(RemoteView.S))
+    if int(LocalOp.STORE) in subset.local_ops:
+        views.add(int(RemoteView.S))      # downgrade-to-shared outcomes
+        views.add(int(RemoteView.EM))
+    return frozenset(views)
+
+
+def subset_reachable_remote_states(subset: ProtocolSubset) -> FrozenSet[int]:
+    """Remote stable states reachable under the subset's guarantee."""
+    states = {int(RemoteState.I)}
+    if int(LocalOp.LOAD) in subset.local_ops:
+        states.add(int(RemoteState.S))
+    if int(LocalOp.STORE) in subset.local_ops:
+        states.update((int(RemoteState.S), int(RemoteState.E),
+                       int(RemoteState.M)))
+    return frozenset(states)
+
+
+# ---------------------------------------------------------------------------
+# Envelope verification (§3.3 requirements) — run mechanically over a table.
+# ---------------------------------------------------------------------------
+
+
+def _joint_of(home: int, view: int, remote_dirty_known: bool = True
+              ) -> Optional[Tuple[HomeState, RemoteState]]:
+    """Map (home_state, remote_view) to a representative joint state.  For
+    view EM we return the E representative (rank checks use both)."""
+    v = RemoteView(view)
+    if v == RemoteView.I:
+        r = RemoteState.I
+    elif v == RemoteView.S:
+        r = RemoteState.S
+    else:
+        r = RemoteState.E
+    pair = (HomeState(home), r)
+    return pair if pair in JOINT_RANK else None
+
+
+def verify_envelope(tables: DenseTables) -> List[str]:
+    """Check the 7 requirements of §3.3 (those mechanically checkable from
+    the stable-state tables).  Returns a list of violation strings."""
+    violations: List[str] = []
+    home = build_home_table(tables.moesi)
+
+    for (msg, hs, vw), row in home.items():
+        if not row.legal:
+            continue
+        src = _joint_of(hs, vw)
+        # for view EM the source may be IE or IM; check the best case.
+        dsts = []
+        dst = _joint_of(int(row.new_home), int(row.new_view))
+        if dst is not None:
+            dsts.append(dst)
+        if src is None or not dsts:
+            violations.append(f"unmappable transition {MsgType(msg).name} "
+                              f"@ home={HomeState(hs).name} view={vw}")
+            continue
+        srcs = [src]
+        if RemoteView(vw) == RemoteView.EM:
+            srcs.append((HomeState(hs), RemoteState.M))
+        ok = False
+        for s in srcs:
+            for d in dsts:
+                if s not in JOINT_RANK or d not in JOINT_RANK:
+                    continue
+                rs, rd = JOINT_RANK[s], JOINT_RANK[d]
+                # requirement 1: only up or down the order; the single
+                # allowed exception is transition 10 (MI -> SS/(O)S or IS).
+                is_t10 = (msg == int(M.REQ_READ_SHARED)
+                          and hs == int(H.M) and vw == int(V.I))
+                if rs != rd or s == d or is_t10:
+                    ok = True
+        if not ok:
+            violations.append(
+                f"req1: sideways transition {MsgType(msg).name} "
+                f"{joint_name(*srcs[0])}->{joint_name(*dsts[0])}")
+
+        # requirement 4: states where remote holds a clean shared copy must
+        # be indistinguishable to the remote — i.e. the response type/payload
+        # for a given request must not depend on home being S vs O vs I.
+    for msg in (int(M.REQ_READ_SHARED),):
+        resps = set()
+        for hs in (int(H.I), int(H.S), int(H.E), int(H.M)):
+            key = (msg, hs, int(V.I))
+            if key in home and home[key].legal:
+                r = home[key]
+                resps.add((r.resp, r.resp_dirty))
+        if len(resps) > 1:
+            violations.append(
+                f"req4: remote can distinguish home states via "
+                f"{MsgType(msg).name} responses: {resps}")
+    for msg in (int(M.REQ_UPGRADE),):
+        resps = set()
+        for hs in (int(H.I), int(H.S), int(H.O)):
+            key = (msg, hs, int(V.S))
+            if key in home and home[key].legal:
+                r = home[key]
+                resps.add((r.resp, r.resp_dirty))
+        if len(resps) > 1:
+            violations.append(
+                f"req4: remote can distinguish home states via "
+                f"{MsgType(msg).name} responses: {resps}")
+
+    # requirement 3: moving from a dirty to a clean state must signal home —
+    # structurally: the remote tables must contain no silent M->S/E/I edge.
+    loc = build_local_table()
+    for (op, rs), row in loc.items():
+        if rs == int(R.M) and row.new_remote != int(R.M):
+            if row.request == int(M.NOP):
+                violations.append(f"req3: silent dirty->clean local op {op}")
+
+    # requirement 2 (converse): every required response direction exists.
+    rem = build_remote_table()
+    for msg in (int(M.HOME_DOWNGRADE_S), int(M.HOME_DOWNGRADE_I)):
+        for rs in range(N_REMOTE):
+            if (msg, rs) not in rem:
+                violations.append(
+                    f"req7: remote unprepared for {MsgType(msg).name} "
+                    f"in state {RemoteState(rs).name}")
+            elif rem[(msg, rs)].resp == int(M.NOP):
+                violations.append(
+                    f"req2: home-initiated downgrade without mandatory reply")
+
+    return violations
+
+
 # ---------------------------------------------------------------------------
 # N-remote (sharer-vector) dense-table extensions (paper §4.1).
 #
@@ -691,6 +825,229 @@ MN_MINIMAL = bake_mn(ENHANCED_MESI)
 MN_FULL = bake_mn(FULL_MOESI)
 MN_READ_ONLY = bake_mn(READ_ONLY)
 MN_STATELESS = bake_mn(STATELESS)
+
+
+def mn_needed_mask(msg: int, requester_view: int, other_view: int) -> int:
+    """The directory's fan-out rule (pure python, used by the envelope
+    checker; the vectorized twin lives in ``core.directory_mn``): which
+    HOME_DOWNGRADE_* (or NOP) must be sent to a remote holding
+    ``other_view`` before ``msg`` can be granted."""
+    if msg == int(M.REQ_READ_SHARED):
+        # only an exclusive owner blocks a shared grant (transition 9).
+        return int(M.HOME_DOWNGRADE_S) if other_view == int(V.EM) \
+            else int(M.NOP)
+    if msg in (int(M.REQ_READ_EXCL), int(M.REQ_UPGRADE)):
+        # write-invalidate: every other sharer/owner is invalidated
+        # (transition 8) — one message per sharer, the N-node fan-out cost.
+        return int(M.HOME_DOWNGRADE_I) if other_view != int(V.I) \
+            else int(M.NOP)
+    return int(M.NOP)
+
+
+def verify_envelope_mn(tables: DenseTablesMN) -> List[str]:
+    """Check the §3.3 requirements over the sharer-vector home tables.
+
+    The 2-node ``verify_envelope`` checks the pairwise joint-state tables;
+    this is its N-remote analogue: requirements are checked against the
+    grant/absorb tables plus the fan-out rule, mechanically.  The checks
+    are independent of the remote count — every rule is per-(requester,
+    other-remote), N only scales message counts.
+
+    Since the protocol-parametric refactor the tables are baked PER
+    SUBSET, and the checks honor the subset's masks the way requirement 5
+    intends: every message the remote MAY send must be handled, every
+    downgrade/response the rules demand must be one the home MAY send,
+    and only states reachable under the workload guarantee are in scope
+    (e.g. READ_ONLY never reaches an EM view, so the recall-to-shared
+    machinery is legitimately absent).  ``tests/test_specialize_mn.py``
+    runs this for every lattice member.
+    """
+    violations: List[str] = []
+    t = tables
+    subset = _MN_BAKED_FROM[t.name]
+    views_ok = subset_reachable_views(subset)
+    rstates_ok = subset_reachable_remote_states(subset)
+    allowed_reqs = {m for m in MN_REQUEST_VIEW if t.remote_send_ok[m]}
+    # a stateless home never leaves I (even home-side writes land directly
+    # in the backing store), so I is the only home state in scope.
+    home_states = tuple(range(N_HOME)) if not t.stateless_home \
+        else (int(H.I),)
+
+    # Distance-from-rest of (home state, REQUESTER view) in the N-remote
+    # setting.  Unlike the pairwise JOINT_RANK, (O, I) and (M, I) with OTHER
+    # remotes sharing are valid here — the rank is w.r.t. this requester.
+    mn_rank: Dict[Tuple[int, int], int] = {
+        (int(H.I), int(V.I)): 0,
+        (int(H.S), int(V.I)): 1, (int(H.E), int(V.I)): 1,
+        (int(H.M), int(V.I)): 2, (int(H.O), int(V.I)): 2,
+        (int(H.S), int(V.S)): 3, (int(H.O), int(V.S)): 3,
+        (int(H.I), int(V.S)): 4,
+        (int(H.I), int(V.EM)): 5,
+    }
+
+    # requirement 1: a grant moves the (home, requester) joint state
+    # monotonically UP the lattice (grants are upgrades by construction;
+    # transition 10's MI -> (O)S is up in this rank, the hidden O sitting
+    # in SS's observational class).
+    for msg, req_view in MN_REQUEST_VIEW.items():
+        for hs in range(N_HOME):
+            if not t.grant_legal[msg, hs]:
+                continue
+            src = mn_rank.get((hs, req_view))
+            dst = mn_rank.get((int(t.grant_new_home[msg, hs]),
+                               int(t.grant_view[msg])))
+            if src is None or dst is None:
+                violations.append(
+                    f"req1: unmappable MN grant {MsgType(msg).name} @ "
+                    f"home={HomeState(hs).name}")
+                continue
+            if dst <= src:
+                violations.append(
+                    f"req1: non-upgrade MN grant {MsgType(msg).name} @ "
+                    f"home={HomeState(hs).name}")
+
+    # requirements 2 and 7 over the remote table (shared with the 2-node
+    # engine; fan-out multiplies messages, not message types): the remote
+    # must be PREPARED for every home-initiated downgrade the home may
+    # send, in every remote state reachable under the guarantee (req 7),
+    # and the reply is mandatory (req 2).
+    for msg in (int(M.HOME_DOWNGRADE_S), int(M.HOME_DOWNGRADE_I)):
+        if not t.home_send_ok[msg]:
+            continue                    # the subset's home never sends it
+        for rstate in sorted(rstates_ok):
+            if not t.base.rem_legal[msg, rstate]:
+                violations.append(
+                    f"req7: MN remote unprepared for {MsgType(msg).name} in "
+                    f"state {RemoteState(rstate).name}")
+            elif t.base.rem_resp[msg, rstate] == int(M.NOP):
+                violations.append(
+                    "req2: MN home-initiated downgrade without reply")
+            elif not t.remote_send_ok[int(t.base.rem_resp[msg, rstate])]:
+                violations.append(
+                    f"req2: mandatory reply "
+                    f"{MsgType(int(t.base.rem_resp[msg, rstate])).name} "
+                    f"is outside the subset's remote_may_send")
+
+    # requirement 3: no silent dirty->clean local transition (shared local
+    # table, restricted to the subset's op set).
+    for op in range(LocalOp.N):
+        if not t.op_ok[op]:
+            continue
+        row_ns = int(t.base.loc_new_state[int(op), int(RemoteState.M)])
+        row_rq = int(t.base.loc_request[int(op), int(RemoteState.M)])
+        if row_ns != int(RemoteState.M) and row_rq == int(M.NOP):
+            violations.append(f"req3: silent dirty->clean MN local op {op}")
+
+    # requirement 4: the response to a given request must not depend on the
+    # home's hidden state (S vs E vs M vs O all answer identically), and
+    # every response a grant emits must be one the home MAY send.
+    for msg in allowed_reqs:
+        resps = {int(t.grant_resp[msg, hs])
+                 for hs in home_states if t.grant_legal[msg, hs]}
+        if len(resps) > 1:
+            violations.append(
+                f"req4: MN remote can distinguish home states via "
+                f"{MsgType(msg).name} responses: {resps}")
+        for resp in resps:
+            if not t.home_send_ok[resp]:
+                violations.append(
+                    f"req4: grant response {MsgType(resp).name} to "
+                    f"{MsgType(msg).name} is outside the subset's "
+                    f"home_may_send")
+
+    # requirement 5: the home handles everything the MN remote may send —
+    # every allowed request in every reachable (home, requester-view)
+    # source, every reachable absorb kind in every (dirty, home state)
+    # combination.  Local-op closure rides along: every message a subset-
+    # legal local op can emit must be in remote_may_send.
+    for msg in allowed_reqs:
+        req_view = MN_REQUEST_VIEW[msg]
+        if req_view not in views_ok:
+            continue                    # requester can never hold the view
+        for hs in home_states:
+            if hs == int(H.O) and not t.moesi:
+                continue                    # O unreachable in MESI mode
+            if (hs, req_view) not in {(h, v) for (h, v) in (
+                    (int(H.I), int(V.I)), (int(H.S), int(V.I)),
+                    (int(H.E), int(V.I)), (int(H.M), int(V.I)),
+                    (int(H.O), int(V.I)), (int(H.S), int(V.S)),
+                    (int(H.O), int(V.S)), (int(H.I), int(V.S)))}:
+                continue                    # source joint state unreachable
+            if not t.grant_legal[msg, hs]:
+                violations.append(
+                    f"req5: MN home cannot grant {MsgType(msg).name} @ "
+                    f"home={HomeState(hs).name}")
+    dirty_domain = (0, 1) if int(RemoteState.M) in rstates_ok else (0,)
+    kind_reachable = {
+        MnAbsorb.VOL_I: t.remote_send_ok[int(M.VOL_DOWNGRADE_I)],
+        MnAbsorb.REPLY_S: t.home_send_ok[int(M.HOME_DOWNGRADE_S)],
+        MnAbsorb.REPLY_I: t.home_send_ok[int(M.HOME_DOWNGRADE_I)],
+    }
+    for kind in range(MnAbsorb.N):
+        if not kind_reachable[kind]:
+            continue
+        for dirty in dirty_domain:
+            for hs in home_states:
+                nh = int(t.absorb_new_home[kind, dirty, hs])
+                if not (0 <= nh < N_HOME):
+                    violations.append(
+                        f"req5: MN absorb {kind} dirty={dirty} "
+                        f"home={HomeState(hs).name} has no outcome")
+    for op in range(LocalOp.N):
+        if not t.op_ok[op]:
+            continue
+        for rstate in sorted(rstates_ok):
+            req = int(t.base.loc_request[op, rstate])
+            if req != int(M.NOP) and not t.remote_send_ok[req]:
+                violations.append(
+                    f"req5: local op {op} in state "
+                    f"{RemoteState(rstate).name} emits "
+                    f"{MsgType(req).name}, outside remote_may_send")
+
+    # requirement 6: exclusivity — before an exclusive grant the fan-out
+    # rule must demand an invalidation for EVERY other non-I view, and
+    # before a shared grant a recall for every exclusive owner.  The rule
+    # is per-other-remote (the fan-out is a map over the sharer vector),
+    # so enumerating the single other-view domain covers all 3^(R-1)
+    # view-vector combinations — n_remotes scales message COUNT, not the
+    # rule's domain.  Only views reachable under the guarantee are in
+    # scope, and every downgrade the rule demands must be one the home
+    # MAY send (the subset-soundness closure: READ_ONLY may drop the
+    # recall-to-shared machinery precisely because EM is unreachable).
+    for msg in allowed_reqs:
+        for v in sorted(views_ok):
+            need = mn_needed_mask(msg, MN_REQUEST_VIEW[msg], v)
+            if need != int(M.NOP) and not t.home_send_ok[need]:
+                violations.append(
+                    f"req6: grant of {MsgType(msg).name} against view "
+                    f"{RemoteView(v).name} needs {MsgType(need).name}, "
+                    f"outside the subset's home_may_send")
+            if msg in (int(M.REQ_READ_EXCL), int(M.REQ_UPGRADE)):
+                if v != int(V.I) and need != int(M.HOME_DOWNGRADE_I):
+                    violations.append(
+                        f"req6: exclusive grant {MsgType(msg).name} "
+                        f"leaves a sharer with view {RemoteView(v).name}")
+            elif msg == int(M.REQ_READ_SHARED):
+                if v == int(V.EM) and need != int(M.HOME_DOWNGRADE_S):
+                    violations.append(
+                        "req6: shared grant leaves an exclusive owner")
+                if v == int(V.S) and need != int(M.NOP):
+                    violations.append(
+                        "req6: shared grant needlessly recalls a sharer")
+
+    # requirement 7 (converse of 2): replies/grants the remote must accept —
+    # every grant response type must complete the pending request.
+    for msg in allowed_reqs:
+        for hs in home_states:
+            if not t.grant_legal[msg, hs]:
+                continue
+            resp = int(t.grant_resp[msg, hs])
+            if int(t.base.resp_new_state[msg, resp]) < 0:
+                violations.append(
+                    f"req7: MN remote cannot complete {MsgType(msg).name} "
+                    f"with {MsgType(resp).name}")
+
+    return violations
 
 
 

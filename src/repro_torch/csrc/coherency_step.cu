@@ -311,6 +311,12 @@ arb_winner_kernel(const uint8_t* __restrict__ ready,
 // outside 0..15 — the HOME_TXN sentinel 100, negative int8 — land in no
 // bin.  Exact in int32.
 //
+// Grouped form: G groups of n lanes each, one after another; group g
+// folds into its own row out[17 g .. 17 g + 16], onto its own base row
+// (base_c + g * base_c_stride, base_p + g * base_p_stride: the last
+// call's out, read where it lies), through its own 17 accumulators.  The grid's y axis is the group, so
+// one launch folds every group, and G = 1 is the one-group launch.
+//
 // Bound: bytes, 3 in per lane; at the engine's [64, 4096] that is 786 kB,
 // 0.235 us at 3.35 TB/s, so the time is the launch, one trip to memory
 // and the reduction across CTAs.  Each thread issues its three 16-byte
@@ -466,9 +472,22 @@ count_fold_kernel(const uint8_t* __restrict__ mask,
                   const int32_t* __restrict__ base_c,
                   const int32_t* __restrict__ base_p,
                   int32_t* __restrict__ out, long long n,
-                  unsigned long long* __restrict__ acc, int stride) {
+                  unsigned long long* __restrict__ acc, int stride,
+                  long long base_c_stride, long long base_p_stride) {
   __shared__ int part[T / 32][kFoldBins];
   const int tid = threadIdx.x;
+  // Group blockIdx.y: its n lanes, its row of out, base and accumulators
+  // (a base row may be a strided view, such as the last call's out).
+  const long long g = blockIdx.y;
+  mask += g * n;
+  msg += g * n;
+  pay += g * n;
+  out += g * kFoldBins;
+  acc += g * kFoldBins * (long long)stride;
+  if (base_c != nullptr) {
+    base_c += g * base_c_stride;
+    base_p += g * base_p_stride;
+  }
   int cnt[kFoldBins] = {};
   fold_lanes(mask, msg, pay, n, (long long)blockIdx.x * T + tid,
              (long long)gridDim.x * T, cnt);
@@ -778,17 +797,21 @@ int coh_arb_winner(const void* ready, const void* rr, void* out, int n, int P,
 
 int coh_count_fold(const void* mask, const void* msg, const void* pay,
                    const void* base_c, const void* base_p, void* out,
-                   long long n, void* acc, int stride, void* stream) {
-  const long long groups =
+                   long long n, int groups, void* acc, int stride,
+                   long long base_c_stride, long long base_p_stride,
+                   void* stream) {
+  if (groups <= 0) return (int)cudaGetLastError();
+  const long long lane_groups =
       groups16(mask, same_align(mask, msg) && same_align(mask, pay), n)
           .count;
-  long long ctas = (groups + kFoldThreads - 1) / kFoldThreads;
+  long long ctas = (lane_groups + kFoldThreads - 1) / kFoldThreads;
   ctas = ctas < 1 ? 1 : (ctas > kFoldMaxCtas ? kFoldMaxCtas : ctas);
   count_fold_kernel<kFoldThreads>
-      <<<(unsigned)ctas, kFoldThreads, 0, (cudaStream_t)stream>>>(
+      <<<dim3((unsigned)ctas, (unsigned)groups), kFoldThreads, 0,
+         (cudaStream_t)stream>>>(
           (const uint8_t*)mask, (const uint8_t*)msg, (const uint8_t*)pay,
           (const int32_t*)base_c, (const int32_t*)base_p, (int32_t*)out, n,
-          (unsigned long long*)acc, stride);
+          (unsigned long long*)acc, stride, base_c_stride, base_p_stride);
   return (int)cudaGetLastError();
 }
 

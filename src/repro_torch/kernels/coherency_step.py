@@ -46,7 +46,7 @@ _LL = ctypes.c_longlong
 _SIGS = {
     "coh_credit_rank": (_P, _P, _P, _I, _I),
     "coh_arb_winner": (_P, _P, _P, _I, _I, _I),
-    "coh_count_fold": (_P, _P, _P, _P, _P, _P, _LL, _P, _I),
+    "coh_count_fold": (_P, _P, _P, _P, _P, _P, _LL, _I, _P, _I, _LL, _LL),
     "coh_lat_hist": (_P, _P, _P, _I, _I),
     "coh_packed_any": (_P,) * 4 + (_LL,) * 4 + (_I, _P, _LL, _LL, _I),
     "coh_packed_fanout": (_P, _LL, _P, _LL) + (_P,) * 7 + (_LL, _LL, _I),
@@ -191,30 +191,40 @@ def arb_winner(ready_all: torch.Tensor, arb_rr: torch.Tensor
     return out
 
 
-def _fold_acc(device: torch.device) -> torch.Tensor:
-    """``count_fold``'s 17 int64 accumulators, ``FOLD_ACC_STRIDE`` apart,
-    on ``device``'s current stream, zeroed at its first call there: each
-    launch leaves them at 0 again, so launches on one stream share them
-    in turn."""
+def _fold_acc(device: torch.device, groups: int = 1) -> torch.Tensor:
+    """``count_fold``'s 17 int64 accumulators per group, ``FOLD_ACC_STRIDE``
+    apart, on ``device``'s current stream, zeroed when made: each launch
+    leaves them at 0 again, so launches on one stream share them in turn.
+    The set grows (a new zeroed one) when a call has more groups than it
+    holds."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     acc = _FOLD_ACC.get(key)
-    if acc is None:
-        acc = _FOLD_ACC[key] = torch.zeros(17 * FOLD_ACC_STRIDE,
+    if acc is None or acc.numel() < groups * 17 * FOLD_ACC_STRIDE:
+        acc = _FOLD_ACC[key] = torch.zeros(groups * 17 * FOLD_ACC_STRIDE,
                                            dtype=torch.int64, device=device)
     return acc
 
 
 def count_fold(mask: torch.Tensor, msg: torch.Tensor,
                has_payload: torch.Tensor,
-               base: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               base: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               grouped: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(delta [16] int32, payload delta [] int32): the histogram of the
     int8 ``msg`` codes under ``mask`` over all axes, and the count of
     masked lanes with ``has_payload``.  With ``base=(msg_count [16],
     payload_msgs [])`` int32, the running totals plus those, from the
-    same launch."""
+    same launch.
+
+    ``grouped=True`` makes the leading axis of the planes a group axis of
+    G: each group folds into its own row, ``([G, 16], [G])``, onto a
+    ``base`` of those shapes, all in one launch (G = 1 is the ungrouped
+    launch).  The grouped base is read where it lies: rows of 16
+    contiguous counts at any row stride, payload counts at any stride,
+    such as the views of the last call's output."""
     if mask.device.type == "cpu":
-        return ref.count_fold_ref(mask, msg, has_payload, base)
+        return ref.count_fold_ref(mask, msg, has_payload, base,
+                                  grouped=grouped)
     if not (mask.shape == msg.shape == has_payload.shape):
         raise ValueError("count_fold: mask, msg and has_payload must have "
                          "one shape")
@@ -222,22 +232,35 @@ def count_fold(mask: torch.Tensor, msg: torch.Tensor,
     _check("count_fold", mask, torch.bool, dev)
     _check("count_fold", msg, torch.int8, dev)
     _check("count_fold", has_payload, torch.bool, dev)
+    if grouped and mask.dim() == 0:
+        raise ValueError("count_fold: a grouped fold needs a leading "
+                         "group axis")
+    G = mask.shape[0] if grouped else 1
+    lead = (G,) if grouped else ()
     base_c = base_p = None
+    c_stride = p_stride = 0
     if base is not None:
         counts, pay = base
-        if tuple(counts.shape) != (16,) or tuple(pay.shape) != ():
+        if tuple(counts.shape) != lead + (16,) or tuple(pay.shape) != lead:
             raise ValueError(f"count_fold: base shapes "
                              f"{tuple(counts.shape)} and {tuple(pay.shape)}"
-                             f", expected (16,) and ()")
-        _check("count_fold", counts, torch.int32, dev)
-        _check("count_fold", pay, torch.int32, dev)
+                             f", expected {lead + (16,)} and {lead}")
+        layout = "strided" if grouped else "contiguous"
+        _check("count_fold", counts, torch.int32, dev, layout)
+        _check("count_fold", pay, torch.int32, dev, layout)
+        if grouped:
+            if counts.stride(1) != 1:
+                raise ValueError("count_fold: each base row of counts "
+                                 "must be contiguous")
+            c_stride, p_stride = counts.stride(0), pay.stride(0)
         base_c, base_p = counts.data_ptr(), pay.data_ptr()
-    acc = _fold_acc(dev)
-    out = torch.empty(17, dtype=torch.int32, device=dev)
+    acc = _fold_acc(dev, G)
+    out = torch.empty(lead + (17,), dtype=torch.int32, device=dev)
     _launch("count_fold", "coh_count_fold", mask.data_ptr(), msg.data_ptr(),
             has_payload.data_ptr(), base_c, base_p, out.data_ptr(),
-            mask.numel(), acc.data_ptr(), FOLD_ACC_STRIDE)
-    return out[:16], out[16]
+            mask.numel() // max(G, 1), G, acc.data_ptr(), FOLD_ACC_STRIDE,
+            c_stride, p_stride)
+    return out[..., :16], out[..., 16]
 
 
 def lat_hist(lat: torch.Tensor, retired: torch.Tensor) -> torch.Tensor:

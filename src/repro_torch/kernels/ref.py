@@ -96,18 +96,24 @@ def arb_winner_ref(ready_all: torch.Tensor, arb_rr: torch.Tensor
 
 def count_fold_ref(mask: torch.Tensor, msg: torch.Tensor,
                    has_payload: torch.Tensor,
-                   base: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   base: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   grouped: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Delivered-message fold (``engine._count``): a 16-bin histogram of
     ``msg`` under ``mask`` over ALL axes, plus the count of masked lanes
     carrying a payload.  Returns (delta [16] int32, payload delta []
     int32), or with ``base=(msg_count [16], payload_msgs [])`` int32 the
     running totals ``base + delta``; codes outside 0..15 land in no
-    bin."""
+    bin.  ``grouped=True`` folds each slice of the leading axis (G) into
+    its own row: ([G, 16], [G]), onto a base of those shapes."""
+    G = mask.shape[0] if grouped else 1
     types = torch.arange(16, device=msg.device, dtype=torch.int32)
     eq = msg.to(torch.int32)[..., None] == types
-    hist = (eq & mask[..., None]).reshape(-1, 16).sum(0, dtype=torch.int32)
-    pay = (mask & has_payload).sum(dtype=torch.int32)
+    hist = (eq & mask[..., None]).reshape(G, -1, 16).sum(1,
+                                                         dtype=torch.int32)
+    pay = (mask & has_payload).reshape(G, -1).sum(1, dtype=torch.int32)
+    if not grouped:
+        hist, pay = hist[0], pay[0]
     if base is None:
         return hist, pay
     return base[0] + hist, base[1] + pay

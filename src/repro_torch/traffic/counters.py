@@ -58,19 +58,21 @@ class Counters(NamedTuple):
     active_steps: torch.Tensor  # [] int32 steps with traffic in flight
 
 
-def make_counters(n_remotes: int, device=None) -> Counters:
+def make_counters(n_remotes: int, device=None,
+                  lead: Tuple[int, ...] = ()) -> Counters:
     """Zeroed counters for ``n_remotes`` on ``device`` (default the card;
-    raises without one)."""
+    raises without one); ``lead=(M,)`` gives every field a leading member
+    axis (a fleet's)."""
     dev = resolve_device(device)
 
     def z(shape, dt=torch.int32):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
 
     return Counters(
-        lat_hist=z((n_remotes, N_LAT_BUCKETS)), max_wait=z(n_remotes),
-        retired=z(n_remotes), occ_sum=z(4, torch.int64), occ_peak=z(4),
-        mshr_sum=z((), torch.int64), mshr_peak=z(()), steps=z(()),
-        active_steps=z(()))
+        lat_hist=z((n_remotes, N_LAT_BUCKETS)), max_wait=z((n_remotes,)),
+        retired=z((n_remotes,)), occ_sum=z((4,), torch.int64),
+        occ_peak=z((4,)), mshr_sum=z((), torch.int64), mshr_peak=z(()),
+        steps=z(()), active_steps=z(()))
 
 
 def acc_total(acc) -> np.ndarray:
@@ -90,21 +92,29 @@ def update_counters(ctr: Counters, st, *, retired: torch.Tensor,
     ``st`` is the post-step ``EngineMNState``, flat or in the home-major
     fold (only its channel occupancy is read); ``retired``/``lat``/
     ``outstanding`` are ``[R, L]``, ``head_wait`` ``[R]`` and
-    ``step_active`` a [] bool tensor.  The latency histogram is the
-    ``lat_hist`` kernel (its plain version on the CPU)."""
-    hist = ctr.lat_hist + K.lat_hist(lat, retired)
+    ``step_active`` a [] bool tensor.  Counters with a leading member
+    axis (``make_counters(lead=(M,))``) take every argument with that
+    axis leading, and ``step_active`` as ``[M]``.  The latency histogram
+    is the ``lat_hist`` kernel (its plain version on the CPU), over the
+    members' rows stacked into one ``[M * R, L]`` plane."""
+    n = ctr.mshr_sum.dim()          # 0, or 1 with a member axis
+    L = lat.shape[-1]
+    hist = ctr.lat_hist + K.lat_hist(lat.reshape(-1, L),
+                                     retired.reshape(-1, L)).reshape(
+        ctr.lat_hist.shape)
     # the starvation bound: worst of (retired latency, in-flight wait,
     # head-of-stream wait).
-    live = lat.masked_fill(~(retired | outstanding), 0).amax(dim=1)
+    live = lat.masked_fill(~(retired | outstanding), 0).amax(dim=-1)
     max_wait = torch.maximum(ctr.max_wait, torch.maximum(live, head_wait))
     msgs = torch.stack([st.ch_req.msg, st.ch_resp.msg, st.ch_hreq.msg,
-                        st.ch_hresp.msg])
-    occ = (msgs != int(MsgType.NOP)).flatten(1).sum(1, dtype=torch.int32)
-    mshr = outstanding.sum(dtype=torch.int32)
+                        st.ch_hresp.msg], dim=n)
+    occ = (msgs != int(MsgType.NOP)).flatten(n + 1).sum(-1,
+                                                        dtype=torch.int32)
+    mshr = outstanding.flatten(n).sum(-1, dtype=torch.int32)
     return Counters(
         lat_hist=hist,
         max_wait=max_wait,
-        retired=ctr.retired + retired.sum(1, dtype=torch.int32),
+        retired=ctr.retired + retired.sum(-1, dtype=torch.int32),
         occ_sum=ctr.occ_sum + occ,
         occ_peak=torch.maximum(ctr.occ_peak, occ),
         mshr_sum=ctr.mshr_sum + mshr,

@@ -147,7 +147,6 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
     if op_np.shape[1] != engine.n_remotes:
         raise ValueError(f"workload has {op_np.shape[1]} remotes, engine "
                          f"{engine.n_remotes}")
-    W = int(cfg.width)
     dev = engine.device
     obs = cfg.observe
     _check_filters(engine, obs, cfg.line_filter, cfg.type_filter)
@@ -161,6 +160,7 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
             "StreamConfig.arrivals (use arrivals.at_step0 for a "
             "closed-loop-equivalent run)")
     last_arrival = 0
+    arr_np = None
     if open_loop:
         arr = cfg.arrivals
         if isinstance(arr, ArrivalSpec):
@@ -170,26 +170,122 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         last_arrival = int(arr_np.max()) if T else 0
 
     st0 = engine.init() if st is None else st
-    H = engine.n_homes
-    # the agent plane is dense under both directory layouts (a packed
-    # state carries [2, L, W] int32 words instead of [R, L] int8).
-    R, L = st0.agents.remote_state.shape
-    B = st0.dir.backing.shape[1]
+    R = st0.agents.remote_state.shape[0]
     steps = cfg.steps or default_steps(T, R, last_arrival)
     base_msgs = st0.msg_count.cpu().numpy().astype(np.int64)
     base_payload = int(st0.payload_msgs)
+    dt = st0.dir.backing.dtype
+    lp = _stream_loop(
+        engine, st0,
+        torch.as_tensor(op_np, dtype=torch.int8).to(dev),
+        torch.as_tensor(np.asarray(wl.line), dtype=torch.int64).to(dev),
+        torch.as_tensor(np.asarray(wl.value), dtype=dt).to(dev),
+        steps, int(cfg.width), collect_trace=cfg.collect_trace,
+        n_homes=engine.n_homes, home_bw=engine.home_bw,
+        shared_credits=engine.shared_credits, arrivals=arr_np,
+        admission=adm, observe=obs, line_filter=cfg.line_filter,
+        type_filter=cfg.type_filter)
 
-    wl_op = torch.as_tensor(op_np, dtype=torch.int8).to(dev)
-    wl_line = torch.as_tensor(np.asarray(wl.line), dtype=torch.int64).to(dev)
-    wl_value = torch.as_tensor(np.asarray(wl.value),
-                               dtype=st0.dir.backing.dtype).to(dev)
-    tsteps = torch.arange(steps, dtype=torch.int32, device=dev)
+    W = int(cfg.width)
+    trace = None
+    if cfg.collect_trace:
+        trace = RetirementTrace(
+            retire_step=lp.retire[:, :-1].T.cpu().numpy(),
+            op=op_np, line=np.asarray(wl.line), value=np.asarray(wl.value),
+            n_lines=engine.n_lines)
+    soj = {}
+    if open_loop:
+        # backlog = arrived-but-never-issued ops when the budget ran out:
+        # the cursor counts each remote's consumed prefix; issued slots
+        # past it still sit in the window flags.
+        cur = lp.cursor.cpu().numpy()
+        idx = cur[:, None] + np.arange(W)[None, :]
+        issued_total = int(cur.sum()) + int(
+            (lp.issued.cpu().numpy() & (idx < T)).sum())
+        soj = dict(sojourn_hist=lp.soj_hist.cpu().numpy(),
+                   admit_wait_hist=lp.admit_hist.cpu().numpy(),
+                   backlog=int((arr_np < steps).sum()) - issued_total)
+    stt = lp.state
+    return StreamRun(
+        state=stt,
+        counters=Counters(*(x.cpu() for x in lp.counters)),
+        msg_count=stt.msg_count.cpu().numpy().astype(np.int64) - base_msgs,
+        payload_msgs=int(stt.payload_msgs) - base_payload,
+        trace=trace,
+        completed=bool(lp.completed),
+        obs=lp.obs,
+        **soj,
+    )
+
+
+class _LoopOut(NamedTuple):
+    """What ``_stream_loop`` hands back, all on the device; every field
+    leads with the member axis when the loop ran one."""
+
+    state: EngineMNState          # flat (unfolded) final state
+    counters: Counters
+    completed: torch.Tensor       # [] (or [M]) bool
+    cursor: torch.Tensor          # [R] int64: each remote's consumed prefix
+    issued: torch.Tensor          # [R, W] bool: issued slots of the window
+    retire: Optional[torch.Tensor]  # [R, T + 1] int32; column T scratch
+    soj_hist: Optional[torch.Tensor] = None
+    admit_hist: Optional[torch.Tensor] = None
+    obs: Optional[ObsResult] = None
+
+
+def _stream_loop(engine: EngineMN, st0: EngineMNState, wl_op: torch.Tensor,
+                 wl_line: torch.Tensor, wl_value: torch.Tensor, steps: int,
+                 W: int, *, collect_trace: bool, n_homes: int = 1,
+                 home_bw: int = 0, shared_credits: bool = False,
+                 width_cap=None, home_group=None, home_bw_t=None,
+                 arrivals: Optional[np.ndarray] = None,
+                 admission: AdmissionConfig = AdmissionConfig(),
+                 observe: Optional[ObserveConfig] = None, line_filter=None,
+                 type_filter=None) -> _LoopOut:
+    """The step loop of ``run_stream`` and of a fleet (``traffic.fleet``).
+
+    Every per-run tensor carries an optional leading MEMBER axis: a solo
+    run has none, a fleet has ``[M]``, and the same loop body steps both
+    (``st0`` a member-stacked state, the workload ``[M, T, R]``).  Under
+    a fleet the members' issue widths are ``width_cap`` (M ints; ``W`` is
+    their maximum, slots past a member's cap never activate and a slot
+    sliding in from past it is fresh), and ``home_group``/``home_bw_t``
+    (M ints each) ride the engine's home emulation.  ``engine`` supplies
+    the protocol tables, delays and credits; the multi-home fold
+    (``n_homes``), ``home_bw``, shared credits, the open loop
+    (``arrivals``, ``admission``) and observation are solo-only.
+    """
+    dev = wl_op.device
+    members = st0.msg_count.dim() == 2
+    lead = tuple(wl_op.shape[:-2])
+    T = wl_op.shape[-2]
+    H = n_homes
+    obs = observe
+    open_loop = arrivals is not None
+    adm = admission
+    assert not members or (H == 1 and not home_bw and not shared_credits
+                           and not open_loop and obs is None), \
+        "fleets run the flat layout, closed loop, unobserved"
+    # the agent plane is dense under both directory layouts (a packed
+    # state carries [2, L, W] int32 words instead of [R, L] int8).
+    R, L = st0.agents.remote_state.shape[-2:]
+    B = st0.dir.backing.shape[-1]
+    dt = st0.dir.backing.dtype
+
+    # the workload with the remote axis before the stream axis, so a
+    # remote's window is one gather along the last axis.
+    wl_op_t, wl_line_t, wl_value_t = (x.transpose(-1, -2).contiguous()
+                                      for x in (wl_op, wl_line, wl_value))
     ar = torch.arange(R, device=dev)[:, None]              # [R, 1]
-    ar_rl = ar.expand(R, L)
     wr = torch.arange(W, device=dev)
     earlier = wr[None, :] < wr[:, None]                     # [Wk, Wj] j<k
-    zb = torch.zeros(L, dtype=torch.bool, device=dev)
-    zwv = torch.zeros((L, B), dtype=st0.dir.backing.dtype, device=dev)
+    zb = torch.zeros(lead + (L,), dtype=torch.bool, device=dev)
+    zwv = torch.zeros(lead + (L, B), dtype=dt, device=dev)
+    w_lim = W
+    if width_cap is not None:
+        # [M, 1, 1]: each member's window is its own width.
+        w_lim = torch.as_tensor(list(width_cap), dtype=torch.int64
+                                ).to(dev).reshape(lead + (1, 1))
 
     def fold(x):
         return _f_rl(x, H) if H > 1 else x
@@ -200,19 +296,21 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
     if H > 1:
         zb, zwv = _f_l(zb, H), _f_l(zwv, H)
     stt = _fold_state_mn(st0, H) if H > 1 else st0
-    cursor = torch.zeros(R, dtype=torch.int64, device=dev)
-    issued = torch.zeros((R, W), dtype=torch.bool, device=dev)
-    slot_born = torch.zeros((R, W), dtype=torch.int32, device=dev)
-    outstanding = torch.zeros((R, L), dtype=torch.bool, device=dev)
-    born = torch.zeros((R, L), dtype=torch.int32, device=dev)
-    ctr = make_counters(R, dev)
-    if cfg.collect_trace:
-        out_idx = torch.zeros((R, L), dtype=torch.int64, device=dev)
-        # row T is a scratch row the non-retiring lanes write into.
-        retire = torch.full((T + 1, R), -1, dtype=torch.int32, device=dev)
+    cursor = torch.zeros(lead + (R,), dtype=torch.int64, device=dev)
+    issued = torch.zeros(lead + (R, W), dtype=torch.bool, device=dev)
+    slot_born = torch.zeros(lead + (R, W), dtype=torch.int32, device=dev)
+    outstanding = torch.zeros(lead + (R, L), dtype=torch.bool, device=dev)
+    born = torch.zeros(lead + (R, L), dtype=torch.int32, device=dev)
+    ctr = make_counters(R, dev, lead)
+    retire = None
+    if collect_trace:
+        out_idx = torch.zeros(lead + (R, L), dtype=torch.int64, device=dev)
+        # column T is a scratch column the non-retiring lanes write into.
+        retire = torch.full(lead + (R, T + 1), -1, dtype=torch.int32,
+                            device=dev)
 
     if open_loop:
-        wl_arr = torch.as_tensor(arr_np, dtype=torch.int32).to(dev)
+        wl_arr = torch.as_tensor(arrivals, dtype=torch.int32).to(dev)
         soj_edges = torch.as_tensor(SOJOURN_EDGES).to(dev)
         soj_ids = torch.arange(N_SOJ_BUCKETS, device=dev)
         soj_born = torch.zeros((R, L), dtype=torch.int32, device=dev)
@@ -227,31 +325,34 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         oc = make_obs_carry(obs, R, L, comp, dev)
         lf, tf = (None if f is None else
                   torch.as_tensor(np.asarray(f, bool)).to(dev)
-                  for f in (cfg.line_filter, cfg.type_filter))
+                  for f in (line_filter, type_filter))
 
     def plane(tgt, src, dtype):
         """Scatter ``[R, W]`` slot values into a dense ``[R, L]`` plane at
         columns ``tgt``; column L is a scratch column, sliced off."""
-        p = torch.zeros((R, L + 1), dtype=dtype, device=dev)
-        return p.scatter_(1, tgt, src.to(dtype))[:, :L]
+        p = torch.zeros(lead + (R, L + 1), dtype=dtype, device=dev)
+        return p.scatter_(-1, tgt, src.to(dtype))[..., :L]
 
     for t in range(steps):
         # ---- fetch each remote's issue window ---------------------------
-        idx = cursor[:, None] + wr[None, :]                 # [R, W]
+        idx = cursor[..., None] + wr                        # [R, W]
         active = idx < T
+        if width_cap is not None:
+            # slots past the member's own width never activate.
+            active = active & (wr < w_lim)
         idxc = torch.clamp(idx, max=T - 1)
-        s_op = wl_op[idxc, ar]                              # [R, W]
-        s_line = wl_line[idxc, ar]
-        s_val = wl_value[idxc, ar]
+        s_op = wl_op_t.gather(-1, idxc)                     # [R, W]
+        s_line = wl_line_t.gather(-1, idxc)
+        s_val = wl_value_t.gather(-1, idxc)
         is_nop = s_op == int(LocalOp.NOP)
         pending = active & ~issued
         real = pending & ~is_nop
         # one MSHR per (remote, line): a slot waits behind an EARLIER
         # un-issued slot on its line, and while its line is in flight.
-        can = real & ~outstanding[ar, s_line]
+        can = real & ~outstanding.gather(-1, s_line)
         if W > 1:
-            same = s_line[:, :, None] == s_line[:, None, :]  # [R, Wk, Wj]
-            can = can & ~(real[:, None, :] & same & earlier[None]).any(-1)
+            same = s_line[..., :, None] == s_line[..., None, :]
+            can = can & ~(real[..., None, :] & same & earlier).any(-1)
         if open_loop:
             # ---- continuous-batching admission --------------------------
             # a slot is a candidate only once its stamp has ARRIVED (the
@@ -276,15 +377,15 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         # issuable slot per (remote, line); the rest go to scratch column L.
         tgt = torch.where(can, s_line, L)
         opd = plane(tgt, s_op, torch.int8)
-        vald = plane(tgt, s_val, zwv.dtype)[:, :, None]
+        vald = plane(tgt, s_val, dt)[..., None]
         born_d = plane(tgt, slot_born, torch.int32)
 
         # ---- one engine step under sustained traffic --------------------
         res = step_folded(engine.tables, stt, fold(opd), fold(vald), zb,
                           zb, zwv, engine.delays, engine.credits,
-                          hreq_shared=engine.shared_credits,
-                          home_bw=engine.home_bw,
-                          emit_events=obs is not None)
+                          hreq_shared=shared_credits, home_bw=home_bw,
+                          emit_events=obs is not None,
+                          home_group=home_group, home_bw_t=home_bw_t)
         st2, out = res[:2]
 
         # ---- adopt newly accepted ops, detect retirements ---------------
@@ -296,14 +397,14 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
         retired = outstanding & mshr_free
         outstanding = outstanding & ~retired
 
-        if cfg.collect_trace:
+        if collect_trace:
             idx_d = plane(tgt, idxc, torch.int64)
             out_idx = torch.where(newly, idx_d, out_idx)
-            row = torch.where(retired, out_idx, T)
-            retire.index_put_((row, ar_rl), tsteps[t])
+            col = torch.where(retired, out_idx, T)
+            retire.scatter_(-1, col, t)
 
         # ---- sojourn + admission-wait histograms (open loop) ------------
-        slot_acc = can & newly[ar, s_line]
+        slot_acc = can & newly.gather(-1, s_line)
         nop_skip = pending & is_nop
         if open_loop:
             soj_born = torch.where(newly, plane(tgt, s_arr, torch.int32),
@@ -325,19 +426,21 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
 
         # ---- slide each window past its issued prefix -------------------
         issued = issued | slot_acc | nop_skip
-        shift = torch.cumprod(issued.to(torch.int32), dim=1).sum(1)
-        k2 = wr[None, :] + shift[:, None]
-        in_w = k2 < W
+        shift = torch.cumprod(issued.to(torch.int32), dim=-1).sum(-1)
+        k2 = wr + shift[..., None]
+        # a slot sliding in from past the member's window is fresh (born
+        # now): the boundary is the member's own width.
+        in_w = k2 < w_lim
         k2c = torch.clamp(k2, max=W - 1)
-        issued2 = torch.gather(issued, 1, k2c) & in_w
-        slot_born2 = torch.where(in_w, torch.gather(slot_born, 1, k2c),
+        issued2 = torch.gather(issued, -1, k2c) & in_w
+        slot_born2 = torch.where(in_w, torch.gather(slot_born, -1, k2c),
                                  t + 1)
 
         # ---- hardware-style counters ------------------------------------
         lat = t - born
         waiting = active & ~issued
-        head_wait = (t - slot_born).masked_fill(~waiting, 0).amax(dim=1)
-        step_active = active.any() | busy_flag_mn(st2)
+        head_wait = (t - slot_born).masked_fill(~waiting, 0).amax(dim=-1)
+        step_active = active.flatten(-2).any(-1) | busy_flag_mn(st2)
         ctr = update_counters(ctr, st2, retired=retired, lat=lat,
                               outstanding=outstanding, head_wait=head_wait,
                               step_active=step_active)
@@ -347,33 +450,12 @@ def run_stream(engine: EngineMN, cfg: StreamConfig,
 
     if H > 1:
         stt = _unfold_state_mn(stt, st0)
-    completed = bool((cursor >= T).all() & ~outstanding.any()
-                     & ~busy_flag_mn(stt))
-    trace = None
-    if cfg.collect_trace:
-        trace = RetirementTrace(
-            retire_step=retire[:-1].cpu().numpy(),
-            op=op_np, line=np.asarray(wl.line), value=np.asarray(wl.value),
-            n_lines=L)
-    soj = {}
+    completed = ((cursor >= T).all(-1) & ~outstanding.flatten(-2).any(-1)
+                 & ~busy_flag_mn(stt))
+    extra = {}
     if open_loop:
-        # backlog = arrived-but-never-issued ops when the budget ran out:
-        # the cursor counts each remote's consumed prefix; issued slots
-        # past it still sit in the window flags.
-        cur = cursor.cpu().numpy()
-        idx = cur[:, None] + np.arange(W)[None, :]
-        issued_total = int(cur.sum()) + int(
-            (issued.cpu().numpy() & (idx < T)).sum())
-        soj = dict(sojourn_hist=soj_hist.cpu().numpy(),
-                   admit_wait_hist=admit_hist.cpu().numpy(),
-                   backlog=int((arr_np < steps).sum()) - issued_total)
-    return StreamRun(
-        state=stt,
-        counters=Counters(*(x.cpu() for x in ctr)),
-        msg_count=stt.msg_count.cpu().numpy().astype(np.int64) - base_msgs,
-        payload_msgs=int(stt.payload_msgs) - base_payload,
-        trace=trace,
-        completed=completed,
-        obs=None if obs is None else finalize_obs(obs, oc, comp),
-        **soj,
-    )
+        extra.update(soj_hist=soj_hist, admit_hist=admit_hist)
+    if obs is not None:
+        extra["obs"] = finalize_obs(obs, oc, comp)
+    return _LoopOut(state=stt, counters=ctr, completed=completed,
+                    cursor=cursor, issued=issued, retire=retire, **extra)

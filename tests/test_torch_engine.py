@@ -20,7 +20,7 @@ from repro.traffic import (EngineConfig as JEngineConfig,  # noqa: E402
                            WorkloadSpec as JWorkloadSpec,
                            run_stream as j_run_stream)
 from repro_torch import convert  # noqa: E402
-from repro_torch.core.engine_mn import EngineMN, step_mn  # noqa: E402
+from repro_torch.core.engine_mn import EngineMN  # noqa: E402
 from repro_torch.core.protocol import SUBSETS  # noqa: E402
 
 SEED = 2024
@@ -130,14 +130,3 @@ def test_drain_and_quiescence():
     with pytest.raises(RuntimeError, match="still busy"):
         st2, _ = te.step(st, op, torch.ones((R, L, B)))
         te.drain(st2, 1)
-
-
-@pytest.mark.parametrize("kwargs,item", [(dict(home_group=2), "item 12")])
-def test_unported_step_options_raise(kwargs, item):
-    te = EngineMN(np.zeros((8, 2), np.float32), n_remotes=2, device="cpu")
-    st = te.init()
-    z = torch.zeros(8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match=item):
-        step_mn(te.tables, st, torch.zeros((2, 8), dtype=torch.int8),
-                torch.zeros((2, 8, 2)), z, z, torch.zeros((8, 2)),
-                te.delays, te.credits, **kwargs)

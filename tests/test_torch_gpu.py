@@ -30,8 +30,9 @@ from repro_torch.nmp.dfa import dfa_tables  # noqa: E402
 from repro_torch.nmp.regex import compile_regex  # noqa: E402
 from repro_torch.nmp.select import make_table  # noqa: E402
 from repro_torch.traffic import (AdmissionConfig,  # noqa: E402
-                                 ArrivalSpec, EngineConfig, ObserveConfig,
-                                 StreamConfig, WorkloadSpec, run_stream,
+                                 ArrivalSpec, EngineConfig, FleetConfig,
+                                 ObserveConfig, StreamConfig, WorkloadSpec,
+                                 fleet_steps, run_fleet, run_stream,
                                  validate_run)
 
 pytestmark = pytest.mark.gpu
@@ -164,6 +165,108 @@ def test_count_fold_kernel_unaligned(cuda, n, offs):
     gc, gp = K.count_fold(*views, base=tuple(b.to(cuda) for b in base))
     wc, wp = ref.count_fold_ref(m, g, p, base=base)
     assert torch.equal(gc.cpu(), wc) and torch.equal(gp.cpu(), wp)
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("G,n", [(1, 64 * 4096), (3, 4096), (3, 33),
+                                 (12, 64 * 4096), (12, 2049)])
+def test_count_fold_grouped_kernel(cuda, G, n, with_base):
+    """The grouped form, one launch for G groups, against its twin; G=1
+    is the ungrouped call's launch, bit for bit."""
+    rng = np.random.default_rng(SEED + G + n)
+    m, g, p = _bools(rng, (G, n), 0.3), _codes(rng, (G, n)), \
+        _bools(rng, (G, n), 0.5)
+    base = None
+    if with_base:
+        bases = [_base(rng) for _ in range(G)]
+        base = (torch.stack([b[0] for b in bases]),
+                torch.stack([b[1] for b in bases]))
+    K.reset_launches()
+    gc, gp = K.count_fold(m.to(cuda), g.to(cuda), p.to(cuda),
+                          base=None if base is None else
+                          tuple(b.to(cuda) for b in base), grouped=True)
+    assert K.launches["count_fold"] == 1
+    wc, wp = ref.count_fold_ref(m, g, p, base, grouped=True)
+    assert gc.shape == (G, 16) and gp.shape == (G,)
+    assert torch.equal(gc.cpu(), wc) and torch.equal(gp.cpu(), wp)
+    if G == 1:
+        uc, up = K.count_fold(m[0].to(cuda), g[0].to(cuda), p[0].to(cuda),
+                              base=None if base is None else
+                              (base[0][0].to(cuda), base[1][0].to(cuda)))
+        assert torch.equal(uc.cpu(), gc[0].cpu())
+        assert torch.equal(up.cpu(), gp[0].cpu())
+
+
+def _small_fleet(packed=False):
+    return FleetConfig(members=tuple(
+        (EngineConfig(remotes=r, lines=16, block=4, homes=h, home_bw=bw,
+                      packed=packed),
+         StreamConfig(workload=WorkloadSpec("zipfian", ops=8, seed=sd),
+                      width=w, collect_trace=True))
+        for r, w, h, bw, sd in ((2, 1, 1, 0, 1), (8, 2, 2, 1, 2),
+                                (5, 3, 4, 0, 3))))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_fleet_card_equals_cpu(cuda, packed):
+    """A small fleet on the card (the kernels, the grouped fold among
+    them) equals the same fleet on the CPU, member by member, and each
+    member its solo run on the card."""
+    fleet = _small_fleet(packed)
+    K.reset_launches()
+    gpu = run_fleet(fleet, device=cuda)
+    steps = fleet_steps(fleet)
+    assert K.launches["count_fold"] == 5 * steps
+    cpu = run_fleet(fleet, device="cpu")
+    for (e, s), a, b in zip(fleet.members, gpu, cpu):
+        assert a.completed and b.completed
+        np.testing.assert_array_equal(a.msg_count, b.msg_count)
+        np.testing.assert_array_equal(a.trace.retire_step,
+                                      b.trace.retire_step)
+        for x, y in zip(a.counters, b.counters):
+            assert torch.equal(x.cpu(), y.cpu())
+        solo = run_stream(e.build(cuda), StreamConfig(
+            workload=s.workload, width=s.width, steps=steps,
+            collect_trace=True))
+        np.testing.assert_array_equal(solo.msg_count, a.msg_count)
+        validate_run(a, n_homes=e.homes)
+
+
+def test_fleet_loop_makes_no_host_sync(cuda):
+    members = _small_fleet().members
+    counts = []
+    for steps in (2, 5, 15):    # the first run builds the cached constants
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_fleet(FleetConfig(members=members, steps=steps),
+                          device=cuda)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("synchroniz" in str(w.message) for w in caught))
+    assert counts[2] > 0 and counts[1] == counts[2]
+
+
+def test_fleet_mesh_devices_equals_one_device(cuda):
+    """Members split across two CUDA devices equal the one-device fleet."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices: one card cannot split a fleet")
+    members = _small_fleet().members
+    one = run_fleet(FleetConfig(members=members), device=cuda)
+    two = run_fleet(FleetConfig(members=members, mesh_devices=2),
+                    device=cuda)
+    for a, b in zip(one, two):
+        np.testing.assert_array_equal(a.msg_count, b.msg_count)
+        for x, y in zip(a.counters, b.counters):
+            assert torch.equal(x.cpu(), y.cpu())
+
+
+def test_fleet_mesh_devices_past_the_visible_count(cuda):
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"only {n} CUDA device"):
+        run_fleet(FleetConfig(members=_small_fleet().members[:1],
+                              mesh_devices=n + 1), device=cuda)
 
 
 def test_count_fold_kernel_back_to_back(cuda):

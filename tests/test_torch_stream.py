@@ -2,7 +2,7 @@
 
 * It reproduces the deterministic keys of ``benchmarks/BENCH_baseline.json``
   for the eight closed-loop ``streaming.*`` configs (``r8_h2`` with two
-  homes), fed the reference's
+  homes) and the three ``subsets.*`` configs, fed the reference's
   ``[T, R]`` workload arrays, and passes its own oracle validation.
 * On one small config per case it matches ``repro``'s ``run_stream``
   directly: counters, message counts and the retirement trace,
@@ -49,8 +49,9 @@ CONFIGS = {
 }
 
 
-def _reference_workload(name, R, L, ops, seed=0, legacy_bits=True):
-    spec = JWorkloadSpec(name, ops=ops, seed=seed)
+def _reference_workload(name, R, L, ops, seed=0, legacy_bits=True,
+                        params=()):
+    spec = JWorkloadSpec(name, ops=ops, seed=seed, params=params)
     if legacy_bits:
         with jax.threefry_partitionable(False):
             wl = spec.materialize(R, L)
@@ -80,6 +81,32 @@ def test_baseline_deterministic_keys(key):
     }
     assert got == {k: BASELINE["streaming"][key][k] for k in KEYS}
     validate_run(run, n_homes=H)
+
+
+#: ``benchmarks/bench_smoke.py``'s SUBSET_CONFIG: the baseline keys
+#: ``subsets.*`` (R=8, L=16, 32 ops, zipfian, seed 0).
+SUBSETS = {"full_moesi": (), "enhanced_mesi": (),
+           "read_only": (("store_frac", 0.0),)}
+
+
+@pytest.mark.parametrize("subset", list(SUBSETS))
+def test_baseline_subset_keys(subset):
+    R, L, ops = 8, 16, 32
+    steps = default_steps(ops, R)
+    run = run_stream(
+        EngineConfig(remotes=R, lines=L, subset=subset).build("cpu"),
+        StreamConfig(workload=_reference_workload(
+            "zipfian", R, L, ops, params=SUBSETS[subset]), steps=steps,
+            collect_trace=True))
+    s = summarize(run.counters, run.msg_count)
+    msgs = int(np.asarray(run.msg_count).sum())
+    got = {"completed": bool(run.completed),
+           "msgs_per_op": round(msgs / max(int(s["ops_retired"]), 1), 6),
+           "ops_per_step": round(float(s["ops_per_step"]), 6),
+           "ops_retired": int(s["ops_retired"])}
+    assert got == BASELINE["subsets"][subset]
+    eng_subset = EngineConfig(subset=subset).build("cpu").subset
+    validate_run(run, subset=eng_subset)
 
 
 @pytest.mark.parametrize("width,moesi", [(2, True), (4, False)])
