@@ -85,7 +85,7 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    equal to the dense run of the same configuration;
 7. the packed two-home path at the main path's width: ``EngineConfig(
    remotes=64, lines=4096, block=32, homes=2, packed=True)``, MOESI,
-   zipfian, W=1, 64 ops per remote (``PACKED_OPS``): the device
+   zipfian, W=1, 32 ops per remote (``PACKED_OPS``): the device
    operations, device time and step-kernel entries of one packed step
    (``step_profile(packed=True)``), then the run, validated against the
    two-home oracle, with its own launch table (``packed_any`` 4 and
@@ -118,7 +118,24 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    grouped ``count_fold`` timed at the grid's ``[4, 64, 4096]``; the
    command line's ``--smoke`` on the card (every case PASS) and one run at
    R=64, L=4096 whose ``--artifacts`` config.json, read back through
-   ``--config``, prints the same summary.
+   ``--config``, prints the same summary;
+10. the two-node store and the serving tier: the rounds of one two-node
+   ``Engine.run_ops`` at L=4096, B=32 with its launches per step,
+   device operations and host wall per round; ``CoherentStore(
+   n_remotes=1)`` at L=4096, B=32 for FULL_MOESI, ENHANCED_MESI,
+   READ_ONLY and STATELESS (reads, re-reads, writes, evicts, a
+   ``home_read`` of dirty lines, ``home_write`` of uncached ones, an
+   operator's virtual blocks read, evicted and read again, the operator
+   run once), card == CPU on every state leaf, value and count, with
+   ``TWO_NODE_PER_STEP`` launches per step; the N-remote store's write
+   fan-out at R=64 over ``FANOUT_LINES`` lines, exactly 63 ×
+   ``FANOUT_LINES`` ``HOME_DOWNGRADE_I`` as ``MultiNodeRef`` counts per
+   line, card == CPU at R=8, L=256; ``CoherentPrefixTier`` with 1 and 4
+   readers over recurrentgemma-9b's ``ServeEngine`` in bf16 (B=4, 128-token
+   prompts, 32 new tokens): a hot request's tokens equal to the cold
+   one's, a republish invalidating exactly the readers holding the line;
+   ``quantize_params`` on the card (one weight of each shape bit for bit
+   against the CPU) and the int8 engine's decode rate and token agreement.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -150,10 +167,11 @@ R, L, B, P = 64, 4096, 32, 65
 #: ops per remote of the dense W=1 and W=4 runs and of the packed
 #: two-home W=1 run, cut from the ``WorkloadSpec`` default of 128 so that
 #: the script keeps a margin under its 1200 s limit on a slow host (see
-#: PERF.md, section 4).
+#: PERF.md, section 4; the packed run cut again from 64 when phase 10
+#: came in).
 W1_OPS = 64
 W4_OPS = 32
-PACKED_OPS = 64
+PACKED_OPS = 32
 
 #: phase 8, open loop and observation at the main path's width: Poisson
 #: arrivals at 0.01 ops/step/remote (about 47% of the closed loop's
@@ -168,11 +186,12 @@ OBS_OPS, OBS_CAPACITY = 8, 1 << 16
 #: the packed two-home path: homes, words per line at R=64.
 HOMES, NW = 2, 2
 
-#: phase 9, fleets at the main path's width: 8 ops per remote (1,184
-#: steps, the budget of R=64), an R x W grid and a homes sweep at R=64 with
-#: a per-home acceptance cap of 1; credits of 4,096 a VC, since the
-#: fleet's home emulation is exact only while credits cover the lines.
-FLEET_OPS = 8
+#: phase 9, fleets at the main path's width: 4 ops per remote (624
+#: steps, the budget of R=64; 8 before phase 10 came in), an R x W grid
+#: and a homes sweep at R=64 with a per-home acceptance cap of 1; credits
+#: of 4,096 a VC, since the fleet's home emulation is exact only while
+#: credits cover the lines.
+FLEET_OPS = 4
 FLEET_GRID = ((16, 1), (16, 4), (64, 1), (64, 4))
 FLEET_HOMES, FLEET_HOME_BW, FLEET_CREDITS = (1, 2, 4), 1, 4096
 
@@ -263,6 +282,34 @@ PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
 #: ``packed_fanout``.
 PACKED_PER_STEP = {"credit_rank": 2, "arb_winner": 1, "count_fold": 5,
                    "lat_hist": 1, "packed_any": 4, "packed_fanout": 1}
+#: phase 10, the two-node store and the serving tier: (a) a
+#: ``CoherentStore(n_remotes=1)`` program at the main path's plane (L
+#: lines of B fp32) for each subset, card against CPU, with
+#: ``VIRTUAL_BLOCKS`` virtual blocks read through an operator; (b) the
+#: N-remote store's write fan-out at R=64 over ``FANOUT_LINES`` lines
+#: (cut from the main path's 4,096 to keep the phase near its 90 s: 64
+#: reads of every line took 42.4-42.9 s at 4,096, see PERF.md section
+#: 4), card against CPU at ``SMALL_FANOUT`` = (R, L); (c)
+#: ``CoherentPrefixTier`` with each of ``TIER_READERS`` readers over
+#: recurrentgemma-9b's ``ServeEngine``: ``PREFILL_B`` prompts of
+#: ``PROMPT`` tokens, ``NEW_TOKENS`` new, in bf16 and int8.  A VC's
+#: credits (64) cap the messages in flight, so a store call over
+#: thousands of lines takes tens of rounds: ``STORE_ROUNDS`` is every
+#: store's ``max_rounds`` here.
+STORE_SUBSETS = ("full_moesi", "enhanced_mesi", "read_only", "stateless")
+VIRTUAL_BLOCKS = 64
+STORE_ROUNDS = 4096
+FANOUT_LINES = 1024
+SMALL_FANOUT = (8, 256)
+TIER_READERS = (1, 4)
+#: launches per two-node step: ``credit_rank`` for the dry run of
+#: ``stall_unready_ops``, the remote's request submit and the home's
+#: downgrade submit; ``count_fold`` for the four delivered-message folds.
+TWO_NODE_PER_STEP = {"credit_rank": 3, "arb_winner": 0, "count_fold": 4,
+                     "lat_hist": 0, "packed_any": 0, "packed_fanout": 0}
+#: launches per N-remote step of a store: ``step_mn`` alone (the latency
+#: histogram belongs to ``run_stream``'s counters).
+STORE_MN_PER_STEP = dict(PER_STEP, lat_hist=0)
 #: the CUDA source of each kernel.
 SOURCES = dict.fromkeys(PER_STEP, "src/repro_torch/csrc/coherency_step.cu")
 SOURCES.update(dict.fromkeys(("select_scan", "regex_dfa", "hash_probe"),
@@ -2394,6 +2441,328 @@ def phase_fleet(dev, rows):
     print(f"fleets and command line phase {time.perf_counter() - t0:.1f} s")
 
 
+def store_program(dev, subset: str, lines: int, block: int, seed: int):
+    """Phase 10 (a)'s program through ``CoherentStore(n_remotes=1)`` on
+    ``dev``: read every line, read them again (all hits); where the
+    subset allows stores, write half the lines, evict a quarter (half of
+    them dirty) and ``home_read`` the dirty lines left; otherwise evict a
+    quarter; ``home_write`` the evicted (uncached) lines and read them;
+    then, on a second store with an operator, read ``VIRTUAL_BLOCKS``
+    virtual blocks, evict them and read them again, the operator run
+    once.  Returns (the two stores, the values read)."""
+    import numpy as np
+    from repro_torch.core import SUBSETS, CoherentStore
+    rng = np.random.default_rng(seed)
+    backing = rng.standard_normal((lines, block)).astype(np.float32)
+    cs = CoherentStore(backing, SUBSETS[subset], max_rounds=STORE_ROUNDS,
+                       device=dev)
+    every = np.arange(lines)
+    quarter = every[::4]
+    out = [cs.read(every), cs.read(every)]
+    if SUBSETS[subset].check_workload([2]):
+        cs.write(every[::2], rng.standard_normal(
+            (lines // 2, block)).astype(np.float32))
+        cs.evict(quarter)
+        out.append(cs.home_read(every[2::4]))
+    else:
+        cs.evict(quarter)
+    cs.home_write(quarter, rng.standard_normal(
+        (len(quarter), block)).astype(np.float32))
+    out.append(cs.read(quarter))
+    calls = []
+
+    def operator(blocks):
+        calls.append(len(blocks))
+        return blocks * 2.0 + 1.0
+
+    vs = CoherentStore(backing, SUBSETS[subset], operator=operator,
+                       max_rounds=STORE_ROUNDS, device=dev)
+    virtual = every[:VIRTUAL_BLOCKS]
+    out.append(vs.read(virtual))
+    vs.evict(virtual)
+    out.append(vs.read(virtual))
+    if calls != [VIRTUAL_BLOCKS]:
+        fail(f"store {subset}: the operator ran on {calls} blocks, "
+             f"expected once on {VIRTUAL_BLOCKS}")
+    return (cs, vs), out
+
+
+def store_digest(stores, out):
+    """What phase 10 holds card against CPU: every state leaf, every
+    value read (as bits) and the accounting of each store."""
+    from repro_torch.convert import flatten
+    return ([flatten(cs.state) for cs in stores],
+            [bits(v.cpu()).numpy() for v in out],
+            [(cs.interconnect_messages, cs.hits, cs.misses,
+              cs.payload_bytes) for cs in stores])
+
+
+def same_digest(a, b) -> bool:
+    import numpy as np
+    return (all(x.keys() == y.keys() and all(np.array_equal(x[k], y[k])
+                                             for k in x)
+                for x, y in zip(a[0], b[0]))
+            and all(np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+            and a[2] == b[2])
+
+
+def two_node_profile(dev) -> None:
+    """The rounds of one two-node ``Engine.run_ops`` (a LOAD of every
+    line from the quiescent state, MOESI, L lines of B fp32) with the
+    launches per step from the wrappers' counters and the host wall per
+    round (best of three); and the device operations and device time of
+    one step of that run (its ninth, channels busy) from the profiler."""
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels import coherency_step as K
+    eng = Engine(torch.zeros((L, B), device=dev), device=dev)
+    st0 = eng.init()
+    opv = torch.ones(L, dtype=torch.int8, device=dev)
+    vv = torch.zeros((L, B), device=dev)
+    K.reset_launches()
+    rounds = eng.run_ops(st0, opv, vv, STORE_ROUNDS)[3]
+    per_step = {k: n / rounds for k, n in K.launches.items() if n}
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_ops(st0, opv, vv, STORE_ROUNDS)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    st, op = st0, opv
+    for _ in range(8):
+        st, out = eng.step(st, op, vv)
+        op = op.masked_fill(out.accepted, 0)
+    ms, ops = device_ms(lambda: eng.step(st, op, vv), 20)
+    print(f"two-node run_ops (L={L} B={B} MOESI, a LOAD of every line): "
+          f"{rounds} rounds, host wall {best / rounds * 1e3:.3f} ms per "
+          f"round (a step and one host read of the busy flag); launches "
+          f"per step {json.dumps(per_step)}; one step {ops:g} device "
+          f"operations, {ms * 1e3:.3f} us of device time")
+
+
+def store_fanout(dev, remotes: int, lines: int, block: int):
+    """Phase 10 (b): every node of an N-remote FULL_MOESI store reads
+    every line, then node 0 writes them all.  Returns (the store, the
+    HOME_DOWNGRADE_I the write sent, the write's rounds)."""
+    import numpy as np
+    from repro_torch.core import FULL_MOESI, CoherentStore
+    cs = CoherentStore(np.zeros((lines, block), np.float32), FULL_MOESI,
+                       n_remotes=remotes, max_rounds=STORE_ROUNDS,
+                       device=dev)
+    ids = np.arange(lines)
+    for node in range(remotes):
+        cs.read(ids, node=node)
+    before = cs.interconnect_messages.get("HOME_DOWNGRADE_I", 0)
+    steps = int(cs.state.step_no)
+    cs.write(ids, np.ones((lines, block), np.float32), node=0)
+    return (cs, cs.interconnect_messages.get("HOME_DOWNGRADE_I", 0) - before,
+            int(cs.state.step_no) - steps)
+
+
+def count_store_launches(label: str, counts, steps: int, per_step,
+                         rows) -> None:
+    """Fail unless a store run launched ``per_step`` times its steps of
+    every kernel; add the launches to the kernels' rows."""
+    print(f"{label}: {steps} steps, launches {json.dumps(counts)}")
+    for name, n in counts.items():
+        if n != per_step[name] * steps:
+            fail(f"{label}: kernel {name}: {n} launches, expected "
+                 f"{per_step[name]} x {steps}")
+        rows[name]["launches"] += n
+
+
+def serve_tier(dev) -> None:
+    """Phase 10 (c): recurrentgemma-9b at its published widths in bf16
+    (parameters drawn on the card) behind ``CoherentPrefixTier`` with 1
+    and 4 readers: a cold request (a miss in each tier, one prefill of
+    the prompts, published to both tiers, decoded), a hot request in each
+    tier (a lookup, decoded: the cold tokens exactly), every reader
+    reading the line, then a republish that must invalidate each of them;
+    then the weights quantized on the card (one leaf of each shape bit
+    for bit against the CPU's) and the same requests decoded in int8."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (CoherentPrefixTier, ServeEngine,
+                                   quantize_params)
+    from repro_torch.serve.quantize import is_quantized, quantize_weight
+    cfg = get_config(MODEL)
+    gen = torch.Generator(device=dev).manual_seed(65)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (PREFILL_B, PROMPT),
+                            generator=gen, device=dev)
+    print(f"serve tier: {MODEL} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prefix = tuple(int(t) for t in prompts.reshape(-1).cpu())
+    engine = ServeEngine(cfg, params, max_seq=PROMPT + NEW_TOKENS,
+                         device=dev)
+    tiers = {n: CoherentPrefixTier(n_readers=n, device=dev)
+             for n in TIER_READERS}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (state, idx, lg), t_pre = timed(lambda: engine.prefill(prompts))
+    for tier in tiers.values():
+        if tier.lookup(prefix) is not None:
+            fail("serve tier: a prefix hit before it was published")
+        tier.publish(prefix, (state, idx, lg))
+    (cold, _), t_cold = timed(lambda: engine.decode(state, lg.argmax(-1),
+                                                    idx, NEW_TOKENS))
+    if cold.shape != (PREFILL_B, NEW_TOKENS):
+        fail(f"serve tier: cold tokens of shape {tuple(cold.shape)}")
+    print(f"serve tier: {MODEL} {cfg.dtype}, {PREFILL_B} prompts of {PROMPT} "
+          f"tokens: cold request prefill {t_pre:.3f} s "
+          f"({PREFILL_B * PROMPT / t_pre:.1f} tokens/s through "
+          f"decode_step), decode {NEW_TOKENS} tokens {t_cold:.3f} s "
+          f"({PREFILL_B * NEW_TOKENS / t_cold:.1f} tokens/s)")
+    for n, tier in tiers.items():
+        def hot():
+            s, i, last = tier.lookup(prefix, reader=n - 1)
+            return engine.decode(s, last.argmax(-1), i, NEW_TOKENS)[0]
+        toks, t_hot = timed(hot)
+        if not torch.equal(toks, cold):
+            fail(f"serve tier n_readers={n}: the hot request's tokens "
+                 f"differ from the cold one's")
+        for reader in range(n):
+            tier.lookup(prefix, reader=reader)
+        before = tier.store.interconnect_messages.get("HOME_DOWNGRADE_I", 0)
+        tier.publish(prefix, (state, idx, lg))
+        inv = tier.store.interconnect_messages.get("HOME_DOWNGRADE_I",
+                                                   0) - before
+        if inv != n:
+            fail(f"serve tier n_readers={n}: the republish sent {inv} "
+                 f"HOME_DOWNGRADE_I to {n} readers holding the line")
+        print(f"serve tier n_readers={n}: hot request (lookup + decode) "
+              f"{t_hot:.3f} s, tokens == cold; republish invalidated {inv} "
+              f"of {n} readers; hit rate {tier.hit_rate:.3f}; traffic "
+              f"{json.dumps(tier.store.interconnect_messages)}")
+
+    qparams, t_q = timed(lambda: quantize_params(params, cfg=cfg))
+    shapes = {}
+    for layer, qlayer in zip(params["layers"], qparams["layers"]):
+        for blk, qblk in zip(layer.values(), qlayer.values()):
+            for k, w in blk.items():
+                if is_quantized(qblk[k]):
+                    shapes.setdefault(tuple(w.shape), (w, qblk[k]))
+    for shape, (w, qw) in shapes.items():
+        want = quantize_weight(w.cpu())
+        if not (torch.equal(qw["q"].cpu(), want["q"]) and torch.equal(
+                bits(qw["s"].cpu()), bits(want["s"]))):
+            fail(f"quantize_weight {shape}: the card's q/s differ from "
+                 f"the CPU's")
+
+    def weight_bytes(tree):
+        if isinstance(tree, dict):
+            return sum(weight_bytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(weight_bytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    qengine = ServeEngine(cfg, qparams, max_seq=PROMPT + NEW_TOKENS,
+                          device=dev)
+    (qs, qi, qlg), t_qpre = timed(lambda: qengine.prefill(prompts))
+    (qtoks, _), t_qdec = timed(lambda: qengine.decode(
+        qs, qlg.argmax(-1), qi, NEW_TOKENS))
+    agree = float((qtoks == cold).float().mean())
+    n_q = sum(is_quantized(w) for layer in qparams["layers"]
+              for blk in layer.values() for w in blk.values())
+    print(f"serve int8: quantize_params on the card {t_q:.3f} s, {n_q} "
+          f"weights, one of each shape {sorted(shapes)} bit-exact against "
+          f"the CPU; weight bytes bf16 {weight_bytes(params)} int8 "
+          f"{weight_bytes(qparams)}; prefill {t_qpre:.3f} s, decode "
+          f"{PREFILL_B * NEW_TOKENS / t_qdec:.1f} tokens/s (bf16 "
+          f"{PREFILL_B * NEW_TOKENS / t_cold:.1f}); token agreement with "
+          f"bf16 {agree:.3f} (random weights: printed, not held)")
+    del params, qparams, engine, qengine, state, qs, tiers
+    torch.cuda.empty_cache()
+
+
+def phase_store_serve(dev, rows):
+    """Phase 10: the two-node store and the serving tier on the card."""
+    import torch
+    from repro_torch.core.multinode import MultiNodeRef
+    from repro_torch.kernels import coherency_step as K
+    t0 = time.perf_counter()
+    print(f"store: CoherentStore(n_remotes=1) at L={L} B={B} fp32 for "
+          f"{', '.join(STORE_SUBSETS)}, card against CPU")
+    two_node_profile(dev)
+    card = {}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t1 = time.perf_counter()
+    for subset in STORE_SUBSETS:
+        card[subset] = store_program(dev, subset, L, B, seed=10)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t1
+    steps = sum(int(cs.state.step_no) for stores, _ in card.values()
+                for cs in stores)
+    count_store_launches("store two-node path", dict(K.launches), steps,
+                         TWO_NODE_PER_STEP, rows)
+    t1 = time.perf_counter()
+    for subset, (stores, out) in card.items():
+        cpu = store_program("cpu", subset, L, B, seed=10)
+        if not same_digest(store_digest(stores, out), store_digest(*cpu)):
+            fail(f"store {subset}: card and CPU differ")
+        cs = stores[0]
+        if subset == "stateless" and (cs.state.dir.home_state.any()
+                                      or cs.state.dir.view.any()):
+            fail("store stateless: the home kept per-line state")
+        print(f"store {subset}: card == CPU on {len(out)} reads, every "
+              f"state leaf and the accounting; {int(cs.state.step_no)} "
+              f"rounds; hits {cs.hits} misses {cs.misses}; payload bytes "
+              f"{cs.payload_bytes}; {json.dumps(cs.interconnect_messages)}")
+    print(f"store two-node path: card {t_card:.3f} s for the four "
+          f"subsets' programs, {steps} rounds ({t_card / steps * 1e3:.3f} "
+          f"ms a round); CPU {time.perf_counter() - t1:.3f} s; (a) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t1 = time.perf_counter()
+    cs, sent, rounds = store_fanout(dev, R, FANOUT_LINES, B)
+    torch.cuda.synchronize()
+    t_fan = time.perf_counter() - t1
+    count_store_launches(f"store fan-out R={R}", dict(K.launches),
+                         int(cs.state.step_no), STORE_MN_PER_STEP, rows)
+    ref = MultiNodeRef(1, n_remotes=R)
+    for node in range(R):
+        ref.load(node, 0)
+    rbefore = ref.invalidation_messages()
+    ref.store(0, 0, 1)
+    per_line = ref.invalidation_messages() - rbefore
+    if sent != per_line * FANOUT_LINES or per_line != R - 1:
+        fail(f"store fan-out R={R}: {sent} HOME_DOWNGRADE_I, expected "
+             f"{per_line} x {FANOUT_LINES} (MultiNodeRef per line times "
+             f"the lines)")
+    print(f"store fan-out R={R} L={FANOUT_LINES} B={B}: every node reads "
+          f"every line, node 0 writes them all: {sent} HOME_DOWNGRADE_I = "
+          f"{per_line} x {FANOUT_LINES} (MultiNodeRef); the write took "
+          f"{rounds} rounds of "
+          f"max_rounds={STORE_ROUNDS}; {int(cs.state.step_no)} rounds in "
+          f"{t_fan:.3f} s")
+    del cs
+    small = [store_fanout(d, *SMALL_FANOUT, B) for d in (dev, "cpu")]
+    if not same_digest(store_digest([small[0][0]], []),
+                       store_digest([small[1][0]], [])) or \
+            small[0][1:] != small[1][1:]:
+        fail(f"store fan-out R, L = {SMALL_FANOUT}: card and CPU differ")
+    print(f"store fan-out R, L = {SMALL_FANOUT}: card == CPU, "
+          f"{small[0][1]} HOME_DOWNGRADE_I in {small[0][2]} rounds; (b) "
+          f"{time.perf_counter() - t1:.1f} s")
+
+    t1 = time.perf_counter()
+    serve_tier(dev)
+    print(f"serve tier (c) {time.perf_counter() - t1:.1f} s")
+    print(f"store and serving phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2441,6 +2810,7 @@ def main() -> int:
     phase_packed_path(dev, rows)
     phase_open_loop(dev, rows)
     phase_fleet(dev, rows)
+    phase_store_serve(dev, rows)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

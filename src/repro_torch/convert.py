@@ -1,10 +1,10 @@
 """Carry engine state and counters between ``repro`` and the port.
 
-``repro``'s ``EngineMNState`` and ``Counters``, given as pytrees of numpy
-arrays (``jax.tree_util.tree_map(np.asarray, x)``), become the port's
-tensors on a device, and back.  Nothing here imports ``repro``: the
-reference trees are read by their field names, which the port's
-NamedTuples share.  Two representations differ:
+``repro``'s ``EngineMNState``, two-node ``EngineState`` and ``Counters``,
+given as pytrees of numpy arrays (``jax.tree_util.tree_map(np.asarray,
+x)``), become the port's tensors on a device, and back.  Nothing here
+imports ``repro``: the reference trees are read by their field names,
+which the port's NamedTuples share.  Two representations differ:
 
 * the counters' accumulators: the reference keeps hi/lo int32 pairs
   (``occ_sum_hi``/``occ_sum_lo``, ``mshr_sum_hi``/``mshr_sum_lo``), the
@@ -38,7 +38,9 @@ import numpy as np
 import torch
 
 from .core.agent import AgentState
+from .core.directory import DirectoryState
 from .core.directory_mn import DirectoryMNState
+from .core.engine import EngineState
 from .core.engine_mn import EngineMNState
 from .core.pushdown import ShardedKVS
 from .core.transport import Channel
@@ -52,9 +54,15 @@ from .traffic.counters import Counters
 ACC_SHIFT = 30
 ACC_MASK = (1 << ACC_SHIFT) - 1
 
-_NESTED = {"dir": DirectoryMNState, "agents": AgentState,
-           "ch_req": Channel, "ch_resp": Channel, "ch_hreq": Channel,
-           "ch_hresp": Channel}
+#: the nested fields of each engine's state: N-remote and two-node.
+_NESTED = {
+    EngineMNState: {"dir": DirectoryMNState, "agents": AgentState,
+                    "ch_req": Channel, "ch_resp": Channel,
+                    "ch_hreq": Channel, "ch_hresp": Channel},
+    EngineState: {"dir": DirectoryState, "agent": AgentState,
+                  "ch_req": Channel, "ch_resp": Channel, "ch_hreq": Channel,
+                  "ch_hresp": Channel},
+}
 
 
 def _to_tensor(x, device: torch.device) -> torch.Tensor:
@@ -69,35 +77,44 @@ def _to_numpy(x) -> np.ndarray:
         else np.asarray(x)
 
 
-def engine_state_to_torch(st, device=None) -> EngineMNState:
-    """A reference ``EngineMNState`` (numpy leaves, dense or packed) as
-    the port's state on ``device``, dtype for dtype but uint32 words as
-    int32."""
+def _state_type(st):
+    """The port's state type for a state of either engine (a two-node
+    state has one ``agent``, an N-remote state ``agents``)."""
+    return EngineState if hasattr(st, "agent") else EngineMNState
+
+
+def engine_state_to_torch(st, device=None):
+    """A reference ``EngineMNState`` (numpy leaves, dense or packed) or
+    two-node ``EngineState`` as the port's state on ``device``, dtype for
+    dtype but uint32 words as int32."""
     dev = resolve_device(device)
+    top = _state_type(st)
     fields = {}
-    for name in EngineMNState._fields:
+    for name in top._fields:
         src = getattr(st, name)
-        cls = _NESTED.get(name)
+        cls = _NESTED[top].get(name)
         fields[name] = (
             cls(*(_to_tensor(getattr(src, f), dev) for f in cls._fields))
             if cls is not None else _to_tensor(src, dev))
-    return EngineMNState(**fields)
+    return top(**fields)
 
 
-def engine_state_to_numpy(st: EngineMNState) -> EngineMNState:
-    """The port's state with numpy leaves (the reference's field names
-    and dtypes: a packed state's int32 words come back as uint32)."""
+def engine_state_to_numpy(st):
+    """The port's state of either engine with numpy leaves (the
+    reference's field names and dtypes: a packed state's int32 words come
+    back as uint32)."""
+    top = _state_type(st)
     fields = {}
-    for name in EngineMNState._fields:
+    for name in top._fields:
         src = getattr(st, name)
-        cls = _NESTED.get(name)
+        cls = _NESTED[top].get(name)
         fields[name] = (cls(*(_to_numpy(x) for x in src))
                         if cls is not None else _to_numpy(src))
     if fields["hreq_pending"].dtype == np.int32:          # packed layout
         fields["hreq_pending"] = fields["hreq_pending"].view(np.uint32)
         fields["dir"] = fields["dir"]._replace(
             view=fields["dir"].view.view(np.uint32))
-    return EngineMNState(**fields)
+    return top(**fields)
 
 
 def counters_to_torch(ctr, device=None) -> Counters:

@@ -36,6 +36,10 @@ message-counter folds (``count_fold``) and, on packed planes, the five
 any-bit reductions (``packed_any``) and the fan-out words
 (``packed_fanout``).
 
+``EngineMN.run_ops`` submits an op plane and drains to quiescence in the
+two-node engine's host loop (``core.engine.run_ops``), as
+``CoherentStore`` does with several remotes.
+
 ``emit_events=True`` also returns the step's wire events
 (``StepEvents``), the feed of the observability plane
 (``traffic.observe``).
@@ -63,7 +67,7 @@ from ..kernels import coherency_step as K
 from . import agent as ag
 from . import directory_mn as dmn
 from . import transport as tp
-from .engine import _count
+from .engine import _count, run_ops
 from .messages import MAX_NODE, MsgType
 from .protocol import (ENHANCED_MESI, FULL_MOESI, LocalOp, MnAbsorb,
                        ProtocolSubset, TorchTables, device_tables)
@@ -902,3 +906,22 @@ class EngineMN:
                 f"steps (R={self.n_remotes}, L={self.n_lines}, "
                 f"H={self.n_homes})")
         return st
+
+    def run_ops(self, st: EngineMNState, opv: torch.Tensor,
+                op_val: torch.Tensor, max_rounds: int = 64):
+        """Submit ``opv`` [R, L] and drain to quiescence: (state, done [L],
+        vals [L, B], rounds, still_busy), ``done`` and ``vals`` reduced
+        over the remote axis (at most one remote acts per line per call)
+        — see ``core.engine.run_ops``."""
+        L, B = self.n_lines, self.block
+        zb = torch.zeros(L, dtype=torch.bool, device=self.device)
+        zwv = torch.zeros((L, B), dtype=st.dir.backing.dtype,
+                          device=self.device)
+
+        def step_fn(s, o, v):
+            return step_mn(self.tables, s, o, v, zb, zb, zwv, self.delays,
+                           self.credits, hreq_shared=self.shared_credits,
+                           n_homes=self.n_homes, home_bw=self.home_bw)
+
+        return run_ops(step_fn, busy_flag_mn, st, opv, op_val, max_rounds,
+                       reduce_remotes=True)

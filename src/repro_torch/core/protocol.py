@@ -8,8 +8,9 @@ lattice (``ProtocolSubset``, ``FULL_MOESI``/``ENHANCED_MESI``/
 requirements over both (``verify_envelope``, ``verify_envelope_mn``).
 
 ``device_tables`` puts one subset's baked tables on a device as tensors,
-once per (subset, device): the engine's step gathers from those, never
-from numpy.
+once per (subset, device), and ``two_node_tables`` puts ``FULL`` or
+``MINIMAL`` there for the two-node engine, once per (moesi, device): the
+engines' steps gather from those, never from numpy.
 """
 from __future__ import annotations
 
@@ -1124,4 +1125,53 @@ def device_tables(subset: ProtocolSubset, device) -> TorchTables:
         stateless_home=bool(mn.stateless_home), moesi=bool(mn.moesi),
         name=mn.name)
     _DEVICE_TABLES[key] = tt
+    return tt
+
+
+class TwoNodeTables(NamedTuple):
+    """``FULL`` or ``MINIMAL`` as tensors on one device: the two-node
+    engine's home tables and the agent's tables (the fields the agent
+    gathers share ``TorchTables``' names).  Codes stay int8 and masks
+    bool; the directory casts gathered codes to int64 before using them
+    as indices."""
+
+    # home: [msg, home_state, view] -> field
+    home_new_home: torch.Tensor     # int8
+    home_new_view: torch.Tensor     # int8
+    home_resp: torch.Tensor         # int8
+    home_resp_dirty: torch.Tensor   # bool
+    home_writeback: torch.Tensor    # bool
+    home_legal: torch.Tensor        # bool
+    home_clean_case: torch.Tensor   # int8
+    # remote: [msg, remote_state], local: [op, remote_state]
+    rem_new_state: torch.Tensor
+    rem_resp: torch.Tensor
+    rem_resp_dirty: torch.Tensor
+    rem_legal: torch.Tensor
+    loc_new_state: torch.Tensor
+    loc_request: torch.Tensor
+    loc_req_dirty: torch.Tensor
+    loc_hit: torch.Tensor
+    resp_new_state: torch.Tensor    # [N_MSG, N_MSG] int8 (-1 = illegal)
+    moesi: bool
+
+
+_TWO_NODE_TABLES: Dict[Tuple[bool, str], TwoNodeTables] = {}
+
+
+def two_node_tables(moesi: bool, device) -> TwoNodeTables:
+    """``FULL`` (``moesi``) or ``MINIMAL`` on ``device`` — built once per
+    (moesi, device) and cached, never per step."""
+    dev = torch.device(device)
+    key = (bool(moesi), str(dev))
+    hit = _TWO_NODE_TABLES.get(key)
+    if hit is not None:
+        return hit
+    dense = FULL if moesi else MINIMAL
+    tt = TwoNodeTables(**{
+        f: torch.as_tensor(np.ascontiguousarray(getattr(dense, f)),
+                           device=dev)
+        for f in TwoNodeTables._fields if f != "moesi"},
+        moesi=bool(moesi))
+    _TWO_NODE_TABLES[key] = tt
     return tt

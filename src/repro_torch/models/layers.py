@@ -20,9 +20,6 @@ from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
-#: the ROADMAP item that ports quantized weights (``serve/quantize.py``).
-QUANT_ITEM = "ROADMAP Queue 1 item 20 (serve/quantize.py)"
-
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -43,9 +40,11 @@ def dense_init(gen: torch.Generator, fan_in: int, shape, dtype,
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w``.  A quantized ``{"q", "s"}`` weight is not ported yet."""
+    """``x @ w`` where ``w`` is a tensor or a quantized ``{"q": int8, "s":
+    fp32}`` weight (``serve.quantize``), dequantized in x's dtype: the
+    int8 codes cast before the product, the scale applied after it."""
     if isinstance(w, dict):
-        raise NotImplementedError(f"quantized weights: {QUANT_ITEM}")
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
 
 

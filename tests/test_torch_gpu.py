@@ -1229,3 +1229,89 @@ def test_model_card_equals_cpu(cuda, arch):
         lg_g, st_g = T.decode_step(card_p, cfg, toks[:, t].to(cuda), t, st_g)
         lg_c, st_c = T.decode_step(cpu_p, cfg, toks[:, t], t, st_c)
         torch.testing.assert_close(lg_g.cpu(), lg_c, atol=2e-4, rtol=2e-4)
+
+
+# -- the two-node engine, the coherent store and int8 serving ---------------
+
+@pytest.mark.parametrize("moesi,stateless", [(True, False), (False, False),
+                                             (False, True)])
+def test_two_node_step_card_equals_cpu(cuda, moesi, stateless):
+    """30 steps of a random program with home wants, every state leaf and
+    output equal to the CPU's, with 3 ``credit_rank`` and 4 ``count_fold``
+    launches a step and no other kernel."""
+    from repro_torch.convert import flatten
+    from repro_torch.core.engine import Engine
+    L, B, steps = 64, 4, 30
+    rng = np.random.default_rng(SEED)
+    backing = rng.normal(size=(L, B)).astype(np.float32)
+    eng_g = Engine(backing, moesi=moesi, stateless=stateless, device=cuda)
+    eng_c = Engine(backing, moesi=moesi, stateless=stateless, device="cpu")
+    sg, sc = eng_g.init(), eng_c.init()
+    K.reset_launches()
+    for t in range(steps):
+        op = np.zeros(L, np.int8)
+        if t < 20:
+            op[rng.choice(L, 8, replace=False)] = rng.choice(
+                [1] if stateless else [1, 2, 3, 4], 8)
+        val = rng.normal(size=(L, B)).astype(np.float32)
+        wr = (rng.random(L) < 0.1) & (t < 20)
+        ww = (rng.random(L) < 0.1) & (t < 20) & (not stateless)
+        wv = rng.normal(size=(L, B)).astype(np.float32)
+        args = [torch.as_tensor(a) for a in (op, val, wr, ww, wv)]
+        sg, og = eng_g.step(sg, *[a.to(cuda) for a in args])
+        sc, oc = eng_c.step(sc, *args)
+        for tree_g, tree_c in ((sg, sc), (og, oc)):
+            fg, fc = flatten(tree_g), flatten(tree_c)
+            for k in fc:
+                np.testing.assert_array_equal(fg[k], fc[k],
+                                              err_msg=f"step {t}: {k}")
+    assert {k: v for k, v in K.launches.items() if v} == \
+        {"credit_rank": 3 * steps, "count_fold": 4 * steps}
+
+
+@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("name", ["full_moesi", "enhanced_mesi", "read_only",
+                                  "stateless"])
+def test_coherent_store_card_equals_cpu(cuda, name, R):
+    from repro_torch.convert import flatten
+    from repro_torch.core import SUBSETS, CoherentStore
+    L, B = 64, 4
+    rng = np.random.default_rng(SEED + R)
+    backing = rng.normal(size=(L, B)).astype(np.float32)
+    stores = [CoherentStore(backing, SUBSETS[name], n_remotes=R,
+                            operator=lambda b: b * 3.0, device=d)
+              for d in (cuda, "cpu")]
+    writes = name in ("full_moesi", "enhanced_mesi")
+    wval = rng.normal(size=(L // 2, B)).astype(np.float32)
+    got = []
+    for cs in stores:
+        vals = [cs.read(list(range(L)), node=0), cs.read([1, 2], node=R - 1)]
+        if writes:
+            cs.write(list(range(0, L, 2)), wval, node=0)
+            cs.evict(list(range(0, L, 4)), node=0)
+            vals.append(cs.home_read(list(range(0, L, 2))))
+        for node in {0, R - 1}:
+            cs.evict([1, 2], node=node)
+        cs.home_write([1], np.ones((1, B), np.float32))
+        vals.append(cs.read([1, 2], node=0))
+        got.append(([v.cpu() for v in vals], flatten(cs.state),
+                    cs.interconnect_messages, cs.hits, cs.misses,
+                    cs.payload_bytes))
+    (vg, fg, *ag), (vc, fc, *ac) = got
+    for a, b in zip(vg, vc):
+        assert torch.equal(a, b)
+    for k in fc:
+        np.testing.assert_array_equal(fg[k], fc[k], err_msg=k)
+    assert ag == ac
+
+
+def test_quantize_weight_card_equals_cpu(cuda):
+    from repro_torch.serve.quantize import quantize_weight
+    rng = np.random.default_rng(SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        w = torch.as_tensor(rng.standard_normal((256, 384)).astype(
+            np.float32)).to(dtype)
+        got, want = quantize_weight(w.to(cuda)), quantize_weight(w)
+        assert torch.equal(got["q"].cpu(), want["q"])
+        assert torch.equal(got["s"].cpu().view(torch.int32),
+                           want["s"].view(torch.int32))

@@ -28,6 +28,7 @@ from repro.models import init_decode_state as j_init_state  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
 from repro.models import rglru as jrg  # noqa: E402
+from repro.serve import quantize as jq  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import models as K  # noqa: E402
@@ -338,11 +339,31 @@ def test_unported_configs_raise(arch):
             call()
 
 
-def test_quantized_weight_raises():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tL.mm(torch.zeros((2, 4)), {"q": torch.zeros((4, 4),
-                                                     dtype=torch.int8),
-                                    "s": torch.ones(4)})
+def test_quantized_mm_equals_reference():
+    """``mm`` of a quantized ``{"q", "s"}`` weight (the reference's codes
+    and scales) against ``repro.models.layers.mm``."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((B, 8, 64)).astype(np.float32)
+    jw = jq.quantize_weight(jnp.asarray(rng.standard_normal((64, 96)),
+                                        jnp.float32))
+    tw = {k: torch.as_tensor(np.array(v)) for k, v in jw.items()}
+    _close(tL.mm(torch.as_tensor(x), tw), jL.mm(jnp.asarray(x), jw))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-9b"])
+def test_quantized_forward_equals_reference(arch):
+    """A smoke forward over int8 weights: the reference's quantized
+    parameters carried across, against ``repro.models.forward``."""
+    jcfg = jconfigs.get_config(arch, smoke=True)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    jp = jq.quantize_params(j_init_params(jax.random.key(8), jcfg),
+                            min_size=64)
+    tp = convert.model_params_to_torch(_np(jp), tcfg, "cpu")
+    assert isinstance(tp["layers"][0]["ffn"]["w1"], dict)
+    toks = np.random.default_rng(8).integers(0, jcfg.vocab, (B, S)
+                                             ).astype(np.int32)
+    _close(T.forward(tp, tcfg, torch.as_tensor(toks).long()),
+           j_forward(jp, jcfg, jnp.asarray(toks), use_kernel=True)[0])
 
 
 def test_cpu_forward_launches_no_kernel():
