@@ -135,7 +135,26 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    prompts, 32 new tokens): a hot request's tokens equal to the cold
    one's, a republish invalidating exactly the readers holding the line;
    ``quantize_params`` on the card (one weight of each shape bit for bit
-   against the CPU) and the int8 engine's decode rate and token agreement.
+   against the CPU) and the int8 engine's decode rate and token agreement;
+11. the model families (MoE, RWKV6, encoder-decoder): the smoke configs
+   of granite-moe (also with ``dispatch_int8``), qwen3-moe, rwkv6 and
+   whisper card against CPU in fp32 (forward and 12 decode steps at
+   2e-4; one ``flash_attention`` per attention block, the encoder's and
+   the cross blocks among them: whisper 6, 4 of them non-causal, rwkv6
+   none); granite-moe-1b-a400m (24 layers, B=4, S=2048), rwkv6-3b (32
+   layers, B=4, S=512) and whisper-small (12 + 12 layers, B=4, 1500
+   frames, 256 tokens) at their published widths in bf16, one at a time
+   with parameters drawn on the card: prefill tokens/s (best of 3), with
+   exactly 24, 0 and 12 tensor-core ``flash_attention`` launches a
+   forward, four requests served through ``decode_step`` (whisper's cross
+   K/V computed once) and 32 greedy tokens, the bf16 decode/prefill gap
+   printed, and the device split of one granite-moe prefill (MoE
+   dispatch, expert bmm, attention); ``flash_attention`` at granite-moe's
+   [4, 16, 2048, 64] beside ``scaled_dot_product_attention``; fp32 at
+   full width with 2 layers, decode against prefill at 2e-4 (MoE at
+   capacity 8.0); one granite-moe layer in fp32 over 8,192 tokens, card
+   against CPU (``dispatch_positions`` bit for bit, the output at 2e-4,
+   the dropped slots printed).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -223,9 +242,36 @@ PROMPT, NEW_TOKENS, EXACT_S = 128, 32, 128
 #: twice that.  The top-1 agreement is printed, not held: with random
 #: weights the top logits of 256,000 lie closer together than the gap.
 BF16_GAP_BOUND = 0.55
-#: the smoke configs held card against CPU (every supported family).
+#: the smoke configs held card against CPU: the decoders of phase 3, then
+#: the families of phase 11 (MoE, RWKV6, encoder-decoder).
 SMOKE_ARCHS = ("smollm-360m", "gemma2-9b", "granite-34b", "nemotron-4-340b",
-               "chameleon-34b", "recurrentgemma-9b")
+               "chameleon-34b", "recurrentgemma-9b", "granite-moe-1b-a400m",
+               "qwen3-moe-235b-a22b", "rwkv6-3b", "whisper-small")
+FAMILY_ARCHS = SMOKE_ARCHS[6:]
+#: phase 11, the model families at their published widths in bf16, one
+#: at a time: (config, prefill batch, prefill tokens).  granite-moe at all
+#: 24 layers and S=2048; rwkv6-3b at all 32 layers but S=512, since its
+#: time mix is a loop over the tokens (PERF.md section 4); whisper-small's
+#: 12 + 12 layers over its 1500 frames and 256 tokens.  Each then serves
+#: ``PREFILL_B`` requests of ``PROMPT`` tokens and ``NEW_TOKENS`` more.
+FAMILY_PATHS = (("granite-moe-1b-a400m", 4, 2048), ("rwkv6-3b", 4, 512),
+                ("whisper-small", 4, 256))
+#: phase 11's fp32 exactness check: full width, 2 layers (whisper 2
+#: encoder and 2 decoder layers), decode against prefill over
+#: ``FAMILY_EXACT_S`` tokens; MoE at capacity 8.0, which drops no slot.
+FAMILY_EXACT_LAYERS, FAMILY_EXACT_S = 2, 64
+#: phase 11's MoE layer card against CPU: one granite-moe layer in fp32
+#: over T tokens (a B=4, S=2048 prefill's).
+MOE_LAYER_T = 8192
+#: card against CPU with the int8 dispatch and combine: rounding to a code
+#: is discontinuous, so an fp32 value within an ulp of a half code (the
+#: products' order differs between the card and the CPU) rounds one way
+#: there and the other here, moving a slot by one code, 1/127 of its
+#: row's largest value (0.0077 in the logits on an H100, PERF.md
+#: section 6); the smoke configs' other cases hold at 2e-4.
+Q8_TOL = 2e-2
+#: phase 11's budget: printed beside its wall time.
+FAMILY_BUDGET_S = 120
 #: the cases of ``tests/test_kernels.py``: (B, Hq, Hkv, Sq, Sk, D, causal,
 #: window, softcap) and (B, S, D), with its tolerances per dtype.
 ATTN_CASES = ((2, 4, 2, 64, 64, 32, True, None, None),
@@ -380,14 +426,16 @@ def wall_ms(fn, iters: int = 200, warmup: int = 10) -> float:
 PROFILE_TRIES = 3
 
 
-def device_entries(fn, iters: int = 100):
+def device_entries(fn, iters: int = 100, required: bool = True):
     """The profiler's device entries (kernels and memsets) over ``iters``
     calls of ``fn``, after one call to warm up.  Only device entries
     count: the entry of an aten op also carries the time of the kernels
     it launched, which have entries of their own.  A window in which the
     profiler recorded no device time at all (seen once on an H100 for a
-    kernel that records in every other run) is profiled again, up to
-    ``PROFILE_TRIES`` windows; then the script fails."""
+    kernel that records in every other run, and for every window late in
+    a whole run of this script) is profiled again, up to
+    ``PROFILE_TRIES`` windows; then the script fails, or, unless
+    ``required``, None is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -404,7 +452,9 @@ def device_entries(fn, iters: int = 100):
             return on_card
         print(f"profiler: no device time recorded in window {attempt} of "
               f"{PROFILE_TRIES}")
-    fail("the profiler recorded no device time")
+    if required:
+        fail("the profiler recorded no device time")
+    return None
 
 
 def device_ms(fn, iters: int = 100):
@@ -432,11 +482,18 @@ def per_call(on_card, iters: int):
 
 
 def where_the_time_goes(label: str, fn, wall_s: float, iters: int = 3,
-                        top=4):
+                        top=4, required: bool = True):
     """Print the device time of one call of ``fn`` (``per_call``) against
     its wall time (the device's idle share) and its ``top`` longest device
-    entries (``None``: every entry, with its runs per call)."""
-    rows = per_call(device_entries(fn, iters), iters)
+    entries (``None``: every entry, with its runs per call).  Unless
+    ``required``, a profiler that records no device time is reported, not
+    failed (``device_entries``)."""
+    on_card = device_entries(fn, iters, required)
+    if on_card is None:
+        print(f"{label}: device time not measured (the profiler recorded "
+              f"none)")
+        return
+    rows = per_call(on_card, iters)
     total = sum(ms for _, _, ms in rows)
     ops = sum(runs for _, runs, _ in rows)
     entries = "; ".join(f"{key[:48]} {ms:.3f} ms"
@@ -1567,58 +1624,93 @@ def rehearse_attention(dev):
         fail("flash_attention differs from its plain version")
 
 
-def card_params(params, dev):
-    """A copy of the port's parameter tree on ``dev``."""
-    return {"embed": {k: v.to(dev) for k, v in params["embed"].items()},
-            "layers": [{n: {k: v.to(dev) for k, v in blk.items()}
-                        for n, blk in layer.items()}
-                       for layer in params["layers"]]}
+def card_params(tree, dev):
+    """A copy on ``dev`` of any tree of dicts, lists and tuples of tensors
+    (the port's parameters, a decode state, a cross K/V)."""
+    if isinstance(tree, dict):
+        return {k: card_params(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(card_params(v, dev) for v in tree)
+    return tree.to(dev)
 
 
-def model_smoke_configs(dev):
-    """The six smoke configs of the slice in fp32, the same parameters on
-    the card (kernels) and the CPU (plain versions): forward logits at
-    B=2, S=16 and 12 decode steps allclose at 2e-4, and one
-    ``flash_attention`` per attention block and one ``rglru_scan`` per
-    recurrent block in each forward."""
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def attention_launches(cfg) -> dict:
+    """The kernel launches of one forward of ``cfg`` on the card: one
+    ``flash_attention`` per attention block whose lengths tile (every
+    one at smoke size: the decoder's, the encoder's and the cross
+    blocks), one ``rglru_scan`` per recurrent block, none for RWKV."""
+    from repro_torch.models import transformer as T
+    kinds = T.layer_kinds(cfg)
+    n = sum(k in ("ga", "la") for k in kinds)
+    if cfg.encoder is not None:
+        n += cfg.encoder.n_layers + cfg.n_superlayers
+    return {"flash_attention": n, "rglru_scan": kinds.count("rg")}
+
+
+def model_smoke_configs(dev, archs=SMOKE_ARCHS[:6], extra=()):
+    """Smoke configs in fp32, the same parameters on the card (kernels)
+    and the CPU (plain versions): forward logits at B=2, S=16 and 12
+    decode steps allclose at 2e-4 (whisper with 16 frames, its cross K/V
+    computed once for the decode), and ``attention_launches`` in each
+    forward.  ``extra``: (label, config, tolerance) held the same way."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import models as MK
     from repro_torch.models import transformer as T
-    for arch in SMOKE_ARCHS:
-        cfg = get_config(arch, smoke=True)
+    cases = [(arch, get_config(arch, smoke=True), 2e-4) for arch in archs]
+    for arch, cfg, tol in cases + list(extra):
         gen = torch.Generator(device="cpu").manual_seed(62)
         cpu_p = T.init_params(cfg, generator=gen, device="cpu")
         card_p = card_params(cpu_p, dev)
         toks = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+        frames = cross_c = cross_g = None
+        if cfg.encoder is not None:
+            frames = torch.randn((2, cfg.encoder.n_frames, cfg.d_model),
+                                 generator=gen)
         MK.reset_launches()
-        got = T.forward(card_p, cfg, toks.to(dev))
+        got = T.forward(card_p, cfg, toks.to(dev),
+                        frames=None if frames is None else frames.to(dev))
         counts = dict(MK.launches)
-        kinds = T.layer_kinds(cfg)
-        want_counts = {"flash_attention": sum(k != "rg" for k in kinds),
-                       "rglru_scan": kinds.count("rg")}
+        want_counts = attention_launches(cfg)
         if counts != want_counts:
             fail(f"model {arch} smoke: launches {counts}, expected "
                  f"{want_counts}")
-        want = T.forward(cpu_p, cfg, toks)
+        want = T.forward(cpu_p, cfg, toks, frames=frames)
         err_f = float((got.cpu() - want).abs().max())
-        if not torch.allclose(got.cpu(), want, atol=2e-4, rtol=2e-4):
+        if not torch.allclose(got.cpu(), want, atol=tol, rtol=tol):
             fail(f"model {arch} smoke: forward on the card differs from "
                  f"the CPU's, max abs err {err_f}")
+        if frames is not None:
+            cross_c = T.cross_kv(cpu_p, cfg, T.encode(cpu_p, cfg, frames))
+            cross_g = T.cross_kv(card_p, cfg,
+                                 T.encode(card_p, cfg, frames.to(dev)))
         st_g = T.init_decode_state(cfg, 2, 12, dev)
         st_c = T.init_decode_state(cfg, 2, 12, "cpu")
         err_d = 0.0
         for t in range(12):
             lg_g, st_g = T.decode_step(card_p, cfg, toks[:, t].to(dev), t,
-                                       st_g)
-            lg_c, st_c = T.decode_step(cpu_p, cfg, toks[:, t], t, st_c)
+                                       st_g, cross=cross_g)
+            lg_c, st_c = T.decode_step(cpu_p, cfg, toks[:, t], t, st_c,
+                                       cross=cross_c)
             err_d = max(err_d, float((lg_g.cpu() - lg_c).abs().max()))
-            if not torch.allclose(lg_g.cpu(), lg_c, atol=2e-4, rtol=2e-4):
+            if not torch.allclose(lg_g.cpu(), lg_c, atol=tol, rtol=tol):
                 fail(f"model {arch} smoke: decode step {t} on the card "
                      f"differs from the CPU's, max abs err {err_d}")
-        print(f"model {arch} smoke (fp32): card == CPU, forward max abs "
-              f"err {err_f:.3g}, 12 decode steps {err_d:.3g}; launches "
-              f"{json.dumps(counts)}")
+        print(f"model {arch} smoke (fp32): card == CPU at {tol:g}, forward "
+              f"max abs err {err_f:.3g}, 12 decode steps {err_d:.3g}; "
+              f"launches "
+              f"{json.dumps(counts)}"
+              + (f" ({cfg.encoder.n_layers + cfg.n_superlayers} of them "
+                 f"non-causal)" if cfg.encoder is not None else ""))
 
 
 def model_path(dev, rows):
@@ -1824,6 +1916,451 @@ def phase_model(dev, rows):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     print(f"model phase {time.perf_counter() - t0:.1f} s")
+
+
+#: launches of ``flash_attention`` per bf16 forward of each of phase 11's
+#: paths: granite-moe's 24 causal layers (S=2048 tiles); none for RWKV;
+#: whisper's 12 decoder layers (S=256), while its encoder and
+#: cross-attention over 1500 frames (not a multiple of 128) take
+#: ``ref.chunked_attention``'s route, as the reference's routing does.
+FAMILY_LAUNCHES = {"granite-moe-1b-a400m": 24, "rwkv6-3b": 0,
+                   "whisper-small": 12}
+
+
+def labelled_split(fn, labels):
+    """Profile one call of ``fn`` (after one to warm up) with a profiler
+    range around each call of the functions ``labels`` names ({label:
+    (module, attribute)}; patched for the call, restored after): (the
+    device ms of every kernel and memset, {label: device ms of the kernels
+    launched inside its ranges}, {device entry: (ms, count)})."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+    saved = []
+    for label, (mod, attr) in labels.items():
+        f = getattr(mod, attr)
+
+        def ranged(*a, _f=f, _label=label, **k):
+            with record_function(_label):
+                return _f(*a, **k)
+
+        saved.append((mod, attr, f))
+        setattr(mod, attr, ranged)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranged_ms = {label: sum(ev.device_time_total for ev in events
+                            if ev.name == label and ev.device_type == cpu
+                            ) / 1e3 for label in labels}
+    entries = {}
+    for ev in events:
+        if ev.device_type == cuda and ev.name not in labels:
+            ms, n = entries.get(ev.name, (0.0, 0))
+            entries[ev.name] = (ms + ev.self_device_time_total / 1e3, n + 1)
+    return sum(ms for ms, _ in entries.values()), ranged_ms, entries
+
+
+def wall_share(fn, mod, attr: str):
+    """(host wall s of one call of ``fn``, the wall s spent inside calls
+    of ``mod.attr``), each such call bracketed by device syncs (patched
+    for the call, restored after)."""
+    import torch
+    inner = getattr(mod, attr)
+    spent = 0.0
+
+    def timed(*a, **k):
+        nonlocal spent
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        spent += time.perf_counter() - t0
+        return out
+
+    setattr(mod, attr, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, spent
+    finally:
+        setattr(mod, attr, inner)
+
+
+def family_path(dev, arch: str, B: int, S: int, rows) -> None:
+    """One model family at its published widths in bf16, parameters drawn
+    on the card: prefill ``forward(last_only=True)`` at B x S (whisper
+    over its 1500 frames), a warm-up then the best of 3, with exactly
+    ``FAMILY_LAUNCHES[arch]`` tensor-core ``flash_attention`` launches a
+    forward; then ``PREFILL_B`` requests served through ``decode_step``
+    (``PROMPT``-token prompts, held against the prefill of the same
+    prompts, the bf16 gap printed, not gated; whisper's cross K/V computed
+    once), and ``NEW_TOKENS`` greedy tokens.  The launch counts are set
+    to 0 just before and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import models as MK
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import rwkv6 as trw
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(66)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    nbytes = tree_bytes(params)
+    print(f"family {arch} (published config: {cfg.n_layers} layers"
+          + (f" + {cfg.encoder.n_layers} encoder layers"
+             if cfg.encoder is not None else "")
+          + f", d={cfg.d_model}, pattern {cfg.block_pattern}"
+          + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+             f"d_ff {cfg.moe.expert_d_ff}" if cfg.moe is not None else "")
+          + f", vocab {cfg.vocab}) bf16: {nbytes} parameter bytes "
+          f"({nbytes / 1e9:.2f} GB; the config's param_count x 2 bytes "
+          f"{2 * cfg.param_count() / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    frames = None
+    if cfg.encoder is not None:
+        frames = torch.randn((B, cfg.encoder.n_frames, cfg.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
+    per_fwd = FAMILY_LAUNCHES[arch]
+    torch.cuda.synchronize()
+    MK.reset_launches()
+    n_fwd = 0
+
+    def prefill(tokens=toks):
+        nonlocal n_fwd
+        n_fwd += 1
+        return T.forward(params, cfg, tokens, frames=frames, last_only=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lg = prefill()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lg = prefill()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    if lg.shape != (B, 1, cfg.padded_vocab) or \
+            not bool(lg[..., :cfg.vocab].isfinite().all()):
+        fail(f"family {arch}: prefill logits {tuple(lg.shape)} not finite")
+    print(f"family {arch} prefill: B={B} S={S}"
+          + (f" over {cfg.encoder.n_frames} frames"
+             if frames is not None else "")
+          + f" forward(last_only=True) best of 3 {best * 1e3:.3f} ms "
+          f"({B * S / best:.1f} tokens/s; first call {first * 1e3:.1f} "
+          f"ms); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # -- four requests: prompt through decode_step, then greedy decode ----
+    prompts = toks[:, :PROMPT]
+    cross = None
+    t0 = time.perf_counter()
+    if frames is not None:          # once per batch, for every step
+        cross = T.cross_kv(params, cfg, T.encode(params, cfg, frames))
+    torch.cuda.synchronize()
+    t_cross = time.perf_counter() - t0
+    state = T.init_decode_state(cfg, B, PROMPT + NEW_TOKENS, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(PROMPT):
+        dec, state = T.decode_step(params, cfg, prompts[:, t], t, state,
+                                   cross=cross)
+    torch.cuda.synchronize()
+    t_prompt = time.perf_counter() - t0
+    pre = prefill(prompts)[:, 0]
+    V = cfg.vocab
+    gap = float((dec[:, :V] - pre[:, :V]).abs().max())
+    top1 = int((dec[:, :V].argmax(-1) == pre[:, :V].argmax(-1)).sum())
+    tok = dec[:, :V].argmax(-1)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(NEW_TOKENS):
+        out.append(tok)
+        lg_d, state = T.decode_step(params, cfg, tok, PROMPT + i, state,
+                                    cross=cross)
+        tok = lg_d[:, :V].argmax(-1)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    if torch.stack(out, 1).shape != (B, NEW_TOKENS) or \
+            not bool(lg_d[:, :V].isfinite().all()):
+        fail(f"family {arch}: greedy decode produced no finite logits")
+    counts = dict(MK.launches)
+    tc = MK.symbol_launches.get("models_flash_attention_tc", 0)
+    simt = MK.symbol_launches.get("models_flash_attention", 0)
+    print(f"family {arch} serve: {B} prompts of {PROMPT} tokens through "
+          f"decode_step in {t_prompt:.3f} s ({B * PROMPT / t_prompt:.1f} "
+          f"tokens/s)" + (f", the cross K/V once in {t_cross * 1e3:.1f} ms"
+                          if cross is not None else "")
+          + f"; bf16 gap to forward(last_only=True) {gap:.4f} (logits up "
+          f"to {float(pre[:, :V].abs().max()):.3f}; not gated), top-1 "
+          f"agreement {top1}/{B}; decode {NEW_TOKENS} greedy tokens in "
+          f"{t_dec:.3f} s ({t_dec / NEW_TOKENS * 1e3:.2f} ms per step, "
+          f"{B * NEW_TOKENS / t_dec:.1f} tokens/s)")
+    print(f"family {arch}: launches {json.dumps(counts)} over {n_fwd} "
+          f"forwards ({per_fwd} flash_attention each; decode launches "
+          f"none), tensor-core entries {tc}, CUDA-core {simt}")
+    if counts != {"flash_attention": per_fwd * n_fwd, "rglru_scan": 0} \
+            or tc != per_fwd * n_fwd or simt:
+        fail(f"family {arch}: launches {counts}, tensor-core {tc}, "
+             f"CUDA-core {simt}; expected {per_fwd} tensor-core launches "
+             f"per forward")
+    rows["flash_attention"]["launches"] += counts["flash_attention"]
+
+    if cfg.moe is not None:          # where one prefill's device time goes
+        total, ranged, entries = labelled_split(
+            prefill, {"moe_block": (T, "moe_block"),
+                      "expert_bmm": (tmoe, "qeinsum")})
+        attn = [(ms, n) for k, (ms, n) in entries.items()
+                if "flash_attention" in k]
+        attn_ms = sum(ms for ms, _ in attn)
+        attn_n = sum(n for _, n in attn)
+        if attn_n and attn_n < per_fwd:   # dropped records: mean x calls
+            attn_ms *= per_fwd / attn_n
+        moe_ms, bmm_ms = ranged["moe_block"], ranged["expert_bmm"]
+        top = sorted(entries.items(), key=lambda kv: -kv[1][0])[:4]
+        if total == 0:
+            print(f"family {arch} prefill device time: not measured (the "
+                  f"profiler recorded none)")
+        else:
+            print(f"family {arch} prefill device time: {total:.3f} ms of "
+                  f"{best * 1e3:.3f} ms wall (idle "
+                  f"{100 * (1 - total / (best * 1e3)):.1f}%): MoE blocks "
+                  f"{moe_ms:.3f} ms (expert bmm {bmm_ms:.3f}; router, "
+                  f"dispatch, the swiglu's elementwise and combine "
+                  f"{moe_ms - bmm_ms:.3f}), flash_attention {attn_ms:.3f} "
+                  f"ms ({attn_n} of {per_fwd} entries recorded), the rest "
+                  f"{total - moe_ms - attn_ms:.3f} ms; longest: "
+                  + "; ".join(f"{k[:40]} {ms:.3f} ms x{n}"
+                              for k, (ms, n) in top))
+    if "rwkv" in cfg.block_pattern:  # the WKV loop's share of a prefill
+        wall, inside = wall_share(prefill, trw, "_time_mix")
+        print(f"family {arch} prefill: the time mix (its projections and "
+              f"the loop over {S} tokens) {inside * 1e3:.3f} ms of "
+              f"{wall * 1e3:.3f} ms wall ({100 * inside / wall:.1f}%, each "
+              f"call between device syncs)")
+    where_the_time_goes(f"family {arch} decode_step", lambda: T.decode_step(
+        params, cfg, tok, PROMPT + NEW_TOKENS - 1, state, cross=cross),
+        t_dec / NEW_TOKENS, required=False)
+    del params, state, lg, pre, dec, lg_d, cross, frames
+    torch.cuda.empty_cache()
+
+
+def family_attention(dev) -> None:
+    """``flash_attention`` at granite-moe's prefill shape ([4, 16, 2048,
+    64] queries over [4, 8, 2048, 64], causal, bf16) against its plain
+    version (allclose at 2e-2) and timed beside it and
+    ``scaled_dot_product_attention`` with the same mask, with its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import models as MK
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(67)
+    B_, Hq, Hkv, S_, D = 4, 16, 8, 2048, 64
+    q, k, v = (torch.randn((B_, h, S_, D), generator=g,
+                           device=dev).bfloat16() for h in (Hq, Hkv, Hkv))
+    got, want = MK.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(),
+                          atol=ATTN_TOL["bfloat16"],
+                          rtol=ATTN_TOL["bfloat16"]):
+        fail(f"flash_attention at granite-moe's shape: max abs err {err}")
+    # between CUDA events (late in a whole run the profiler has recorded
+    # no device time); each call is long, so the host adds no gaps.
+    ms = wall_ms(lambda: MK.flash_attention(q, k, v), MODEL_ITERS, 2)
+    plain_ms = wall_ms(lambda: ref.flash_attention_ref(q, k, v),
+                       MODEL_ITERS, 2)
+    lib_ms = wall_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), MODEL_ITERS, 2)
+    pairs = attention_pairs(S_, S_, True, None)
+    nops = 4 * D * B_ * Hq * pairs
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    bound = max(nops / TENSOR_CORE_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+    print(f"kernel flash_attention at granite-moe's [4,16,2048,64]/"
+          f"[4,8,2048,64] causal bf16: allclose (max abs err {err:g}); "
+          f"between CUDA events, {MODEL_ITERS} calls back to back: "
+          f"{ms * 1e3:.3f} us ({nops / ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * bound * 1e3 / ms:.1f}% of its bound "
+          f"{bound * 1e6:.3f} us: {nops} flops, {nbytes} bytes), plain "
+          f"{plain_ms * 1e3:.3f} us, scaled_dot_product_attention "
+          f"{lib_ms * 1e3:.3f} us ({lib_ms / ms:.3f}x the kernel's time)")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+
+def family_exact(dev) -> None:
+    """fp32 at full width with the depth cut to ``FAMILY_EXACT_LAYERS``
+    (whisper: as many encoder layers too, over its 1500 frames): decode
+    against prefill at 2e-4, MoE at capacity 8.0 (no slot dropped by
+    either)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    for arch, _, _ in FAMILY_PATHS:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(
+            cfg, n_layers=FAMILY_EXACT_LAYERS, dtype="float32",
+            moe=cfg.moe and dataclasses.replace(cfg.moe,
+                                                capacity_factor=8.0),
+            encoder=cfg.encoder and dataclasses.replace(
+                cfg.encoder, n_layers=FAMILY_EXACT_LAYERS))
+        gen = torch.Generator(device=dev).manual_seed(68)
+        params = T.init_params(cfg, generator=gen, device=dev)
+        toks = torch.randint(0, cfg.vocab, (2, FAMILY_EXACT_S),
+                             generator=gen, device=dev)
+        frames = cross = None
+        if cfg.encoder is not None:
+            frames = torch.randn((2, cfg.encoder.n_frames, cfg.d_model),
+                                 generator=gen, device=dev)
+            cross = T.cross_kv(params, cfg, T.encode(params, cfg, frames))
+        pre = T.forward(params, cfg, toks, frames=frames,
+                        last_only=True)[:, 0]
+        state = T.init_decode_state(cfg, 2, FAMILY_EXACT_S, dev)
+        for t in range(FAMILY_EXACT_S):
+            dec, state = T.decode_step(params, cfg, toks[:, t], t, state,
+                                       cross=cross)
+        V = cfg.vocab
+        err = float((dec[:, :V] - pre[:, :V]).abs().max())
+        print(f"family exact: {arch} fp32 at d={cfg.d_model}, "
+              f"{cfg.n_layers} layers"
+              + (f" + {cfg.encoder.n_layers} encoder layers over "
+                 f"{cfg.encoder.n_frames} frames" if frames is not None
+                 else "")
+              + (", capacity 8.0" if cfg.moe is not None else "")
+              + f", B=2 S={FAMILY_EXACT_S}: decode against prefill max abs "
+              f"err {err:.3g} (logits up to "
+              f"{float(pre[:, :V].abs().max()):.3f})")
+        if not torch.allclose(dec[:, :V], pre[:, :V], atol=2e-4, rtol=2e-4):
+            fail(f"family exact: {arch} fp32 decode differs from prefill "
+                 f"by {err}")
+        del params, state, cross
+        torch.cuda.empty_cache()
+
+
+def family_moe_layer(dev) -> None:
+    """One granite-moe layer in fp32 over ``MOE_LAYER_T`` tokens, card
+    against CPU on the same parameters and input: ``dispatch_positions``
+    from the same expert indices bit for bit, the block's output and aux
+    loss allclose at 2e-4; the dropped slots printed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as tmoe
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              dtype="float32")
+    m = cfg.moe
+    gen = torch.Generator(device="cpu").manual_seed(69)
+    p = tmoe.moe_params(gen, cfg, torch.float32, "cpu")
+    x = torch.randn((4, MOE_LAYER_T // 4, cfg.d_model), generator=gen)
+    p_g, x_g = card_params(p, dev), x.to(dev)
+
+    def experts(pp, xx):
+        xn = L.rms_norm(xx, pp["ln"]).reshape(-1, cfg.d_model)
+        probs = torch.softmax(xn.float() @ pp["router"], dim=-1)
+        return torch.topk(probs, m.top_k, dim=-1).indices.reshape(-1)
+
+    def one_hot_positions(flat_e):
+        """The reference's slot positions: a cumsum down the one-hot
+        ``[T * k, E]`` plane."""
+        onehot = torch.nn.functional.one_hot(flat_e, m.n_experts)
+        return (onehot.cumsum(0) - onehot).gather(1, flat_e[:, None])[:, 0]
+
+    flat_g, flat_c = experts(p_g, x_g), experts(p, x)
+    cap = tmoe.capacity(MOE_LAYER_T, cfg)
+    got = tmoe.dispatch_positions(flat_g, m.n_experts, cap)
+    want = tmoe.dispatch_positions(flat_g.cpu(), m.n_experts, cap)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)) or \
+            not torch.equal(got[0], one_hot_positions(flat_g)):
+        fail("family MoE layer: dispatch_positions on the card differ "
+             "from the CPU's or from the one-hot cumsum's")
+    sort_ms = wall_ms(lambda: tmoe.dispatch_positions(
+        flat_g, m.n_experts, cap), 20, 2)
+    hot_ms = wall_ms(lambda: one_hot_positions(flat_g), 20, 2)
+    print(f"family MoE layer: dispatch_positions over {flat_g.numel()} "
+          f"slots, between CUDA events, 20 calls back to back: the stable "
+          f"sort {sort_ms * 1e3:.3f} us a call, the reference's one-hot "
+          f"cumsum {hot_ms * 1e3:.3f} us")
+    dropped = int((~want[1]).sum())
+    y_g, aux_g = tmoe.moe_block(p_g, cfg, x_g)
+    y_c, aux_c = tmoe.moe_block(p, cfg, x)
+    err = float((y_g.cpu() - y_c).abs().max())
+    routed = int((flat_g.cpu() != flat_c).sum())
+    print(f"family MoE layer: granite-moe fp32, T={MOE_LAYER_T}, "
+          f"{m.n_experts} experts top-{m.top_k}, capacity {cap}: "
+          f"dispatch_positions card == CPU bit for bit over "
+          f"{flat_g.numel()} slots, {dropped} dropped; expert choices "
+          f"differing card vs CPU {routed}; output max abs err {err:.3g}, "
+          f"aux {float(aux_g):.6f} vs {float(aux_c):.6f}")
+    if not (torch.allclose(y_g.cpu(), y_c, atol=2e-4, rtol=2e-4)
+            and torch.allclose(aux_g.cpu(), aux_c, atol=2e-4, rtol=2e-4)):
+        fail(f"family MoE layer: the block on the card differs from the "
+             f"CPU's by {err}")
+    q8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, dispatch_int8=True))
+    y_g, _ = tmoe.moe_block(p_g, q8, x_g)
+    y_c, _ = tmoe.moe_block(p, q8, x)
+    diff = (y_g.cpu() - y_c).abs()
+    err = float(diff.max())
+    past = int((diff > 2e-4).sum())
+    print(f"family MoE layer with dispatch_int8: output max abs err "
+          f"{err:.3g}, {past} of {diff.numel()} elements past 2e-4 (codes "
+          f"that round the other way; at most 1% of them, none past "
+          f"{2 * Q8_TOL:g}, two codes of a row of largest value 2.54)")
+    if past > diff.numel() // 100 or err > 2 * Q8_TOL:
+        fail(f"family MoE layer: the int8 dispatch on the card differs "
+             f"from the CPU's by {err} in {past} elements")
+    del p_g, x_g, y_g
+    torch.cuda.empty_cache()
+
+
+def phase_families(dev, rows) -> None:
+    """Phase 11: the model families (MoE, RWKV6, encoder-decoder) — (a)
+    the four smoke configs and granite-moe with the int8 dispatch, card
+    against CPU; (b) granite-moe-1b-a400m, rwkv6-3b and whisper-small at
+    their published widths in bf16 (``family_path``), and
+    ``flash_attention`` at granite-moe's shape; (c) the fp32 exactness
+    check; (d) one granite-moe layer card against CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 stays fp32
+    try:
+        moe = get_config("granite-moe-1b-a400m", smoke=True)
+        model_smoke_configs(dev, FAMILY_ARCHS, extra=[(
+            "granite-moe-1b-a400m dispatch_int8", dataclasses.replace(
+                moe, moe=dataclasses.replace(moe.moe, dispatch_int8=True)),
+            Q8_TOL)])
+        for arch, B, S in FAMILY_PATHS:
+            family_path(dev, arch, B, S, rows)
+        family_attention(dev)
+        family_exact(dev)
+        family_moe_layer(dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    print(f"model families phase {time.perf_counter() - t0:.1f} s (budget "
+          f"{FAMILY_BUDGET_S} s)")
 
 
 def check_no_host_sync(eng, ops: int, width: int, label: str,
@@ -2811,6 +3348,7 @@ def main() -> int:
     phase_open_loop(dev, rows)
     phase_fleet(dev, rows)
     phase_store_serve(dev, rows)
+    phase_families(dev, rows)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

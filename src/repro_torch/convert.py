@@ -27,8 +27,10 @@ each slot of the superlayer pattern over superlayers (``params["layers"]
 ["slot{j}"]`` with a leading ``[n_super]`` axis, then ``params["tail"]
 ["tail{j}"]``), the port keeps one dict per layer in layer order
 (``model_params_to_torch``, ``decode_state_to_torch``,
-``decode_state_to_numpy``).  A bfloat16 leaf crosses through float32,
-exactly.
+``decode_state_to_numpy``); the encoder's stacked layers and the stacked
+cross-attention likewise become lists, and the reference's stacked
+cross K/V a list of (k, v) pairs (``cross_kv_to_torch``).  A bfloat16
+leaf crosses through float32, exactly.
 """
 from __future__ import annotations
 
@@ -45,7 +47,6 @@ from .core.engine_mn import EngineMNState
 from .core.pushdown import ShardedKVS
 from .core.transport import Channel
 from .device import resolve_device
-from .models.transformer import check_supported
 from .nmp.dfa import dfa_tables
 from .nmp.kvstore import KVStore, as_records
 from .traffic.counters import Counters
@@ -213,35 +214,60 @@ def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:
     return _to_tensor(a, device)
 
 
+def _take(t, li, device: torch.device):
+    """A (nested dict of) stacked leaf, sliced at ``li`` (all of it if
+    None), as tensors on ``device``."""
+    if isinstance(t, dict):
+        return {k: _take(v, li, device) for k, v in t.items()}
+    return _leaf_to_torch(np.asarray(t) if li is None
+                          else np.asarray(t)[li], device)
+
+
+def _unstack(tree, n: int, device: torch.device) -> list:
+    """A tree stacked over a leading axis of ``n`` as ``n`` trees."""
+    return [_take(tree, li, device) for li in range(n)]
+
+
 def _by_layer(tree, cfg, device: torch.device) -> list:
     """The reference's stacked ``{"slot{j}": ..., "tail": {"tail{j}":
     ...}}`` tree as one dict of tensors per layer, in layer order."""
-    def take(t, li):
-        if isinstance(t, dict):
-            return {k: take(v, li) for k, v in t.items()}
-        return _leaf_to_torch(np.asarray(t) if li is None
-                              else np.asarray(t)[li], device)
-
-    out = [take(tree[f"slot{j}"], li) for li in range(cfg.n_superlayers)
+    out = [_take(tree[f"slot{j}"], li, device)
+           for li in range(cfg.n_superlayers)
            for j in range(len(cfg.block_pattern))]
-    out += [take(tree["tail"][f"tail{j}"], None)
+    out += [_take(tree["tail"][f"tail{j}"], None, device)
             for j in range(len(cfg.tail_pattern))]
     return out
 
 
 def model_params_to_torch(np_params, cfg, device=None) -> dict:
     """The reference's parameter pytree (numpy leaves, from
-    ``repro.models.init_params``) as the port's ``{"embed": {...},
-    "layers": [...]}`` on ``device`` (``models.transformer.init_params``'s
-    layout)."""
-    check_supported(cfg)
+    ``repro.models.init_params``, dense or quantized) as the port's
+    ``{"embed": {...}, "layers": [...]}`` (with ``"encoder"`` and
+    ``"cross"`` for an encoder-decoder) on ``device``
+    (``models.transformer.init_params``'s layout)."""
     dev = resolve_device(device)
     tree = dict(np_params["layers"])
     if cfg.tail_pattern:
         tree["tail"] = np_params["tail"]
-    return {"embed": {k: _leaf_to_torch(v, dev)
-                      for k, v in np_params["embed"].items()},
-            "layers": _by_layer(tree, cfg, dev)}
+    out = {"embed": _take(np_params["embed"], None, dev),
+           "layers": _by_layer(tree, cfg, dev)}
+    if cfg.encoder is not None:
+        enc = np_params["encoder"]
+        out["encoder"] = {
+            "layers": _unstack(enc["layers"], cfg.encoder.n_layers, dev),
+            "final_ln": _leaf_to_torch(enc["final_ln"], dev)}
+        out["cross"] = _unstack(np_params["cross"], cfg.n_superlayers, dev)
+    return out
+
+
+def cross_kv_to_torch(np_cross, device=None) -> list:
+    """The reference's cross K/V (``transformer._cross_kv``: a pair of
+    ``[n_super, B, Hkv, T, hd]`` arrays) as the port's list of one (k, v)
+    a superlayer (``models.transformer.cross_kv``'s form)."""
+    dev = resolve_device(device)
+    k, v = (np.asarray(a) for a in np_cross)
+    return [(_leaf_to_torch(k[i], dev), _leaf_to_torch(v[i], dev))
+            for i in range(k.shape[0])]
 
 
 def decode_state_to_torch(np_state, cfg, device=None) -> list:

@@ -90,18 +90,19 @@ BLOCK = 128
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None,
-              kv_length=None) -> torch.Tensor:
+              kv_length=None, use_kernel: bool = True) -> torch.Tensor:
     """Attention entry point of the model layers: q [B, Hq, Sq, D] over
     k, v [B, Hkv, Sk, D].
 
     The kernel (``kernels.models.flash_attention``) takes the shapes the
     reference's Pallas kernel takes: no ``kv_length``, ``Sq`` and ``Sk``
-    multiples of their blocks (``min(BLOCK, S)``).  Otherwise a large or
-    decode shape (``Sq * Sk > 256 * 256``, or ``kv_length`` set) runs
-    ``ref.chunked_attention`` and a small ragged one
-    ``ref.flash_attention_ref``."""
+    multiples of their blocks (``min(BLOCK, S)``).  Otherwise, or with
+    ``use_kernel=False``, a large or decode shape (``Sq * Sk > 256 *
+    256``, or ``kv_length`` set) runs ``ref.chunked_attention`` and a
+    small one ``ref.flash_attention_ref``."""
     Sq, Sk = q.shape[2], k.shape[2]
-    if Sq % min(BLOCK, Sq) or Sk % min(BLOCK, Sk) or kv_length is not None:
+    if (not use_kernel or Sq % min(BLOCK, Sq) or Sk % min(BLOCK, Sk)
+            or kv_length is not None):
         if Sq * Sk > 256 * 256 or kv_length is not None:
             return _ref.chunked_attention(q, k, v, causal=causal,
                                           window=window, softcap=softcap,

@@ -1,7 +1,8 @@
-"""Model substrate of the port: the layer library and the assembly of the
-dense, gemma2, chameleon and recurrentgemma decoders (block kinds ``ga``,
-``la``, ``rg``), with ``configs/`` naming the published configs."""
+"""Model substrate of the port: the layer library and the assembly of
+every family of the configs (dense, gemma2, chameleon, recurrentgemma,
+MoE, RWKV6 and the whisper encoder-decoder), with ``configs/`` naming the
+published configs."""
 
 from .config import EncoderConfig, ModelConfig, MoEConfig  # noqa: F401
-from .transformer import (decode_step, forward, init_decode_state,  # noqa
-                          init_params)
+from .transformer import (cross_kv, decode_step, encode, forward,  # noqa
+                          init_decode_state, init_params)

@@ -48,6 +48,19 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+def qeinsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """``einsum`` with a tensor or a quantized ``{"q": int8 [..., in,
+    out], "s": fp32 [..., out]}`` weight.  The scale multiplies the output
+    over its second-to-last axis too (``s[..., None, :]``): an expert
+    weight ``[E, d, f]`` has the scale ``[E, f]`` and the product ``[E, C,
+    f]``.  (The reference multiplies by ``s`` unexpanded, which does not
+    broadcast against ``[E, C, f]``: its int8 MoE raises.)"""
+    if isinstance(w, dict):
+        return torch.einsum(spec, x, w["q"].to(x.dtype)) * \
+            w["s"].to(x.dtype)[..., None, :]
+    return torch.einsum(spec, x, w)
+
+
 # ---------------------------------------------------------------------------
 # normalization / rotary
 # ---------------------------------------------------------------------------
@@ -108,39 +121,53 @@ def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, window: Optional[int],
                     kv_cache: Optional[Tuple[torch.Tensor,
                                              torch.Tensor]] = None,
-                    cache_index: Optional[int] = None
+                    cache_index: Optional[int] = None, causal: bool = True,
+                    cross_kv: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
+                    use_kernel: bool = True
                     ) -> Tuple[torch.Tensor,
                                Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Pre-norm causal attention with residual: (y, kv_cache).
+    """Pre-norm attention with residual: (y, kv_cache).
 
     ``kv_cache``: (k, v) [B, Hkv, S_max, hd], written IN PLACE at
     ``cache_index`` (clamped to ``[0, S_max - S]``, as
     ``jax.lax.dynamic_update_slice`` clamps) and attended over its valid
     prefix (``kv_length = cache_index + S``) — the decode path.
+
+    ``cross_kv``: the encoder's (k, v) [B, Hkv, T, hd] (whisper's
+    decoder): no k/v projection, no rotary on q, no cache, not causal;
+    ``q_norm`` still applies.  ``use_kernel=False`` takes the plain
+    attention as the reference's default does (its ``decode_step``).
     """
     B, S, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     kv_length = None
     xn = rms_norm(x, p["ln"])
     q = split_heads(mm(xn, p["wq"]), h, hd)
-    k = split_heads(mm(xn, p["wk"]), hkv, hd)
-    v = split_heads(mm(xn, p["wv"]), hkv, hd)
-    if cfg.qk_norm:
-        k = rms_norm(k, p["k_norm"])
-    k = rope(k, positions, cfg.rope_theta)
-    if kv_cache is not None:
-        ck, cv = kv_cache
-        start = min(max(int(cache_index), 0), ck.shape[2] - S)
-        ck[:, :, start:start + S] = k.to(ck.dtype)
-        cv[:, :, start:start + S] = v.to(cv.dtype)
-        k, v = ck, cv
-        kv_length = int(cache_index) + S
+    if cross_kv is not None:
+        k, v = cross_kv
+        kv_cache, causal = None, False
+    else:
+        k = split_heads(mm(xn, p["wk"]), hkv, hd)
+        v = split_heads(mm(xn, p["wv"]), hkv, hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"])
+        k = rope(k, positions, cfg.rope_theta)
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            start = min(max(int(cache_index), 0), ck.shape[2] - S)
+            ck[:, :, start:start + S] = k.to(ck.dtype)
+            cv[:, :, start:start + S] = v.to(cv.dtype)
+            k, v = ck, cv
+            kv_length = int(cache_index) + S
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
-    q = rope(q, positions, cfg.rope_theta)
+    if cross_kv is None:
+        q = rope(q, positions, cfg.rope_theta)
 
-    o = kops.attention(q, k, v, causal=True, window=window,
-                       softcap=cfg.attn_softcap, kv_length=kv_length)
+    o = kops.attention(q, k, v, causal=causal, window=window,
+                       softcap=cfg.attn_softcap, kv_length=kv_length,
+                       use_kernel=use_kernel)
     o = o.transpose(1, 2).reshape(B, S, h * hd)
     return x + mm(o, p["wo"]), kv_cache
 

@@ -1,0 +1,186 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch.
+
+The port of ``repro.models.moe`` (granite-3.0-moe, 32 experts top-8;
+qwen3-moe, 128 experts top-8) on one device.  Tokens pick their top-k
+experts through an fp32 router; each (token, k) slot takes a position in
+its expert's capacity buffer ``[E, C, d]`` by arrival order, and slots
+past the capacity are dropped.  The experts' swiglu FFNs run as batched
+products over the buffer; the router carries the Switch load-balancing
+loss.
+
+Deterministic on the card: only kept slots are written to the buffer,
+and their (expert, position) pairs are unique, so the scatter is a copy,
+not an accumulation; each token's k contributions are summed over a
+``[T, k, d]`` view in slot order, not with an atomic ``index_add_``.
+
+``dispatch_int8=True`` sends the buffer and the experts' outputs through
+int8 with a per-slot scale, as the reference's ``_dispatch_q8`` and
+``_combine_q8`` do (forward only; their backward comes with training).
+The shard-local dispatch and the expert-parallel sharding constraint
+belong to meshes.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import Params, dense_init, qeinsum, rms_norm
+
+#: the ROADMAP item that ports meshes and training.
+MESH_ITEM = "ROADMAP Queue 1 item 17 (launch/sharding.py, train/)"
+
+
+def set_ep_spec(spec) -> None:
+    raise NotImplementedError(f"set_ep_spec: {MESH_ITEM}")
+
+
+def moe_block_local(*args, **kwargs):
+    raise NotImplementedError(f"moe_block_local: {MESH_ITEM}")
+
+
+def moe_params(gen, cfg: ModelConfig, dtype, device) -> Params:
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.expert_d_ff, m.n_experts
+    return {
+        "ln": torch.zeros((d,), dtype=dtype, device=device),
+        "router": dense_init(gen, d, (d, e), torch.float32, device),
+        "w1": dense_init(gen, d, (e, d, f), dtype, device),
+        "w3": dense_init(gen, d, (e, d, f), dtype, device),
+        "w2": dense_init(gen, f, (e, f, d), dtype, device),
+    }
+
+
+def capacity(n_tok: int, cfg: ModelConfig) -> int:
+    """Slots per expert: ``n_tok * top_k / n_experts * capacity_factor``
+    in the reference's Python float arithmetic, at least ``top_k``."""
+    m = cfg.moe
+    return max(int(n_tok * m.top_k / m.n_experts * m.capacity_factor),
+               m.top_k)
+
+
+def dispatch_positions(flat_e: torch.Tensor, n_experts: int, cap: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each slot's position in its expert's buffer by arrival order.
+
+    flat_e [T * k] expert of each slot -> (pos, keep, safe_pos): ``pos``
+    the number of earlier slots with the same expert (int64), ``keep =
+    pos < cap``, and ``safe_pos`` = ``pos`` where kept, else ``cap - 1``
+    (the reference's clamp).  The reference counts through a one-hot
+    ``[T * k, E]`` cumsum; here a stable sort groups the slots by expert
+    in arrival order and a slot's position is its rank in its group —
+    the same integers without the ``[T * k, E]`` plane, whose cumsum down
+    65,536 rows of 32 took 14.6 ms a layer on an H100 (PERF.md)."""
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    first = torch.searchsorted(sorted_e, torch.arange(
+        n_experts, dtype=sorted_e.dtype, device=flat_e.device))
+    rank = torch.arange(flat_e.shape[0], device=flat_e.device) - \
+        first[sorted_e]
+    pos = torch.empty_like(rank).scatter_(0, order, rank)
+    keep = pos < cap
+    safe_pos = torch.where(keep, pos, cap - 1)
+    return pos, keep, safe_pos
+
+
+def _scatter_kept(src: torch.Tensor, flat_e, pos, keep, n_experts: int,
+                  cap: int) -> torch.Tensor:
+    """``src`` [T * k, ...] rows into a zero buffer [E, C, ...] at (expert,
+    position), kept slots only: a dropped slot goes to one spare row past
+    the buffer, which is cut off.  The kept rows' targets are unique, so
+    the copy is deterministic."""
+    rows = torch.where(keep, flat_e * cap + pos, n_experts * cap)
+    buf = src.new_zeros((n_experts * cap + 1,) + src.shape[1:])
+    buf.index_copy_(0, rows, src)
+    return buf[:n_experts * cap].view((n_experts, cap) + src.shape[1:])
+
+
+def _q8_scale(t: torch.Tensor) -> torch.Tensor:
+    """Per-row int8 scale ``max(max |t|, 1e-9) / 127`` in fp32 over the
+    last axis; the divisor lies on t's device (a CUDA division by a host
+    scalar multiplies by its reciprocal, one bit off the reference)."""
+    amax = t.float().abs().amax(dim=-1)
+    return torch.clamp_min(amax, 1e-9) / amax.new_full((), 127.0)
+
+
+def _q8(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 codes of ``t`` at ``scale`` (rounded half to even, as
+    ``jnp.round``)."""
+    return torch.clamp(torch.round(t.float() / scale[..., None]), -127, 127
+                       ).to(torch.int8)
+
+
+def _dispatch_q8(src, flat_e, pos, keep, n_experts: int, cap: int):
+    """src [T * k, d] -> buffer [E, C, d] in src's dtype through an int8
+    wire: per-slot codes and scales scattered, dequantized at the
+    expert."""
+    s_scale = _q8_scale(src)
+    buf_q = _scatter_kept(_q8(src, s_scale), flat_e, pos, keep, n_experts,
+                          cap)
+    buf_s = _scatter_kept(s_scale, flat_e, pos, keep, n_experts, cap)
+    return buf_q.to(src.dtype) * buf_s[..., None].to(src.dtype)
+
+
+def _gather(buf: torch.Tensor, flat_e, safe_pos) -> torch.Tensor:
+    """Rows ``buf[flat_e, safe_pos]`` of an ``[E, C, ...]`` buffer."""
+    E, C = buf.shape[:2]
+    return buf.reshape((E * C,) + buf.shape[2:]).index_select(
+        0, flat_e * C + safe_pos)
+
+
+def _combine_q8(out_buf, flat_e, safe_pos, keep):
+    """out_buf [E, C, d] -> slot rows [T * k, d] through an int8 wire:
+    quantized per buffer row at the expert, gathered, dequantized."""
+    o_scale = _q8_scale(out_buf)
+    out_q = _q8(out_buf, o_scale)
+    slot_q = _gather(out_q, flat_e, safe_pos)
+    slot_s = _gather(o_scale, flat_e, safe_pos)
+    out = slot_q.to(out_buf.dtype) * slot_s[:, None].to(out_buf.dtype)
+    return torch.where(keep[:, None], out, 0)
+
+
+def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (x + MoE FFN of x, the router's aux loss, fp32
+    scalar)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    n_tok, E, k = B * S, m.n_experts, m.top_k
+    xn = rms_norm(x, p["ln"]).reshape(n_tok, d)
+
+    gate_logits = xn.float() @ p["router"]                     # [T, E]
+    probs = torch.softmax(gate_logits, dim=-1)
+    gate_w, expert_idx = torch.topk(probs, k, dim=-1)          # [T, k]
+    gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+
+    # load-balance aux loss (Switch: E * sum_e f_e * p_e)
+    flat_e = expert_idx.reshape(-1)                            # [T * k]
+    me = probs.mean(dim=0)
+    ce = torch.zeros((E,), device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    ce = ce / ce.new_full((), n_tok * k)       # counts: exact, any order
+    aux = E * torch.sum(me * ce) * m.router_aux_weight
+
+    cap = capacity(n_tok, cfg)
+    pos, keep, safe_pos = dispatch_positions(flat_e, E, cap)
+    src = xn[:, None].expand(n_tok, k, d).reshape(n_tok * k, d)
+    if m.dispatch_int8:
+        buf = _dispatch_q8(src, flat_e, pos, keep, E, cap)
+    else:
+        buf = _scatter_kept(src, flat_e, pos, keep, E, cap)
+
+    # the experts' swiglu FFN over [E, C, d]
+    h = qeinsum("ecd,edf->ecf", buf, p["w1"])
+    g = qeinsum("ecd,edf->ecf", buf, p["w3"])
+    h = F.silu(h.float()).to(x.dtype) * g
+    out_buf = qeinsum("ecf,efd->ecd", h, p["w2"])              # [E, C, d]
+
+    if m.dispatch_int8:
+        slot_out = _combine_q8(out_buf, flat_e, safe_pos, keep)
+    else:
+        slot_out = torch.where(keep[:, None],
+                               _gather(out_buf, flat_e, safe_pos), 0)
+    slot_w = gate_w.reshape(-1).to(x.dtype)
+    y = (slot_out * slot_w[:, None]).view(n_tok, k, d).sum(dim=1)
+    return x + y.reshape(B, S, d), aux

@@ -1,54 +1,44 @@
-"""Model assembly: embeddings, a stack of blocks, the LM head.
+"""Model assembly: embeddings, a stack of blocks, the LM head, for every
+family of the configs: dense llama-style decoders, gemma2, chameleon,
+recurrentgemma, MoE (granite-moe, qwen3-moe), RWKV6 and the whisper
+encoder-decoder.
 
-The port of ``repro.models.transformer`` for the block kinds ``ga``
-(global attention), ``la`` (local, sliding-window attention) and ``rg``
-(RG-LRU), with the configs' superlayer pattern and tail: dense llama-style
-decoders, gemma2, chameleon and recurrentgemma.  Where the reference
-stacks each slot's weights over superlayers and scans them, the port
-keeps one parameter dict per layer in layer order and loops over them —
-the same layers in the same order.  There is no remat and no sharding
-constraint: those belong to training and meshes (ROADMAP Queue 1
-item 17).
+The port of ``repro.models.transformer``.  Where the reference stacks
+each slot's weights over superlayers and scans them, the port keeps one
+parameter dict per layer in layer order and loops over them — the same
+layers in the same order; the encoder's layers and the per-superlayer
+cross-attention likewise.  There is no remat and no sharding constraint:
+those belong to training and meshes (ROADMAP Queue 1 item 17).
 
 Three entry points:
   ``init_params``       — parameters drawn from a ``torch.Generator``.
   ``forward``           — full-sequence logits (prefill).
   ``decode_step``       — one token over KV caches / recurrent states.
-
-MoE, RWKV6 and encoder-decoder configs raise ``NotImplementedError``.
+and, for the encoder-decoder, ``encode`` and ``cross_kv`` (the encoder's
+K/V for each superlayer, computed once and handed to ``decode_step``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..device import resolve_device
 from . import layers as L
 from .config import ModelConfig
+from .moe import moe_block, moe_params
 from .rglru import rglru_block, rglru_init_state, rglru_params
+from .rwkv6 import rwkv_block, rwkv_init_state, rwkv_params
 
 Params = Dict[str, Any]
+CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
 
-#: the ROADMAP item that ports the block kinds and paths not here yet.
-MODELS_ITEM = "ROADMAP Queue 1 item 16 (moe.py, rwkv6.py, encoder-decoder)"
+_MIXERS = {"ga": L.attn_params, "la": L.attn_params, "rg": rglru_params,
+           "rwkv": rwkv_params}
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks: {MODELS_ITEM}")
-    if cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder: "
-                                  f"{MODELS_ITEM}")
-    other = sorted(set(cfg.all_blocks) - {"ga", "la", "rg"})
-    if other:
-        raise NotImplementedError(f"{cfg.name}: block kinds {other}: "
-                                  f"{MODELS_ITEM}")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -56,6 +46,16 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
     repeated, then the tail."""
     return list(cfg.block_pattern) * cfg.n_superlayers + \
         list(cfg.tail_pattern)
+
+
+def cross_after(cfg: ModelConfig) -> Dict[int, int]:
+    """{layer index: superlayer} of the layers that end a superlayer — an
+    encoder-decoder runs its cross-attention after each of them; empty for
+    a decoder-only config."""
+    if cfg.encoder is None:
+        return {}
+    P = len(cfg.block_pattern)
+    return {(li + 1) * P - 1: li for li in range(cfg.n_superlayers)}
 
 
 # ---------------------------------------------------------------------------
@@ -68,19 +68,64 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     """{"embed": {...}, "layers": [{"mixer": {...}, "ffn": {...}}, ...]}
     in the model's dtype on ``device``, drawn from ``generator`` (which
     lies on that device) with the reference's scales: weights normal times
-    fan_in^-0.5, norms 0, the RG-LRU's Lambda 2.0."""
-    check_supported(cfg)
+    fan_in^-0.5, norms 0, the RG-LRU's Lambda 2.0, RWKV's mixes 0.5 and
+    base decay -1.  An ``rwkv`` layer has no ``ffn`` (its block holds its
+    channel mix); a MoE config's ``ffn`` is the experts' (``moe.py``).
+    An encoder-decoder adds ``"encoder": {"layers": [{"attn", "ffn"},
+    ...], "final_ln"}`` and ``"cross"``, one attention dict a
+    superlayer."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg)
     params: Params = {"embed": L.embed_params(generator, cfg, dtype, dev)}
     layers = []
     for kind in layer_kinds(cfg):
-        mixer = (rglru_params if kind == "rg" else L.attn_params)(
-            generator, cfg, dtype, dev)
-        layers.append({"mixer": mixer,
-                       "ffn": L.mlp_params(generator, cfg, dtype, dev)})
+        if kind not in _MIXERS:
+            raise ValueError(kind)
+        layer = {"mixer": _MIXERS[kind](generator, cfg, dtype, dev)}
+        if kind != "rwkv":
+            layer["ffn"] = (moe_params if cfg.moe is not None
+                            else L.mlp_params)(generator, cfg, dtype, dev)
+        layers.append(layer)
     params["layers"] = layers
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": [{"attn": L.attn_params(generator, cfg, dtype, dev),
+                        "ffn": L.mlp_params(generator, cfg, dtype, dev)}
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_ln": torch.zeros((cfg.d_model,), dtype=dtype,
+                                    device=dev)}
+        params["cross"] = [L.attn_params(generator, cfg, dtype, dev)
+                           for _ in range(cfg.n_superlayers)]
     return params
+
+
+# ---------------------------------------------------------------------------
+# encoder (whisper tower; the frontend is a stub: inputs are frame
+# embeddings)
+# ---------------------------------------------------------------------------
+
+
+def encode(params: Params, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames [B, T, d] -> encoder states [B, T, d]: non-causal attention
+    and MLP layers, then the final norm."""
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames.to(dtype_of(cfg))
+    for p in params["encoder"]["layers"]:
+        x, _ = L.attention_block(p["attn"], cfg, x, pos, window=None,
+                                 causal=False)
+        x = L.mlp_block(p["ffn"], cfg, x)
+    return L.rms_norm(x, params["encoder"]["final_ln"])
+
+
+def cross_kv(params: Params, cfg: ModelConfig,
+             enc: torch.Tensor) -> CrossKV:
+    """The encoder's K/V for each superlayer's cross-attention: one (k, v)
+    [B, Hkv, T, hd] a superlayer (no norm, no rotary)."""
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    return [(L.split_heads(L.mm(enc, p["wk"]), hkv, hd),
+             L.split_heads(L.mm(enc, p["wv"]), hkv, hd))
+            for p in params["cross"]]
 
 
 # ---------------------------------------------------------------------------
@@ -88,22 +133,56 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            last_only: bool = False) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V_padded] fp32, on the parameters'
-    device.  ``last_only=True`` (serving prefill): the LM head for the
-    final position only, [B, 1, V_padded]."""
-    check_supported(cfg)
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's FFN: (x, the MoE aux loss or None)."""
+    if cfg.moe is not None:
+        return moe_block(p["ffn"], cfg, x)
+    return L.mlp_block(p["ffn"], cfg, x), None
+
+
+def forward_body(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                 frames: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (final hidden states [B, S, d] before the head,
+    the summed MoE aux loss, fp32 scalar)."""
+    cross = None
+    if cfg.encoder is not None:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                             f"encoder frames")
+        cross = cross_kv(params, cfg, encode(params, cfg, frames))
     x = L.embed(params["embed"], tokens).to(dtype_of(cfg))
     pos = torch.arange(tokens.shape[1], device=tokens.device)
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    ends = cross_after(cfg)
+    for li, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         if kind == "rg":
             x, _ = rglru_block(p["mixer"], cfg, x)
+        elif kind == "rwkv":
+            x, _ = rwkv_block(p["mixer"], cfg, x)
         else:
             x, _ = L.attention_block(
                 p["mixer"], cfg, x, pos,
                 window=cfg.window if kind == "la" else None)
-        x = L.mlp_block(p["ffn"], cfg, x)
+        if kind != "rwkv":
+            x, a = _ffn(p, cfg, x)
+            if a is not None:
+                aux = aux + a
+        if li in ends:
+            x, _ = L.attention_block(params["cross"][ends[li]], cfg, x, pos,
+                                     window=None, cross_kv=cross[ends[li]])
+    return x, aux
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frames: Optional[torch.Tensor] = None,
+            last_only: bool = False) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V_padded] fp32, on the parameters'
+    device.  ``frames`` [B, T, d]: the encoder's input, which an
+    encoder-decoder needs.  ``last_only=True`` (serving prefill): the LM
+    head for the final position only, [B, 1, V_padded]."""
+    x, _ = forward_body(params, cfg, tokens, frames=frames)
     if last_only:
         x = x[:, -1:]
     return L.logits(params["embed"], cfg, x)
@@ -118,8 +197,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None) -> List[Dict[str, torch.Tensor]]:
     """One state per layer: ``ga`` a KV cache {"k", "v"} [B, Hkv, max_seq,
     hd]; ``la`` a ring buffer of ``min(window, max_seq)`` slots; ``rg``
-    {"h": [B, d] fp32, "conv": [B, 3, d]}."""
-    check_supported(cfg)
+    {"h": [B, d] fp32, "conv": [B, 3, d]}; ``rwkv`` {"s": [B, H, hd, hd]
+    fp32, "last", "cm_last": [B, d]}."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg)
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
@@ -127,6 +206,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     for kind in layer_kinds(cfg):
         if kind == "rg":
             state.append(rglru_init_state(cfg, batch, dev))
+            continue
+        if kind == "rwkv":
+            state.append(rwkv_init_state(cfg, batch, dev))
             continue
         n = max_seq if kind == "ga" else min(cfg.window or max_seq, max_seq)
         state.append({"k": torch.zeros((batch, hkv, n, hd), dtype=dtype,
@@ -137,19 +219,24 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                index: int, state: List[Dict[str, torch.Tensor]]
+                index: int, state: List[Dict[str, torch.Tensor]],
+                cross: Optional[CrossKV] = None
                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """One decode step: token [B] at position ``index`` (the cache
     occupancy) -> (logits [B, V_padded] fp32, new state).  KV caches and
     ring buffers are written in place; a recurrent layer's state is
     replaced.  Local attention reads a ring buffer of ``window`` slots
-    (sub-quadratic memory)."""
-    check_supported(cfg)
+    (sub-quadratic memory).  ``cross``: the encoder's K/V (``cross_kv``);
+    without it an encoder-decoder skips its cross-attention, as the
+    reference's ``decode_step`` does.  A MoE layer routes the B tokens of
+    the step as one batch."""
     index = int(index)
     x = L.embed(params["embed"], token[:, None]).to(dtype_of(cfg))
     pos = torch.full((1,), index, dtype=torch.int64, device=token.device)
+    ends = cross_after(cfg) if cross is not None else {}
     new_state = []
-    for kind, p, st in zip(layer_kinds(cfg), params["layers"], state):
+    for li, (kind, p, st) in enumerate(zip(layer_kinds(cfg),
+                                           params["layers"], state)):
         if kind == "ga":
             x, _ = L.attention_block(
                 p["mixer"], cfg, x, pos, window=None,
@@ -157,10 +244,17 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         elif kind == "la":
             x = _ring_attention(p["mixer"], cfg, x, pos, (st["k"], st["v"]),
                                 index)
-        else:
+        elif kind == "rg":
             x, st = rglru_block(p["mixer"], cfg, x, state=st)
+        else:
+            x, st = rwkv_block(p["mixer"], cfg, x, state=st)
         new_state.append(st)
-        x = L.mlp_block(p["ffn"], cfg, x)
+        if kind != "rwkv":
+            x, _ = _ffn(p, cfg, x)
+        if li in ends:
+            x, _ = L.attention_block(params["cross"][ends[li]], cfg, x, pos,
+                                     window=None, cross_kv=cross[ends[li]],
+                                     use_kernel=False)
     return L.logits(params["embed"], cfg, x)[:, 0], new_state
 
 

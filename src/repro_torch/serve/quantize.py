@@ -52,10 +52,13 @@ def is_quantized(leaf: Any) -> bool:
 def quantize_params(params, min_size: int = 1 << 12, *,
                     cfg: ModelConfig):
     """Quantize every eligible matmul weight of the port's parameters
-    (``{"embed": {...}, "layers": [...]}``) for the config ``cfg``;
-    returns a new tree whose other leaves are the same tensors.  A layer
-    of the superlayer pattern counts ``cfg.n_superlayers`` times toward
-    ``min_size``, as its stacked leaf does in the reference."""
+    (``{"embed": {...}, "layers": [...]}``, and ``"encoder"``/``"cross"``
+    for an encoder-decoder) for the config ``cfg``; returns a new tree
+    whose other leaves are the same tensors.  A leaf counts toward
+    ``min_size`` as many times as the reference stacks it: a layer of the
+    superlayer pattern and a cross-attention block ``cfg.n_superlayers``
+    times, an encoder layer ``cfg.encoder.n_layers`` times.  An expert
+    weight ``[E, d, f]`` gets the scale ``[E, f]``."""
     stacked = cfg.n_superlayers * len(cfg.block_pattern)
 
     def one(name, leaf, depth):
@@ -73,9 +76,17 @@ def quantize_params(params, min_size: int = 1 << 12, *,
             return [walk(v, name, depth) for v in node]
         return one(name, node, depth)
 
-    def layers(ls):
-        return [walk(layer, None, cfg.n_superlayers if li < stacked else 1)
-                for li, layer in enumerate(ls)]
+    def top(key, node):
+        if key == "layers":
+            return [walk(layer, None,
+                         cfg.n_superlayers if li < stacked else 1)
+                    for li, layer in enumerate(node)]
+        if key == "cross":
+            return [walk(blk, None, cfg.n_superlayers) for blk in node]
+        if key == "encoder":
+            return {"layers": [walk(layer, None, cfg.encoder.n_layers)
+                               for layer in node["layers"]],
+                    "final_ln": node["final_ln"]}
+        return walk(node, key, 1)
 
-    return {k: layers(v) if k == "layers" else walk(v, k, 1)
-            for k, v in params.items()}
+    return {k: top(k, v) for k, v in params.items()}

@@ -10,6 +10,7 @@ marker and skips elsewhere.  The file imports nothing of JAX or of
     PYTHONPATH=src python -m pytest -q -p no:cacheprovider --noconftest \
         tests/test_torch_gpu.py
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -1199,36 +1200,79 @@ def test_model_kernels_refuse_wrong_inputs(cuda):
         MK.rglru_scan(x.transpose(1, 2), x.transpose(1, 2))
 
 
+def _to(tree, dev):
+    """A copy of a tree of dicts, lists and tuples of tensors on dev."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
 @pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-9b", "granite-34b",
                                   "nemotron-4-340b", "chameleon-34b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "granite-moe-1b-a400m",
+                                  "qwen3-moe-235b-a22b", "rwkv6-3b",
+                                  "whisper-small"])
 def test_model_card_equals_cpu(cuda, arch):
     """A smoke config's forward and decode on the card (kernels) equal the
     CPU's (plain versions) on the same parameters, with one
-    ``flash_attention`` per attention block and one ``rglru_scan`` per
-    recurrent block in a forward."""
+    ``flash_attention`` per attention block (the encoder's and the cross
+    blocks among them) and one ``rglru_scan`` per recurrent block in a
+    forward."""
     cfg = get_config(arch, smoke=True)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     cpu_p = T.init_params(cfg, generator=gen, device="cpu")
-    card_p = {"embed": {k: v.to(cuda) for k, v in cpu_p["embed"].items()},
-              "layers": [{n: {k: v.to(cuda) for k, v in blk.items()}
-                          for n, blk in layer.items()}
-                         for layer in cpu_p["layers"]]}
-    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (2, 16)))
+    card_p = _to(cpu_p, cuda)
+    rng = np.random.default_rng(SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)))
+    frames = cross_c = cross_g = None
+    if cfg.encoder is not None:
+        frames = torch.as_tensor(rng.standard_normal(
+            (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32))
     MK.reset_launches()
-    got = T.forward(card_p, cfg, toks.to(cuda))
+    got = T.forward(card_p, cfg, toks.to(cuda),
+                    frames=None if frames is None else frames.to(cuda))
     kinds = T.layer_kinds(cfg)
-    assert MK.launches == {"flash_attention": sum(k != "rg" for k in kinds),
+    n_attn = sum(k in ("ga", "la") for k in kinds)
+    if cfg.encoder is not None:
+        n_attn += cfg.encoder.n_layers + cfg.n_superlayers
+    assert MK.launches == {"flash_attention": n_attn,
                            "rglru_scan": kinds.count("rg")}
-    want = T.forward(cpu_p, cfg, toks)
+    want = T.forward(cpu_p, cfg, toks, frames=frames)
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    if cfg.encoder is not None:
+        cross_c = T.cross_kv(cpu_p, cfg, T.encode(cpu_p, cfg, frames))
+        cross_g = _to(cross_c, cuda)
     st_g = T.init_decode_state(cfg, 2, 12, cuda)
     st_c = T.init_decode_state(cfg, 2, 12, "cpu")
     for t in range(12):
-        lg_g, st_g = T.decode_step(card_p, cfg, toks[:, t].to(cuda), t, st_g)
-        lg_c, st_c = T.decode_step(cpu_p, cfg, toks[:, t], t, st_c)
+        lg_g, st_g = T.decode_step(card_p, cfg, toks[:, t].to(cuda), t, st_g,
+                                   cross=cross_g)
+        lg_c, st_c = T.decode_step(cpu_p, cfg, toks[:, t], t, st_c,
+                                   cross=cross_c)
         torch.testing.assert_close(lg_g.cpu(), lg_c, atol=2e-4, rtol=2e-4)
+
+
+def test_moe_dispatch_positions_card_equals_cpu(cuda):
+    """Slot positions bit for bit on the card at a full-width prefill's
+    T * k = 65,536 slots over 32 experts, and the block deterministic:
+    two calls give the same bits."""
+    from repro_torch.models import moe as tmoe
+    rng = np.random.default_rng(SEED)
+    flat_e = torch.as_tensor(np.minimum(rng.geometric(0.08, 65_536) - 1, 31))
+    want = tmoe.dispatch_positions(flat_e, 32, 2560)
+    got = tmoe.dispatch_positions(flat_e.to(cuda), 32, 2560)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    cfg = get_config("granite-moe-1b-a400m", smoke=True)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    p = tmoe.moe_params(torch.Generator(device=cuda).manual_seed(1), cfg,
+                        torch.bfloat16, cuda)
+    x = torch.randn((4, 64, cfg.d_model), device=cuda).bfloat16()
+    a, _ = tmoe.moe_block(p, cfg, x)
+    b, _ = tmoe.moe_block(p, cfg, x)
+    assert torch.equal(a, b)
 
 
 # -- the two-node engine, the coherent store and int8 serving ---------------

@@ -5,9 +5,10 @@ The reference's parameters (``repro.models.init_params``, drawn from
 (``convert.model_params_to_torch``), so both packages compute the same
 model on the same inputs: the config copies, each block (attention with
 and without a KV cache, the three MLPs, the RG-LRU block in prefill and
-decode, the LM head), and, for each of the six smoke configs this slice
-runs, ``forward`` (full and ``last_only``) and 12 ``decode_step``\\ s with
-their final state, all in fp32 at the 2e-4 of ``tests/test_models.py``.
+decode, the LM head), and, for each of the ten smoke configs,
+``forward`` (full and ``last_only``) and 12 ``decode_step``\\ s with their
+final state, all in fp32 at the 2e-4 of ``tests/test_models.py``; for
+whisper with the same frames and the reference's cross K/V fed to both.
 The reference's forward takes its Pallas kernels (interpret mode), as the
 port's routing mirrors; its ``decode_step`` is jitted once per config.
 """
@@ -27,18 +28,22 @@ from repro.models import forward as j_forward  # noqa: E402
 from repro.models import init_decode_state as j_init_state  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
+from repro.models.transformer import _cross_kv as j_cross_kv  # noqa: E402
+from repro.models.transformer import encode as j_encode  # noqa: E402
 from repro.models import rglru as jrg  # noqa: E402
 from repro.serve import quantize as jq  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import models as K  # noqa: E402
 from repro_torch.models import layers as tL  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import rglru as trg  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 TOL = 2e-4
 SLICE_ARCHS = ["smollm-360m", "gemma2-9b", "granite-34b", "nemotron-4-340b",
-               "chameleon-34b", "recurrentgemma-9b"]
+               "chameleon-34b", "recurrentgemma-9b", "granite-moe-1b-a400m",
+               "qwen3-moe-235b-a22b", "rwkv6-3b", "whisper-small"]
 B, S, DECODE_S = 2, 16, 12
 
 
@@ -69,19 +74,30 @@ def _run(arch):
     toks = np.random.default_rng(7).integers(0, jcfg.vocab, (B, S)
                                              ).astype(np.int32)
     tt = torch.as_tensor(toks).long()
+    frames = cross = tframes = tcross = None
+    if jcfg.encoder is not None:
+        frames = np.random.default_rng(8).standard_normal(
+            (B, jcfg.encoder.n_frames, jcfg.d_model)).astype(np.float32)
+        tframes = torch.as_tensor(frames)
+        cross = j_cross_kv(jp["cross"], jcfg,
+                           j_encode(jp, jcfg, jnp.asarray(frames)))
+        tcross = convert.cross_kv_to_torch(_np(cross), "cpu")
+        frames = jnp.asarray(frames)
     out = {"j_fwd": np.asarray(j_forward(jp, jcfg, jnp.asarray(toks),
+                                         frames=frames,
                                          use_kernel=True)[0]),
-           "t_fwd": T.forward(tp, tcfg, tt),
-           "t_last": T.forward(tp, tcfg, tt, last_only=True)}
+           "t_fwd": T.forward(tp, tcfg, tt, frames=tframes),
+           "t_last": T.forward(tp, tcfg, tt, frames=tframes,
+                               last_only=True)}
     step = _jit_decode()
     js = j_init_state(jcfg, B, DECODE_S)
     ts = T.init_decode_state(tcfg, B, DECODE_S, "cpu")
     out["j_dec"], out["t_dec"] = [], []
     for t in range(DECODE_S):
         lg, js = step(jp, jcfg, jnp.asarray(toks[:, t]),
-                      jnp.asarray(t, jnp.int32), js)
+                      jnp.asarray(t, jnp.int32), js, cross)
         out["j_dec"].append(np.asarray(lg))
-        lg_t, ts = T.decode_step(tp, tcfg, tt[:, t], t, ts)
+        lg_t, ts = T.decode_step(tp, tcfg, tt[:, t], t, ts, cross=tcross)
         out["t_dec"].append(lg_t)
     out["j_state"] = _np(js)
     out["t_state"] = convert.decode_state_to_numpy(ts, tcfg)
@@ -100,8 +116,7 @@ def test_configs_equal_reference(arch):
                 t.head_dim_, t.all_blocks, t.sub_quadratic) == \
             (j.param_count(), j.active_param_count(), j.padded_vocab,
              j.head_dim_, j.all_blocks, j.sub_quadratic)
-        if not (t.moe or t.encoder or "rwkv" in t.all_blocks):
-            assert len(T.layer_kinds(t)) == t.n_layers
+        assert len(T.layer_kinds(t)) == t.n_layers
 
 
 def test_config_registry_equals_reference():
@@ -281,7 +296,20 @@ def test_ring_buffer_window_attention_equals_reference():
 
 # -- parameters, states, refusals --------------------------------------------
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "recurrentgemma-9b"])
+def _flat(tree, path=""):
+    """{path: tensor} over the port's nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{path}.{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _flat(sub, f"{path}.{i}").items()}
+    return {path: tree}
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "recurrentgemma-9b",
+                                  "granite-moe-1b-a400m", "rwkv6-3b",
+                                  "whisper-small"])
 def test_init_params_layout_and_scales(arch):
     """The port's own draw has the converted tree's layout, dtypes and the
     reference's scales."""
@@ -291,11 +319,7 @@ def test_init_params_layout_and_scales(arch):
     ref = convert.model_params_to_torch(
         _np(j_init_params(jax.random.key(0), jconfigs.get_config(
             arch, smoke=True))), cfg, "cpu")
-    flat = lambda p: {f"{i}.{n}.{k}": v for i, layer in
-                      enumerate(p["layers"]) for n, blk in layer.items()
-                      for k, v in blk.items()} | \
-        {f"embed.{k}": v for k, v in p["embed"].items()}
-    g, r = flat(got), flat(ref)
+    g, r = _flat(got), _flat(ref)
     assert g.keys() == r.keys()
     for k in g:
         assert g[k].shape == r[k].shape and g[k].dtype == r[k].dtype, k
@@ -303,18 +327,23 @@ def test_init_params_layout_and_scales(arch):
             assert bool((g[k] == 0).all()), k
         elif k.endswith("lam"):
             assert bool((g[k] == 2.0).all()), k
+        elif g[k].dim() == 1:                 # RWKV's constant vectors
+            assert torch.equal(g[k], r[k]), k
         elif g[k].numel() > 2000:
-            # [fan_in, out], except the embedding table [vocab, d].
-            fan_in = g[k].shape[-1 if k == "embed.tok" else -2]
+            # [fan_in, out] or [E, fan_in, out], except the embedding
+            # table [vocab, d].
+            fan_in = g[k].shape[-1 if k == ".embed.tok" else -2]
             assert abs(float(g[k].std()) * fan_in ** 0.5 - 1) < 0.1, k
-    assert T.forward(got, cfg, torch.zeros((1, 4), dtype=torch.long)
-                     ).isfinite().all()
+    frames = (torch.zeros((1, cfg.encoder.n_frames, cfg.d_model))
+              if cfg.encoder is not None else None)
+    assert T.forward(got, cfg, torch.zeros((1, 4), dtype=torch.long),
+                     frames=frames).isfinite().all()
 
 
-def test_decode_state_round_trip():
-    cfg = tconfigs.get_config("recurrentgemma-9b", smoke=True)
-    js = _np(j_init_state(jconfigs.get_config("recurrentgemma-9b",
-                                              smoke=True), B, 8))
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-3b"])
+def test_decode_state_round_trip(arch):
+    cfg = tconfigs.get_config(arch, smoke=True)
+    js = _np(j_init_state(jconfigs.get_config(arch, smoke=True), B, 8))
     rng = np.random.default_rng(9)
     js = jax.tree_util.tree_map(
         lambda a: rng.standard_normal(a.shape).astype(a.dtype), js)
@@ -326,17 +355,22 @@ def test_decode_state_round_trip():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
-                                  "rwkv6-3b", "whisper-small"])
-def test_unported_configs_raise(arch):
-    cfg = tconfigs.get_config(arch, smoke=True)
-    gen = torch.Generator().manual_seed(0)
-    for call in (lambda: T.init_params(cfg, generator=gen, device="cpu"),
-                 lambda: T.init_decode_state(cfg, 1, 4, "cpu"),
-                 lambda: T.forward({}, cfg, torch.zeros((1, 2),
-                                                        dtype=torch.long))):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
+@pytest.mark.parametrize("what", ["encdec_without_frames",
+                                  "moe_block_local", "set_ep_spec"])
+def test_unported_paths_raise(what):
+    """Every config runs; what is refused: an encoder-decoder forward
+    without frames (the reference asserts), and the mesh paths of the MoE
+    block (item 17)."""
+    if what == "encdec_without_frames":
+        cfg = tconfigs.get_config("whisper-small", smoke=True)
+        p = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+        with pytest.raises(ValueError, match="frames"):
+            T.forward(p, cfg, torch.zeros((1, 2), dtype=torch.long))
+        return
+    call = getattr(tmoe, what)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        call(None) if what == "set_ep_spec" else call({}, None, None)
 
 
 def test_quantized_mm_equals_reference():
@@ -350,7 +384,8 @@ def test_quantized_mm_equals_reference():
     _close(tL.mm(torch.as_tensor(x), tw), jL.mm(jnp.asarray(x), jw))
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-9b",
+                                  "rwkv6-3b"])
 def test_quantized_forward_equals_reference(arch):
     """A smoke forward over int8 weights: the reference's quantized
     parameters carried across, against ``repro.models.forward``."""
@@ -359,7 +394,9 @@ def test_quantized_forward_equals_reference(arch):
     jp = jq.quantize_params(j_init_params(jax.random.key(8), jcfg),
                             min_size=64)
     tp = convert.model_params_to_torch(_np(jp), tcfg, "cpu")
-    assert isinstance(tp["layers"][0]["ffn"]["w1"], dict)
+    layer = tp["layers"][0]
+    assert isinstance(layer["ffn"]["w1"] if "ffn" in layer
+                      else layer["mixer"]["w_r"], dict)
     toks = np.random.default_rng(8).integers(0, jcfg.vocab, (B, S)
                                              ).astype(np.int32)
     _close(T.forward(tp, tcfg, torch.as_tensor(toks).long()),

@@ -1,10 +1,14 @@
 """The port's serving substrate against ``repro.serve``, on the CPU.
 
 ``serve/quantize.py`` bit for bit (``q`` and ``s`` of every leaf; both
-packages round half to even), the quantized ``mm`` at 2e-4 in fp32,
-``ServeEngine.generate``'s tokens equal to the reference's on two smoke
-configs, plain and int8 (the reference's ``jax.random`` parameters
-carried across by ``convert.model_params_to_torch``), and the
+packages round half to even) on six smoke configs, MoE, RWKV6 and
+whisper's encoder and cross-attention among them, the quantized ``mm``
+at 2e-4 in fp32, ``ServeEngine.generate``'s tokens equal to the
+reference's on four smoke configs, plain and int8 (the reference's
+``jax.random`` parameters carried across by
+``convert.model_params_to_torch``; granite-moe's int8 experts against the
+reference with the scale of ``qeinsum`` over the capacity axis, since
+the reference's own raises), and the
 ``CoherentPrefixTier``'s lookups and protocol traffic equal to the
 reference's at one reader and three.  The port's decode writes its state
 in place: a pooled state must survive any number of decodes.
@@ -12,6 +16,7 @@ in place: a pooled state must survive any number of decodes.
 import contextlib
 import functools
 import io
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +28,7 @@ torch = pytest.importorskip("torch")
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.serve import CoherentPrefixTier as JTier  # noqa: E402
 from repro.serve import ServeEngine as JServe  # noqa: E402
 from repro.serve import quantize as jq  # noqa: E402
@@ -35,7 +41,10 @@ from repro_torch.serve import (CoherentPrefixTier, ServeEngine,  # noqa: E402
                                quantize_params)
 from repro_torch.serve import quantize as tq  # noqa: E402
 
-ARCHS = ["smollm-360m", "recurrentgemma-9b"]
+ARCHS = ["smollm-360m", "recurrentgemma-9b", "granite-moe-1b-a400m",
+         "rwkv6-3b"]
+#: ``quantize_params``'s configs: the served ones and two more families.
+QUANT_ARCHS = ARCHS + ["qwen3-moe-235b-a22b", "whisper-small"]
 B, PROMPT, NEW, MAX_SEQ = 2, 8, 6, 24
 
 
@@ -93,11 +102,13 @@ def test_quantize_weight_bit_exact(shape, dtype):
     assert tq.is_quantized(got) and not tq.is_quantized({"q": 1})
 
 
-@pytest.mark.parametrize("min_size", [64, 1 << 12])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("min_size", [64, 1 << 12, 1 << 13])
+@pytest.mark.parametrize("arch", QUANT_ARCHS)
 def test_quantize_params_equal_reference(arch, min_size):
     """The same leaves quantized, to the same bits, whether the reference
-    decides on its stacked leaves and the port on its per-layer ones."""
+    decides on its stacked leaves and the port on its per-layer ones (at
+    ``1 << 13`` a smoke ``[64, 64]`` weight is quantized only where it is
+    stacked twice: superlayer slots, encoder layers, cross blocks)."""
     jcfg, tcfg, jp, _ = _model(arch)
     want = convert.model_params_to_torch(
         _np(jq.quantize_params(jp, min_size=min_size)), tcfg, "cpu")
@@ -132,14 +143,25 @@ def test_quantized_mm_equals_reference():
                                atol=2e-4, rtol=2e-4)
 
 
+def _expanded_qeinsum(spec, x, w):
+    """The reference's ``qeinsum`` with the scale over the capacity axis
+    (``s[..., None, :]``), as the port's: the reference's own multiplies
+    ``[E, C, f]`` by ``[E, f]`` and raises."""
+    if isinstance(w, dict):
+        return jnp.einsum(spec, x, w["q"].astype(x.dtype)) * \
+            w["s"].astype(x.dtype)[..., None, :]
+    return jnp.einsum(spec, x, w)
+
+
 @functools.lru_cache(maxsize=None)
 def _generated(arch, quantized):
     jcfg, tcfg, jp, prompts = _model(arch)
     tp = convert.model_params_to_torch(_np(jp), tcfg, "cpu")
     if quantized:
         jp, tp = jq.quantize_params(jp), quantize_params(tp, cfg=tcfg)
-    want, _ = JServe(jcfg, jp, max_seq=MAX_SEQ).generate(
-        jnp.asarray(prompts), NEW)
+    with mock.patch.object(jmoe, "qeinsum", _expanded_qeinsum):
+        want, _ = JServe(jcfg, jp, max_seq=MAX_SEQ).generate(
+            jnp.asarray(prompts), NEW)
     engine = ServeEngine(tcfg, tp, max_seq=MAX_SEQ, device="cpu")
     got, _ = engine.generate(torch.as_tensor(prompts), NEW)
     return np.asarray(want), got, engine, prompts
