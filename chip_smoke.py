@@ -50,8 +50,8 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    then 32 greedy tokens); and fp32 decode against prefill at 2e-4 at
    full width with depth cut to 5 layers;
 4. the near-memory operators at the paper's §5 sizes, through
-   ``core.pushdown`` on one shard: SELECT over 16 Mi 128-byte rows and
-   regex over 16 Mi rows with a 62-byte string field, each at 1%, 10% and
+   ``core.pushdown`` on one shard: SELECT over 8 Mi 128-byte rows and
+   regex over 8 Mi rows with a 62-byte string field, each at 1%, 10% and
    100% selectivity, and a KVS of 65,536 buckets at chain lengths 1, 8,
    32 and 128 under 1 Mi queries — each run checked against its oracle
    (the predicate, python ``re``, the plain lookup), each call launching
@@ -96,11 +96,11 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    one step under the admission loop and under the observability plane
    (``step_profile(mode=...)``); no host synchronisation in either loop;
    Poisson arrivals at 0.01 ops/step/remote (``SOJ_RATE``, seed 1) with
-   ``ADMISSION``, 16 ops per remote and the auto budget, which must
+   ``ADMISSION``, 8 ops per remote and the auto budget, which must
    complete oracle-exact with no backlog and ``PER_STEP`` launches per
    step, its sojourn and admission-wait percentiles printed; the same at
    0.05 (``OVERLOAD_RATE``) over the arrival span, which must end with a
-   backlog; an observed run (8 ops per remote, ``OBS_CAPACITY`` words)
+   backlog; an observed run (4 ops per remote, ``OBS_CAPACITY`` words)
    equal bit for bit to the plain run, with no violation online or in
    ``check_trace`` over its ring; and a request injected into an open
    request window, which must be latched at its (step, line) and flagged
@@ -154,7 +154,22 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    full width with 2 layers, decode against prefill at 2e-4 (MoE at
    capacity 8.0); one granite-moe layer in fp32 over 8,192 tokens, card
    against CPU (``dispatch_positions`` bit for bit, the output at 2e-4,
-   the dropped slots printed).
+   the dropped slots printed);
+12. training on one device (``use_kernel=False``, as the reference's
+   ``loss_fn``; no kernel on this path, and none launched): the model
+   kernels refuse a CUDA input that requires grad; card against CPU in
+   fp32 with TF32 off, at the CPU tests' tolerances: ``loss_fn``'s loss
+   and every gradient leaf of the ten smoke configs and of smollm-360m at
+   full width cut to 2 layers (B=2, S=512), one AdamW update on the same
+   gradients, the int8 MoE wire's backward bit for bit and the int8
+   smoke model's gradients; ``Trainer`` on the card cut by
+   ``fail_at`` and resumed from its checkpoint, bit-identical to an
+   uninterrupted run; smollm-360m whole in bf16 with full remat on
+   ``SyntheticPipeline`` batches of 16 x 4096 tokens as two
+   micro-batches: a warm-up and three steps of ``train_step`` (loss, grad
+   norm, lr, s a step, tokens/s, the device's idle share, peak memory;
+   within ``TRAIN_BUDGET_S``), then the whole ``TrainState`` saved, verified
+   and loaded back on the card bit for bit (bytes and seconds).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -194,32 +209,34 @@ PACKED_OPS = 32
 
 #: phase 8, open loop and observation at the main path's width: Poisson
 #: arrivals at 0.01 ops/step/remote (about 47% of the closed loop's
-#: capacity here, 0.0213) and at 0.05 (about 2.3 times it), 16 ops per
-#: remote, the admission cap (max_inflight, reserve) of the reference's
-#: knee at R=8, (16, 2), scaled by R; the observed run at 8 ops per
-#: remote into a ring of 65,536 words.
-SOJ_RATE, OVERLOAD_RATE, OPEN_OPS = 0.01, 0.05, 16
+#: capacity here, 0.0213) and at 0.05 (about 2.3 times it), 8 ops per
+#: remote (16 before phase 12 came in, PERF.md section 4), the admission
+#: cap (max_inflight, reserve) of the reference's knee at R=8, (16, 2),
+#: scaled by R; the observed run at 4 ops per remote (8 before phase 12)
+#: into a ring of 65,536 words.
+SOJ_RATE, OVERLOAD_RATE, OPEN_OPS = 0.01, 0.05, 8
 ADMISSION = (128, 16)
-OBS_OPS, OBS_CAPACITY = 8, 1 << 16
+OBS_OPS, OBS_CAPACITY = 4, 1 << 16
 
 #: the packed two-home path: homes, words per line at R=64.
 HOMES, NW = 2, 2
 
-#: phase 9, fleets at the main path's width: 4 ops per remote (624
-#: steps, the budget of R=64; 8 before phase 10 came in), an R x W grid
+#: phase 9, fleets at the main path's width: 2 ops per remote (4 before
+#: phase 12 came in, 8 before phase 10), an R x W grid
 #: and a homes sweep at R=64 with a per-home acceptance cap of 1; credits
 #: of 4,096 a VC, since the fleet's home emulation is exact only while
 #: credits cover the lines.
-FLEET_OPS = 4
+FLEET_OPS = 2
 FLEET_GRID = ((16, 1), (16, 4), (64, 1), (64, 4))
 FLEET_HOMES, FLEET_HOME_BW, FLEET_CREDITS = (1, 2, 4), 1, 4096
 
-#: the near-memory phase, at the sizes of the paper's §5 (PERF.md §4):
-#: SELECT over 16 Mi rows of 32 fp32 (128-byte rows, 2 GiB) and regex over
-#: 16 Mi rows of 128 bytes with a 62-byte string field, each at three
+#: the near-memory phase, at half the rows of the paper's §5 (16 Mi
+#: before phase 12 came in; PERF.md §4): SELECT over 8 Mi rows of 32 fp32
+#: (128-byte rows, 1 GiB) and regex over 8 Mi rows of 128 bytes with a
+#: 62-byte string field, each at three
 #: selectivities; a KVS of 65,536 buckets at four chain lengths, 1 Mi
 #: queries with about 11% misses (keys 1..n, queries in [1, 1.125 n)).
-NMP_ROWS, SEL_W = 16_777_216, 32
+NMP_ROWS, SEL_W = 8_388_608, 32
 SELECTIVITIES = (0.01, 0.1, 1.0)
 REGEX_W, STR_LO, STR_HI, PATTERN = 128, 8, 70, "xyzzy"
 KVS_BUCKETS, KVS_QUERIES, V_WIDTH, MISS = 65_536, 1_048_576, 28, 0.125
@@ -272,6 +289,22 @@ MOE_LAYER_T = 8192
 Q8_TOL = 2e-2
 #: phase 11's budget: printed beside its wall time.
 FAMILY_BUDGET_S = 120
+#: phase 12, training on one device: smollm-360m whole (32 layers,
+#: d=960, bf16, full remat) on ``SyntheticPipeline`` batches at
+#: ``train_4k``'s S=4096, global batch 16 (cut from train_4k's 256 for the
+#: phase's time, PERF.md section 4) as two micro-batches of 8; a warm-up
+#: step, then ``TRAIN_STEPS`` timed steps, which must fit in
+#: ``TRAIN_BUDGET_S`` (printed beside the phase's wall time).
+TRAIN_ARCH, TRAIN_S, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = (
+    "smollm-360m", 4096, 16, 2, 3)
+TRAIN_BUDGET_S = 90
+#: phase 12's card-against-CPU tolerances, fp32 with TF32 off: the CPU
+#: tests' own (``tests/test_torch_train.py``): the loss within 1e-5,
+#: every gradient leaf at atol 1e-5 and rtol 1e-4; one AdamW update's
+#: parameters at 1e-6/1e-5, moments at 1e-7/1e-5 (m) and 1e-9/1e-5 (v).
+LOSS_TOL, GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-5, 1e-4
+#: smollm-360m at full width cut to 2 layers, fp32, B=2 over S=512.
+TRAIN_EXACT_LAYERS, TRAIN_EXACT_B, TRAIN_EXACT_S = 2, 2, 512
 #: the cases of ``tests/test_kernels.py``: (B, Hq, Hkv, Sq, Sk, D, causal,
 #: window, softcap) and (B, S, D), with its tolerances per dtype.
 ATTN_CASES = ((2, 4, 2, 64, 64, 32, True, None, None),
@@ -1010,7 +1043,7 @@ def drive_nmp(name: str, call, reps: int, path):
 
 
 def nmp_select(dev, rows, path):
-    """SELECT pushdown (paper Fig. 5) over 16 Mi 128-byte rows."""
+    """SELECT pushdown (paper Fig. 5) over ``NMP_ROWS`` 128-byte rows."""
     import torch
     from repro_torch.core import pushdown as PD
     from repro_torch.kernels import nmp as NK
@@ -1050,7 +1083,7 @@ def nmp_select(dev, rows, path):
               f"match; {nbytes} bytes (the 32-byte sector of columns 0-1 "
               f"of every row, the other {4 * w - 32} bytes of each "
               f"matching row, the {4 * n * w}-byte output, the counts)")
-        cases = [("16 Mi rows, sel 0.1", NK.select_scan(table, 0.0, 1.0),
+        cases = [(f"{n} rows, sel 0.1", NK.select_scan(table, 0.0, 1.0),
                   ref.select_scan_ref(table, 0.0, 1.0, 256))]
         gc = torch.Generator(device=dev).manual_seed(53)
         for what, rows_, width, br, x in (
@@ -1156,7 +1189,8 @@ def time_call(label: str, fn, nbytes, ops_per_call: int, own: str,
 
 
 def nmp_regex(dev, rows, path):
-    """REGEXP_LIKE pushdown (paper Fig. 7) over 16 Mi 128-byte rows."""
+    """REGEXP_LIKE pushdown (paper Fig. 7) over ``NMP_ROWS`` 128-byte
+    rows."""
     import torch
     from repro_torch.core import pushdown as PD
     from repro_torch.kernels import nmp as NK
@@ -1212,10 +1246,10 @@ def nmp_regex(dev, rows, path):
               f"{in_place} sectors, {nbytes_in_place} bytes")
         field = table[:, STR_LO:STR_HI]
         strings = field.contiguous()
-        cases = [("16 Mi rows, sel 0.1, in place",
+        cases = [(f"{NMP_ROWS} rows, sel 0.1, in place",
                   NK.regex_dfa(trans, accept, field),
                   ref.regex_dfa_ref(trans, accept, field)),
-                 ("16 Mi rows, sel 0.1, contiguous copy",
+                 (f"{NMP_ROWS} rows, sel 0.1, contiguous copy",
                   NK.regex_dfa(trans, accept, strings),
                   ref.regex_dfa_ref(trans, accept, strings))]
         gc = torch.Generator(device=dev).manual_seed(54)
@@ -1419,8 +1453,8 @@ def nmp_kvs(dev, rows, path):
 
 
 def nmp_kernels(dev):
-    """``regex_dfa`` and ``hash_probe`` alone at the path's inputs (16 Mi
-    rows at 10%, in place and as a contiguous copy; chains of 32 as
+    """``regex_dfa`` and ``hash_probe`` alone at the path's inputs
+    (``NMP_ROWS`` rows at 10%, in place and as a contiguous copy; chains of 32 as
     records and as two arrays), each held against its plain version and
     timed: the quick way to compare designs of the two kernels, e.g.
     ``python -c "import torch, chip_smoke as c;
@@ -2361,6 +2395,404 @@ def phase_families(dev, rows) -> None:
         torch.backends.cuda.matmul.allow_tf32 = prev
     print(f"model families phase {time.perf_counter() - t0:.1f} s (budget "
           f"{FAMILY_BUDGET_S} s)")
+
+
+def _grads_close(label: str, got, want, atol=GRAD_ATOL, rtol=GRAD_RTOL):
+    """Fail unless every leaf of two trees (card, CPU) is allclose; the
+    largest abs error."""
+    import torch
+    from repro_torch.tree import leaves_with_path
+    worst = 0.0
+    for (path, g), (_, w) in zip(leaves_with_path(got),
+                                 leaves_with_path(want)):
+        g = g.detach().cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{label}: leaf {path} {g.dtype} {tuple(g.shape)} against "
+                 f"{w.dtype} {tuple(w.shape)}")
+        err = float((g.float() - w.float()).abs().max()) if g.numel() else 0.
+        worst = max(worst, err)
+        if not torch.allclose(g, w, atol=atol, rtol=rtol):
+            fail(f"{label}: leaf {'/'.join(map(str, path))} differs, max "
+                 f"abs err {err}")
+    return worst
+
+
+def profiled(fn):
+    """(``fn()``, its wall ms, device ms, device operations, [(name, ms)]
+    longest first) of one call under the profiler, from its raw events:
+    the device entries' durations summed by name.  A train step is about
+    2.6e5 device operations, whose ``key_averages()`` took minutes; the
+    raw events take seconds.  The wall is the call's to its
+    synchronisation, without the profiler's own stop; device ms is None
+    if no device time was recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    n = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name()] = by_name.get(ev.name(), 0) + \
+                ev.duration_ns() / 1e6
+            n += 1
+    rows = sorted(by_name.items(), key=lambda r: -r[1])
+    return out, wall, (sum(by_name.values()) if n else None), n, rows
+
+
+def train_exact(dev) -> None:
+    """Card against CPU in fp32, on the same parameters and batch with
+    ``use_kernel=False``: loss and every gradient leaf of the ten smoke
+    configs and of smollm-360m at full width cut to 2 layers; one AdamW
+    update on the same gradients; the int8 MoE wire's gradients."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import _value_and_grad
+    from repro_torch.tree import tree_map
+    cases = [(arch, get_config(arch, smoke=True), 2, 16)
+             for arch in SMOKE_ARCHS]
+    full = get_config(TRAIN_ARCH)
+    cases.append((f"{TRAIN_ARCH} d={full.d_model} {TRAIN_EXACT_LAYERS} "
+                  f"layers", dataclasses.replace(
+                      full, n_layers=TRAIN_EXACT_LAYERS, dtype="float32",
+                      remat=False), TRAIN_EXACT_B, TRAIN_EXACT_S))
+    for label, cfg, Bt, St in cases:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cpu").manual_seed(71)
+        cpu_p = T.init_params(cfg, generator=gen, device="cpu")
+        mb = {"tokens": torch.randint(0, cfg.vocab, (Bt, St), generator=gen,
+                                      dtype=torch.int32),
+              "targets": torch.randint(0, cfg.vocab, (Bt, St),
+                                       generator=gen, dtype=torch.int32)}
+        if cfg.encoder is not None:
+            mb["frames"] = torch.randn((Bt, cfg.encoder.n_frames,
+                                        cfg.d_model), generator=gen)
+        lc, _, gc = _value_and_grad(cfg, cpu_p, mb)
+        lg, _, gg = _value_and_grad(cfg, card_params(cpu_p, dev),
+                                    card_params(mb, dev))
+        if abs(float(lg) - float(lc)) > LOSS_TOL:
+            fail(f"train exact {label}: loss {float(lg)} on the card, "
+                 f"{float(lc)} on the CPU")
+        worst = _grads_close(f"train exact {label}", gg, gc)
+        print(f"train exact {label} (fp32, B={Bt} S={St}): loss "
+              f"{float(lg):.6f} card, {float(lc):.6f} CPU; every gradient "
+              f"leaf card == CPU at atol {GRAD_ATOL:g} rtol {GRAD_RTOL:g}, "
+              f"max abs err {worst:.3g}; {time.perf_counter() - t0:.1f} s")
+    # one AdamW update on the last case's CPU gradients, from non-zero
+    # moments at step 4, on both devices.
+    st = adamw.OptState(torch.tensor(4, dtype=torch.int32),
+                        tree_map(lambda g: 0.5 * g, gc),
+                        tree_map(lambda g: g * g, gc))
+    ocfg = adamw.OptimConfig(peak_lr=0.01, warmup_steps=3, total_steps=20)
+    pc, sc, oc = adamw.update(ocfg, st, cpu_p, gc)
+    pg, sg, og = adamw.update(ocfg, tree_map(lambda t: t.to(dev), st),
+                              card_params(cpu_p, dev), card_params(gc, dev))
+    if int(sg.step) != int(sc.step) or sg.step.dtype != torch.int32:
+        fail("train exact adamw: step differs")
+    for k in ("lr", "grad_norm"):
+        if not torch.allclose(og[k].cpu(), oc[k], atol=0, rtol=1e-5):
+            fail(f"train exact adamw: {k} {float(og[k])} against "
+                 f"{float(oc[k])}")
+    errs = [_grads_close("train exact adamw params", pg, pc, 1e-6, 1e-5),
+            _grads_close("train exact adamw m", sg.m, sc.m, 1e-7, 1e-5),
+            _grads_close("train exact adamw v", sg.v, sc.v, 1e-9, 1e-5)]
+    print(f"train exact adamw update ({label}): step {int(sg.step)}, lr "
+          f"{float(og['lr']):.6g}, grad_norm {float(og['grad_norm']):.6g}; "
+          f"params, m, v card == CPU, max abs err "
+          f"{', '.join(f'{e:.3g}' for e in errs)}")
+    # the int8 MoE wire: its two backward functions bit for bit, then the
+    # whole smoke model's gradients at the CPU tests' tolerances (3.0e-7
+    # measured on an H100; a code that rounded the other way between the
+    # card and the CPU would move a slot by 1/127 of its row and show
+    # here as a failure, not be absorbed by a looser bound).
+    moe = get_config("granite-moe-1b-a400m", smoke=True)
+    rng = torch.Generator(device="cpu").manual_seed(73)
+    E, cap, d, n = 8, 6, 64, 64
+    flat_e = torch.randint(0, E, (n,), generator=rng)
+    pos, keep, safe = tmoe.dispatch_positions(flat_e, E, cap)
+    gbuf = torch.randn((E, cap, d), generator=rng)
+    gslot = torch.randn((n, d), generator=rng)
+    for dv in (dev, "cpu"):
+        src = torch.randn((n, d), generator=torch.Generator(
+            device="cpu").manual_seed(74)).to(dv).requires_grad_(True)
+        ob = torch.randn((E, cap, d), generator=torch.Generator(
+            device="cpu").manual_seed(75)).to(dv).requires_grad_(True)
+        a = [t.to(dv) for t in (flat_e, pos, keep, safe)]
+        buf = tmoe._dispatch_q8(src, a[0], a[1], a[2], E, cap)
+        out = tmoe._combine_q8(ob, a[0], a[3], a[2])
+        g1, = torch.autograd.grad(buf, src, gbuf.to(dv))
+        g2, = torch.autograd.grad(out, ob, gslot.to(dv))
+        if dv == "cpu":
+            if not (torch.equal(g1, wire[0]) and torch.equal(g2, wire[1])):
+                fail("train exact int8 wire: the backward differs between "
+                     "the card and the CPU")
+        else:
+            wire = (g1.cpu(), g2.cpu())
+    cfg8 = dataclasses.replace(moe, moe=dataclasses.replace(
+        moe.moe, dispatch_int8=True))
+    gen = torch.Generator(device="cpu").manual_seed(76)
+    cpu_p = T.init_params(cfg8, generator=gen, device="cpu")
+    toks = torch.randint(0, moe.vocab, (2, 16), generator=gen,
+                         dtype=torch.int32)
+    mb = {"tokens": toks, "targets": toks.roll(-1, 1)}
+    lc, _, gc = _value_and_grad(cfg8, cpu_p, mb)
+    lg, _, gg = _value_and_grad(cfg8, card_params(cpu_p, dev),
+                                card_params(mb, dev))
+    worst = _grads_close("train exact int8 MoE", gg, gc)
+    if abs(float(lg) - float(lc)) > LOSS_TOL:
+        fail(f"train exact int8 MoE: loss {float(lg)} against {float(lc)}")
+    print(f"train exact int8 MoE wire: _DispatchQ8/_CombineQ8 backward card "
+          f"== CPU bit for bit ({int((~keep).sum())} of {n} slots dropped); "
+          f"granite-moe smoke dispatch_int8 gradients card == CPU at atol "
+          f"{GRAD_ATOL:g} rtol {GRAD_RTOL:g}, max abs err {worst:.3g}, loss "
+          f"{float(lg):.6f} "
+          f"card {float(lc):.6f} CPU")
+
+
+def train_guard(dev) -> None:
+    """The model kernels refuse an input that requires grad while grad
+    mode is on (their output would be cut off from the graph), and run
+    under ``torch.no_grad()``."""
+    import torch
+    from repro_torch.kernels import models as MK
+    q = torch.randn((1, 2, 128, 64), device=dev)
+    x = torch.randn((1, 128, 128), device=dev)
+    a = torch.rand((1, 128, 128), device=dev)
+    calls = {"flash_attention": lambda t: MK.flash_attention(t, t, t),
+             "rglru_scan": lambda t: MK.rglru_scan(t, a)}
+    for name, call in calls.items():
+        t = (q if name == "flash_attention" else x).clone()
+        t.requires_grad_(True)
+        try:
+            call(t)
+        except RuntimeError as e:
+            if "use_kernel=False" not in str(e):
+                fail(f"train guard {name}: unexpected error {e}")
+        else:
+            fail(f"train guard {name}: a CUDA input that requires grad "
+                 f"was not refused")
+        with torch.no_grad():
+            call(t)
+    torch.cuda.synchronize()
+    print("train guard: flash_attention and rglru_scan refuse a CUDA input "
+          "that requires grad (training takes use_kernel=False) and run "
+          "under torch.no_grad()")
+
+
+def train_resume(dev) -> None:
+    """``Trainer`` on the card (smollm smoke): a run cut by ``fail_at`` and
+    restarted from its checkpoint ends with the parameters, moments and
+    data step of an uninterrupted run, bit for bit, as
+    ``tests/test_substrates.py::test_failure_resume_bitwise`` holds the
+    reference's."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    root = tempfile.mkdtemp(prefix="train_resume_",
+                            dir=os.path.join(HERE, "build"))
+    ckdir = os.path.join(root, "ck")
+
+    def trainer():
+        params = T.init_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        return Trainer(cfg, OptimConfig(peak_lr=1e-3, warmup_steps=2,
+                                        total_steps=10),
+                       TrainerConfig(steps=10, ckpt_every=4, ckpt_dir=ckdir),
+                       None, params, DataConfig(cfg.vocab, 16, 4),
+                       device=dev)
+
+    try:
+        t1 = trainer()
+        try:
+            t1.run(fail_at=6)
+        except RuntimeError as e:
+            print(f"train resume: {e}")
+        else:
+            fail("train resume: fail_at did not stop the run")
+        t1.saver.wait()
+        t2 = trainer()
+        t2.run()
+        shutil.rmtree(ckdir)
+        t3 = trainer()
+        t3.run()
+        same = all(torch.equal(a, b) for a, b in zip(leaves(t2.state),
+                                                     leaves(t3.state)))
+        if not same or t2.metrics_log[0]["step"] != 4:
+            fail("train resume: the resumed run's state differs from the "
+                 "uninterrupted run's")
+        print(f"train resume ({cfg.name}, 10 steps, checkpoints every 4): "
+              f"cut at step 6, resumed from step "
+              f"{t2.metrics_log[0]['step']}: params, moments and data step "
+              f"bit-identical to an uninterrupted run "
+              f"({len(leaves(t3.state))} leaves); final loss "
+              f"{t3.metrics_log[-1]['loss']:.6f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_path(dev) -> None:
+    """smollm-360m whole in bf16 with full remat: a warm-up step and
+    ``TRAIN_STEPS`` timed steps of ``train_step`` on ``SyntheticPipeline``
+    batches (no kernel launched: the training path is the plain one);
+    then the whole ``TrainState`` saved, verified and loaded back on the
+    card, bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import models as MK
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_state, train_step
+    from repro_torch.tree import leaves, leaves_with_path
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    state = init_state(params)
+    del params
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    pipe = SyntheticPipeline(DataConfig(cfg.vocab, TRAIN_S, TRAIN_BATCH),
+                             device=dev)
+    print(f"train: {cfg.name} {cfg.dtype} at its published widths and "
+          f"depth ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab} padded "
+          f"to {cfg.padded_vocab}, tied, remat {cfg.remat_policy}): "
+          f"{n_params:,} parameters, {tree_bytes(state.params):,} bytes, "
+          f"moments {tree_bytes(state.opt.m) + tree_bytes(state.opt.v):,} "
+          f"bytes; batches of {TRAIN_BATCH} x {TRAIN_S} as "
+          f"{TRAIN_MICRO} micro-batches")
+
+    def step(st):
+        batch = pipe.batch(int(st.data_step))
+        return train_step(cfg, ocfg, TRAIN_MICRO, st, batch)
+
+    MK.reset_launches()
+    # the warm-up step runs under the profiler (a profiled step takes
+    # about 10 s more of the host; a warm-up took 0.2 s more than a timed
+    # step unprofiled), so the timed steps run without it.
+    (state, m), wall, busy, n_ops, split = profiled(lambda: step(state))
+    print(f"train warm-up step (profiled): loss {float(m['loss']):.6f} "
+          f"grad_norm {float(m['grad_norm']):.6f} lr "
+          f"{float(m['lr']):.6g}, {wall / 1e3:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state)
+        loss = float(m["loss"])
+        times.append(time.perf_counter() - t0)
+        if not torch.isfinite(m["grad_norm"]) or loss != loss:
+            fail(f"train: step {int(state.data_step)} loss {loss}")
+        print(f"train step {int(state.data_step) - 1}: loss {loss:.6f} "
+              f"grad_norm {float(m['grad_norm']):.6f} lr "
+              f"{float(m['lr']):.6g}, {times[-1]:.3f} s")
+    peak = torch.cuda.max_memory_allocated()
+    if sum(MK.launches.values()):
+        fail(f"train: the training path launched kernels "
+             f"{dict(MK.launches)}; it takes use_kernel=False")
+    tokens = TRAIN_BATCH * TRAIN_S
+    best = min(times)
+    print(f"train: {TRAIN_STEPS} steps in {sum(times):.3f} s (budget "
+          f"{TRAIN_BUDGET_S} s), {sum(times) / len(times):.3f} s a step "
+          f"(best {best:.3f}), {tokens / best:,.1f} tokens/s at the best, "
+          f"peak memory {peak:,} bytes, no kernel launched")
+    if sum(times) > TRAIN_BUDGET_S:
+        fail(f"train: {TRAIN_STEPS} steps took {sum(times):.1f} s, over "
+             f"{TRAIN_BUDGET_S} s")
+    if busy is None:
+        print("train warm-up step (profiled): device time not measured "
+              "(the profiler recorded none)")
+    else:
+        print(f"train warm-up step (profiled): device {busy:.3f} ms in "
+              f"{n_ops} ops of {wall:.3f} ms wall (idle "
+              f"{100 * (1 - busy / wall):.1f}%); longest: "
+              + "; ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in split[:6]))
+
+    root = tempfile.mkdtemp(prefix="train_ckpt_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        path = ckpt.step_path(root, int(state.data_step))
+        stacked = convert.stack_train_state(state, cfg)
+        t0 = time.perf_counter()
+        saver = ckpt.AsyncCheckpointer()
+        saver.save(path, stacked, meta={"step": int(state.data_step),
+                                        "arch": cfg.name})
+        t_copy = time.perf_counter() - t0
+        saver.wait()
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ok = ckpt.verify(path)
+        t_verify = time.perf_counter() - t0
+        if not ok:
+            fail("train checkpoint: verify failed")
+        t0 = time.perf_counter()
+        back, meta = ckpt.load(path, stacked, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        restored = convert.unstack_train_state(back, cfg)
+        pairs = list(zip(leaves_with_path(restored), leaves(state)))
+        for (p, a), b in pairs:
+            if a.dtype != b.dtype or a.device != b.device or \
+                    not torch.equal(a, b):
+                fail(f"train checkpoint: leaf {p} differs after the round "
+                     f"trip")
+        print(f"train checkpoint: the whole TrainState ({len(pairs)} "
+              f"leaves, {size:,} bytes) saved in {t_save:.3f} s (host copy "
+              f"{t_copy:.3f} s in save(), the rest on the thread), verified "
+              f"in {t_verify:.3f} s, loaded on the card in {t_load:.3f} s; "
+              f"every leaf bit-identical; meta {json.dumps(meta)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train(dev, rows) -> None:
+    """Phase 12: training on one device — (a) the kernel guard; (b) card
+    against CPU: loss and gradients of the ten smoke configs and of
+    smollm-360m at full width with 2 layers, one AdamW update, the int8
+    MoE wire; (c) ``Trainer``'s bitwise resume on the card; (d)
+    smollm-360m whole in bf16 at S=4096 (``train_path``).  No kernel is
+    on this path (the reference's ``loss_fn`` takes ``use_kernel=False``),
+    so ``rows`` is not touched."""
+    import torch
+    t0 = time.perf_counter()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 stays fp32
+    try:
+        train_guard(dev)
+        train_exact(dev)
+        t1 = time.perf_counter()
+        train_resume(dev)
+        print(f"train resume {time.perf_counter() - t1:.1f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    t1 = time.perf_counter()
+    train_path(dev)
+    print(f"train path {time.perf_counter() - t1:.1f} s")
+    print(f"training phase {time.perf_counter() - t0:.1f} s (budget "
+          f"{TRAIN_BUDGET_S} s for the {TRAIN_STEPS} timed steps)")
 
 
 def check_no_host_sync(eng, ops: int, width: int, label: str,
@@ -3349,6 +3781,7 @@ def main() -> int:
     phase_fleet(dev, rows)
     phase_store_serve(dev, rows)
     phase_families(dev, rows)
+    phase_train(dev, rows)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

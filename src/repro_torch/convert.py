@@ -29,8 +29,13 @@ each slot of the superlayer pattern over superlayers (``params["layers"]
 (``model_params_to_torch``, ``decode_state_to_torch``,
 ``decode_state_to_numpy``); the encoder's stacked layers and the stacked
 cross-attention likewise become lists, and the reference's stacked
-cross K/V a list of (k, v) pairs (``cross_kv_to_torch``).  A bfloat16
-leaf crosses through float32, exactly.
+cross K/V a list of (k, v) pairs (``cross_kv_to_torch``).  The way back
+restacks them (``stack_model_params``, ``model_params_to_numpy``), and a
+whole ``TrainState`` — params and AdamW's two moments, ``step`` and
+``data_step`` — crosses both ways (``train_state_to_torch``,
+``train_state_to_numpy``; ``stack_train_state`` keeps tensors, in their
+dtype and on their device, for the checkpoint).  A bfloat16 leaf crosses
+to numpy through float32, exactly.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from .device import resolve_device
 from .nmp.dfa import dfa_tables
 from .nmp.kvstore import KVStore, as_records
 from .traffic.counters import Counters
+from .tree import tree_map
 
 #: the reference's hi/lo accumulator split (``repro.traffic.counters``).
 ACC_SHIFT = 30
@@ -293,3 +299,118 @@ def decode_state_to_numpy(state, cfg) -> dict:
                                     for k, v in state[base + j].items()}
                        for j in range(len(cfg.tail_pattern))}
     return out
+
+
+def _stack_trees(trees: list):
+    """A list of trees of one structure as one tree of stacked leaves
+    (``torch.stack`` over a new leading axis)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _slice_tree(tree, i: int):
+    """Entry ``i`` of every leaf of a stacked tree (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def stack_model_params(params, cfg) -> dict:
+    """The port's per-layer parameter tree (or a tree of its structure:
+    AdamW's moments) in the reference's stacked layout, as tensors on
+    their device in their dtype: ``layers/slot{j}`` stacked over the
+    superlayers, ``tail/tail{j}``, the encoder's layers and ``cross``
+    stacked.  The inverse of ``unstack_model_params``."""
+    P, n = len(cfg.block_pattern), cfg.n_superlayers
+    lay = params["layers"]
+    out = {"embed": params["embed"],
+           "layers": {f"slot{j}": _stack_trees([lay[li * P + j]
+                                                for li in range(n)])
+                      for j in range(P)}}
+    if cfg.tail_pattern:
+        out["tail"] = {f"tail{j}": lay[n * P + j]
+                       for j in range(len(cfg.tail_pattern))}
+    if cfg.encoder is not None:
+        out["encoder"] = {
+            "layers": _stack_trees(params["encoder"]["layers"]),
+            "final_ln": params["encoder"]["final_ln"]}
+        out["cross"] = _stack_trees(params["cross"])
+    return out
+
+
+def unstack_model_params(stacked, cfg) -> dict:
+    """The reference's stacked layout (tensors) as the port's per-layer
+    tree; each layer's leaves are views of the stacked tensors."""
+    P, n = len(cfg.block_pattern), cfg.n_superlayers
+    lay = stacked["layers"]
+    out = {"embed": stacked["embed"],
+           "layers": [_slice_tree(lay[f"slot{j}"], li)
+                      for li in range(n) for j in range(P)]}
+    out["layers"] += [stacked["tail"][f"tail{j}"]
+                      for j in range(len(cfg.tail_pattern))]
+    if cfg.encoder is not None:
+        enc = stacked["encoder"]
+        out["encoder"] = {
+            "layers": [_slice_tree(enc["layers"], li)
+                       for li in range(cfg.encoder.n_layers)],
+            "final_ln": enc["final_ln"]}
+        out["cross"] = [_slice_tree(stacked["cross"], li)
+                        for li in range(n)]
+    return out
+
+
+def _np_leaf(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy on the host; bfloat16 as float32, exactly."""
+    return _to_numpy(t.float() if t.dtype == torch.bfloat16 else t)
+
+
+def model_params_to_numpy(params, cfg) -> dict:
+    """The port's parameters in the reference's stacked layout with numpy
+    leaves (bfloat16 as float32): the inverse of
+    ``model_params_to_torch``."""
+    return tree_map(_np_leaf, stack_model_params(params, cfg))
+
+
+def stack_train_state(state, cfg):
+    """A port ``TrainState`` in the reference's stacked layout (params
+    and both moments), tensors on their device: what the ``Trainer``
+    checkpoints, so that ``repro.checkpoint.load`` restores it."""
+    from .optim.adamw import OptState
+    return type(state)(
+        params=stack_model_params(state.params, cfg),
+        opt=OptState(step=state.opt.step,
+                     m=stack_model_params(state.opt.m, cfg),
+                     v=stack_model_params(state.opt.v, cfg)),
+        data_step=state.data_step)
+
+
+def unstack_train_state(stacked, cfg):
+    """The inverse of ``stack_train_state``: a port ``TrainState``."""
+    from .optim.adamw import OptState
+    from .train.train_step import TrainState
+    return TrainState(
+        params=unstack_model_params(stacked.params, cfg),
+        opt=OptState(step=stacked.opt.step,
+                     m=unstack_model_params(stacked.opt.m, cfg),
+                     v=unstack_model_params(stacked.opt.v, cfg)),
+        data_step=stacked.data_step)
+
+
+def train_state_to_numpy(state, cfg):
+    """A port ``TrainState`` as the reference's: the stacked layout with
+    numpy leaves (bfloat16 as float32; ``step`` and ``data_step`` int32
+    scalars), in a ``TrainState`` whose fields the reference's shares."""
+    return tree_map(_np_leaf, stack_train_state(state, cfg))
+
+
+def train_state_to_torch(np_state, cfg, device=None):
+    """The reference's ``TrainState`` (numpy leaves, read by field name)
+    as the port's on ``device``: params and both moments per layer,
+    ``step`` and ``data_step`` int32 scalars."""
+    from .optim.adamw import OptState
+    from .train.train_step import TrainState
+    dev = resolve_device(device)
+    opt = np_state.opt
+    return TrainState(
+        params=model_params_to_torch(np_state.params, cfg, dev),
+        opt=OptState(step=_leaf_to_torch(opt.step, dev).to(torch.int32),
+                     m=model_params_to_torch(opt.m, cfg, dev),
+                     v=model_params_to_torch(opt.v, cfg, dev)),
+        data_step=_leaf_to_torch(np_state.data_step, dev).to(torch.int32))

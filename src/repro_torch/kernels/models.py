@@ -16,7 +16,10 @@ Dispatch is by the device of the tensors given, as in
 (``kernels.ref``); on a CUDA device it checks device, dtype, shape and
 contiguity, launches its kernel on the current stream (adding one to
 ``launches[name]``) and raises if the launch fails.  There is no fallback
-from the card to the plain version.
+from the card to the plain version.  Neither kernel has a backward: on
+the card a wrapper refuses an input that requires grad while grad mode
+is on, rather than return an output cut off from the graph (training
+takes the plain path, ``use_kernel=False``).
 
 What bounds each kernel on the card, and how its design answers it, is
 noted beside each kernel in ``csrc/models.cu``.
@@ -63,6 +66,17 @@ def _check_dtype(name: str, t: torch.Tensor) -> None:
                         f"bfloat16")
 
 
+def _no_grad_needed(name: str, *ts: torch.Tensor) -> None:
+    """Refuse a CUDA input that requires grad while grad mode is on: the
+    kernels have no backward, so their output would be cut off from the
+    graph and the layers before them would get no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the CUDA kernel has no "
+            f"backward; training takes use_kernel=False, as loss_fn does "
+            f"(or run the kernel under torch.no_grad())")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
@@ -84,6 +98,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
                          f"[B, Hq, Sq, D] and [B, Hkv, Sk, D] with "
                          f"Hq % Hkv == 0")
+    _no_grad_needed("flash_attention", q, k, v)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
@@ -119,6 +134,7 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     if x.dim() != 3 or a.shape != x.shape:
         raise ValueError(f"rglru_scan: x {tuple(x.shape)}, a "
                          f"{tuple(a.shape)}; expected two [B, S, D]")
+    _no_grad_needed("rglru_scan", x, a)
     _check_dtype("rglru_scan", x)
     for t in (x, a):
         _check("rglru_scan", t, x.dtype, x.device)

@@ -124,12 +124,13 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def rglru(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def rglru(x: torch.Tensor, a: torch.Tensor, *,
+          use_kernel: bool = True) -> torch.Tensor:
     """The RG-LRU scan over x, a [B, S, D]: the kernel
     (``kernels.models.rglru_scan``) where ``S`` and ``D`` are multiples of
     their blocks (``min(BLOCK, .)``), as the reference's Pallas kernel
-    needs, else ``ref.rglru_scan_ref``."""
+    needs, else (or with ``use_kernel=False``) ``ref.rglru_scan_ref``."""
     S, D = x.shape[1], x.shape[2]
-    if S % min(BLOCK, S) or D % min(BLOCK, D):
+    if not use_kernel or S % min(BLOCK, S) or D % min(BLOCK, D):
         return _ref.rglru_scan_ref(x, a)
     return _models.rglru_scan(x.contiguous(), a.contiguous())

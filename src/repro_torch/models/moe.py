@@ -15,9 +15,9 @@ not an accumulation; each token's k contributions are summed over a
 
 ``dispatch_int8=True`` sends the buffer and the experts' outputs through
 int8 with a per-slot scale, as the reference's ``_dispatch_q8`` and
-``_combine_q8`` do (forward only; their backward comes with training).
-The shard-local dispatch and the expert-parallel sharding constraint
-belong to meshes.
+``_combine_q8`` do, with their custom gradients (``torch.autograd.Function`` subclasses:
+the cotangent passes the wire unrounded).  The shard-local
+dispatch and the expert-parallel sharding constraint belong to meshes.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from .config import ModelConfig
 from .layers import Params, dense_init, qeinsum, rms_norm
 
 #: the ROADMAP item that ports meshes and training.
-MESH_ITEM = "ROADMAP Queue 1 item 17 (launch/sharding.py, train/)"
+MESH_ITEM = "ROADMAP Queue 1 item 17b (launch/sharding.py, meshes)"
 
 
 def set_ep_spec(spec) -> None:
@@ -111,7 +111,7 @@ def _q8(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
                        ).to(torch.int8)
 
 
-def _dispatch_q8(src, flat_e, pos, keep, n_experts: int, cap: int):
+def _dispatch_q8_fwd(src, flat_e, pos, keep, n_experts: int, cap: int):
     """src [T * k, d] -> buffer [E, C, d] in src's dtype through an int8
     wire: per-slot codes and scales scattered, dequantized at the
     expert."""
@@ -122,6 +122,30 @@ def _dispatch_q8(src, flat_e, pos, keep, n_experts: int, cap: int):
     return buf_q.to(src.dtype) * buf_s[..., None].to(src.dtype)
 
 
+class _DispatchQ8(torch.autograd.Function):
+    """The int8 dispatch with the reference's custom VJP
+    (``_dispatch_q8_bwd``): rounding has no useful derivative, so the
+    cotangent of the buffer goes straight back through the wire — each
+    kept slot takes ``g[flat_e, safe_pos]``, a dropped one 0."""
+
+    @staticmethod
+    def forward(ctx, src, flat_e, pos, keep, n_experts, cap):
+        ctx.save_for_backward(flat_e, pos, keep)
+        return _dispatch_q8_fwd(src, flat_e, pos, keep, n_experts, cap)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat_e, pos, keep = ctx.saved_tensors
+        safe_pos = torch.where(keep, pos, g.shape[1] - 1)
+        g_src = torch.where(keep[:, None], _gather(g, flat_e, safe_pos), 0)
+        return g_src, None, None, None, None, None
+
+
+def _dispatch_q8(src, flat_e, pos, keep, n_experts: int, cap: int):
+    """``_dispatch_q8_fwd`` with the reference's gradient."""
+    return _DispatchQ8.apply(src, flat_e, pos, keep, n_experts, cap)
+
+
 def _gather(buf: torch.Tensor, flat_e, safe_pos) -> torch.Tensor:
     """Rows ``buf[flat_e, safe_pos]`` of an ``[E, C, ...]`` buffer."""
     E, C = buf.shape[:2]
@@ -129,7 +153,7 @@ def _gather(buf: torch.Tensor, flat_e, safe_pos) -> torch.Tensor:
         0, flat_e * C + safe_pos)
 
 
-def _combine_q8(out_buf, flat_e, safe_pos, keep):
+def _combine_q8_fwd(out_buf, flat_e, safe_pos, keep):
     """out_buf [E, C, d] -> slot rows [T * k, d] through an int8 wire:
     quantized per buffer row at the expert, gathered, dequantized."""
     o_scale = _q8_scale(out_buf)
@@ -138,6 +162,31 @@ def _combine_q8(out_buf, flat_e, safe_pos, keep):
     slot_s = _gather(o_scale, flat_e, safe_pos)
     out = slot_q.to(out_buf.dtype) * slot_s[:, None].to(out_buf.dtype)
     return torch.where(keep[:, None], out, 0)
+
+
+class _CombineQ8(torch.autograd.Function):
+    """The int8 combine with the reference's custom VJP
+    (``_combine_q8_bwd``): the kept slots' cotangent rows scattered into a
+    zero ``[E, C, d]``.  Kept slots have unique (expert, position)
+    targets, so the scatter is a copy (``_scatter_kept``): no atomics,
+    deterministic on the card."""
+
+    @staticmethod
+    def forward(ctx, out_buf, flat_e, safe_pos, keep):
+        ctx.save_for_backward(flat_e, safe_pos, keep)
+        ctx.n_experts, ctx.cap = out_buf.shape[:2]
+        return _combine_q8_fwd(out_buf, flat_e, safe_pos, keep)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat_e, safe_pos, keep = ctx.saved_tensors
+        return (_scatter_kept(g, flat_e, safe_pos, keep, ctx.n_experts,
+                              ctx.cap), None, None, None)
+
+
+def _combine_q8(out_buf, flat_e, safe_pos, keep):
+    """``_combine_q8_fwd`` with the reference's gradient."""
+    return _CombineQ8.apply(out_buf, flat_e, safe_pos, keep)
 
 
 def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor

@@ -10,7 +10,8 @@ recurrent block: a GeLU gate branch times the recurrence branch (a width-4
 causal depthwise conv before the gates), projected out.
 
 Prefill runs the whole sequence through ``kernels.ops.rglru`` (the CUDA
-scan on the card); decode updates the O(1) state inline, in plain
+scan on the card, or its plain version with ``use_kernel=False``, which
+training takes); decode updates the O(1) state inline, in plain
 PyTorch, as the reference does outside Pallas.
 """
 from __future__ import annotations
@@ -66,11 +67,13 @@ def _causal_conv4(xr: torch.Tensor, w: torch.Tensor,
 
 
 def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                state: Optional[Dict[str, torch.Tensor]] = None
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                use_kernel: bool = True
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: [B, S, d] -> (y, new_state).  ``state`` (decode, S = 1):
     {"h": [B, dr] fp32, "conv": [B, 3, dr]}; None in prefill, where the
-    new state is None too."""
+    new state is None too.  ``use_kernel=False`` scans with the plain
+    version (training: the kernel has no backward)."""
     xn = rms_norm(x, p["ln"])
     gate = F.gelu(mm(xn, p["w_gate"]).float(),
                   approximate="tanh").to(x.dtype)
@@ -82,7 +85,7 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
     if state is None:
         # the gate is rounded to the block's dtype before the scan.
-        h = kops.rglru(gx, a.to(gx.dtype))
+        h = kops.rglru(gx, a.to(gx.dtype), use_kernel=use_kernel)
         new_state = None
     else:
         beta = torch.sqrt(torch.clamp(1.0 - a[:, 0] ** 2, min=0.0))

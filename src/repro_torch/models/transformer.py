@@ -7,12 +7,15 @@ The port of ``repro.models.transformer``.  Where the reference stacks
 each slot's weights over superlayers and scans them, the port keeps one
 parameter dict per layer in layer order and loops over them — the same
 layers in the same order; the encoder's layers and the per-superlayer
-cross-attention likewise.  There is no remat and no sharding constraint:
-those belong to training and meshes (ROADMAP Queue 1 item 17).
+cross-attention likewise.  ``cfg.remat`` recomputes each superlayer in
+the backward pass; there is no sharding constraint: that belongs to
+meshes (ROADMAP Queue 1 item 17b).
 
-Three entry points:
+Entry points:
   ``init_params``       — parameters drawn from a ``torch.Generator``.
   ``forward``           — full-sequence logits (prefill).
+  ``loss_fn``           — the training loss (token NLL with a chunked
+                          head, plus the MoE aux loss).
   ``decode_step``       — one token over KV caches / recurrent states.
 and, for the encoder-decoder, ``encode`` and ``cross_kv`` (the encoder's
 K/V for each superlayer, computed once and handed to ``decode_step``).
@@ -105,15 +108,15 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def encode(params: Params, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           use_kernel: bool = True) -> torch.Tensor:
     """frames [B, T, d] -> encoder states [B, T, d]: non-causal attention
     and MLP layers, then the final norm."""
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames.to(dtype_of(cfg))
     for p in params["encoder"]["layers"]:
         x, _ = L.attention_block(p["attn"], cfg, x, pos, window=None,
-                                 causal=False)
+                                 causal=False, use_kernel=use_kernel)
         x = L.mlp_block(p["ffn"], cfg, x)
     return L.rms_norm(x, params["encoder"]["final_ln"])
 
@@ -141,51 +144,170 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
     return L.mlp_block(p["ffn"], cfg, x), None
 
 
+def _block(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
+           pos: torch.Tensor, use_kernel: bool
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer of the stack: its mixer, then its FFN (an ``rwkv`` layer
+    has none): (x, the MoE aux loss or None)."""
+    if kind == "rg":
+        x, _ = rglru_block(p["mixer"], cfg, x, use_kernel=use_kernel)
+    elif kind == "rwkv":
+        x, _ = rwkv_block(p["mixer"], cfg, x)
+    else:
+        x, _ = L.attention_block(
+            p["mixer"], cfg, x, pos,
+            window=cfg.window if kind == "la" else None,
+            use_kernel=use_kernel)
+    if kind == "rwkv":
+        return x, None
+    return _ffn(p, cfg, x)
+
+
+#: the ops whose outputs ``remat_policy="dots"`` keeps for the backward
+#: pass (the reference's ``dots_saveable``: the matrix products).
+DOTS = ("mm", "bmm")
+
+
+def _remat(fn, *args, policy: str):
+    """``fn(*args)`` recomputed in the backward pass, as the reference's
+    ``jax.checkpoint`` of a superlayer: nothing saved (``"full"``), or
+    the outputs of the matrix products saved (``"dots"``)."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if policy == "dots":
+        ops = [getattr(torch.ops.aten, n).default for n in DOTS]
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(ops)
+    elif policy != "full":
+        raise ValueError(f"remat_policy {policy!r}: 'full' or 'dots'")
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def forward_body(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-                 frames: Optional[torch.Tensor] = None
+                 frames: Optional[torch.Tensor] = None,
+                 use_kernel: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (final hidden states [B, S, d] before the head,
-    the summed MoE aux loss, fp32 scalar)."""
+    the summed MoE aux loss, fp32 scalar).
+
+    ``use_kernel=False`` takes the plain attention and RG-LRU scan, which
+    autograd differentiates (the kernels have no backward and refuse an
+    input that requires grad).  With ``cfg.remat`` each superlayer (one
+    period of ``block_pattern``, with its cross-attention) is recomputed
+    in the backward pass, as the reference's ``jax.checkpoint`` of its
+    scan body; the tail layers are not, as in the reference."""
     cross = None
     if cfg.encoder is not None:
         if frames is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
                              f"encoder frames")
-        cross = cross_kv(params, cfg, encode(params, cfg, frames))
+        cross = cross_kv(params, cfg, encode(params, cfg, frames,
+                                             use_kernel))
     x = L.embed(params["embed"], tokens).to(dtype_of(cfg))
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    ends = cross_after(cfg)
-    for li, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
-        if kind == "rg":
-            x, _ = rglru_block(p["mixer"], cfg, x)
-        elif kind == "rwkv":
-            x, _ = rwkv_block(p["mixer"], cfg, x)
-        else:
-            x, _ = L.attention_block(
-                p["mixer"], cfg, x, pos,
-                window=cfg.window if kind == "la" else None)
-        if kind != "rwkv":
-            x, a = _ffn(p, cfg, x)
+    kinds, P = layer_kinds(cfg), len(cfg.block_pattern)
+
+    def superlayer(li: int, x: torch.Tensor, aux: torch.Tensor):
+        for j in range(li * P, (li + 1) * P):
+            x, a = _block(kinds[j], params["layers"][j], cfg, x, pos,
+                          use_kernel)
             if a is not None:
                 aux = aux + a
-        if li in ends:
-            x, _ = L.attention_block(params["cross"][ends[li]], cfg, x, pos,
-                                     window=None, cross_kv=cross[ends[li]])
+        if cross is not None:
+            x, _ = L.attention_block(params["cross"][li], cfg, x, pos,
+                                     window=None, cross_kv=cross[li],
+                                     use_kernel=use_kernel)
+        return x, aux
+
+    for li in range(cfg.n_superlayers):
+        if cfg.remat and torch.is_grad_enabled():
+            x, aux = _remat(superlayer, li, x, aux, policy=cfg.remat_policy)
+        else:
+            x, aux = superlayer(li, x, aux)
+    for j in range(cfg.n_superlayers * P, len(kinds)):
+        x, a = _block(kinds[j], params["layers"][j], cfg, x, pos,
+                      use_kernel)
+        if a is not None:
+            aux = aux + a
     return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> torch.Tensor:
+            last_only: bool = False, use_kernel: bool = True
+            ) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V_padded] fp32, on the parameters'
     device.  ``frames`` [B, T, d]: the encoder's input, which an
     encoder-decoder needs.  ``last_only=True`` (serving prefill): the LM
-    head for the final position only, [B, 1, V_padded]."""
-    x, _ = forward_body(params, cfg, tokens, frames=frames)
+    head for the final position only, [B, 1, V_padded].  The kernels
+    run where their shapes tile unless ``use_kernel=False``."""
+    x, _ = forward_body(params, cfg, tokens, frames=frames,
+                        use_kernel=use_kernel)
     if last_only:
         x = x[:, -1:]
     return L.logits(params["embed"], cfg, x)
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   frames: Optional[torch.Tensor] = None,
+                   use_kernel: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward up to the final hidden states (no LM head), so that the
+    loss can chunk the head: ``forward_body`` with the reference's
+    signature and default (the plain attention and scan)."""
+    return forward_body(params, cfg, tokens, frames=frames,
+                        use_kernel=use_kernel)
+
+
+def _nll_sum(embed_p: Params, cfg: ModelConfig, xc: torch.Tensor,
+             tc: torch.Tensor) -> torch.Tensor:
+    """The summed token NLL of one chunk: the head's fp32 logits [B, c,
+    V_padded], their logsumexp, less the target logit taken by a one-hot
+    product (the pad columns' -1e30 times 0 is -0, finite)."""
+    lg = L.logits(embed_p, cfg, xc)
+    lse = torch.logsumexp(lg, dim=-1)
+    onehot = torch.zeros_like(lg).scatter_(-1, tc[..., None].long(), 1.0)
+    tgt = (lg * onehot).sum(dim=-1)
+    return (lse - tgt).sum()
+
+
+def _chunk_nll(embed_p: Params, cfg: ModelConfig, x: torch.Tensor,
+               targets: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean token NLL without materialising the [B, S, V] logits: the
+    head runs over sequence chunks of ``chunk`` tokens, each recomputed in
+    the backward pass, so autograd keeps only the running sum.  When
+    ``chunk`` does not divide S, one pass over the whole sequence, as in
+    the reference."""
+    from torch.utils.checkpoint import checkpoint
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        lp = torch.log_softmax(L.logits(embed_p, cfg, x), dim=-1)
+        return -lp.gather(-1, targets[..., None].long())[..., 0].mean()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        xc, tc = x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_nll_sum, embed_p, cfg, xc, tc,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            part = _nll_sum(embed_p, cfg, xc, tc)
+        total = total + part
+    return total / total.new_full((), B * S)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            targets: torch.Tensor, frames: Optional[torch.Tensor] = None,
+            use_kernel: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(token NLL + MoE aux loss, {"nll", "aux"}), fp32 scalars, over
+    tokens and targets [B, S].  The default ``use_kernel=False`` is the
+    reference's: its training path reaches no kernel."""
+    x, aux = forward_hidden(params, cfg, tokens, frames, use_kernel)
+    nll = _chunk_nll(params["embed"], cfg, x, targets)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

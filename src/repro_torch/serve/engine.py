@@ -30,7 +30,7 @@ from ..models import decode_step, init_decode_state
 from ..models.config import ModelConfig
 
 #: the ROADMAP item that ports the mesh paths (``launch/sharding.py``).
-MESH_ITEM = "ROADMAP Queue 1 item 17 (launch/sharding.py)"
+MESH_ITEM = "ROADMAP Queue 1 item 17b (launch/sharding.py)"
 
 
 def decode_state_specs(*args, **kwargs):

@@ -1,0 +1,151 @@
+"""Training driver: checkpoint and restart, straggler monitoring, and the
+failure-injection hooks.
+
+The port of ``repro.train.trainer`` on one device.  Every
+``ckpt_every`` steps an ``AsyncCheckpointer`` snapshots the whole
+``TrainState`` (params, optimizer, ``data_step``) in the reference's
+stacked layout (``convert.stack_train_state``), so ``repro`` restores a
+port checkpoint and the other way round.  On a failure the driver
+restarts from ``latest_valid``: the pipeline is a pure function of
+``data_step``, so the resumed run replays the same tokens and ends with
+the same parameters bit for bit.  A straggler monitor flags steps slower
+than ``straggler_factor`` times the running median.  A mesh (``mesh``
+other than None) is ROADMAP Queue 1 item 17b.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+import statistics
+import tempfile
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from .. import convert
+from ..checkpoint import checkpoint as ckpt
+from ..data.pipeline import DataConfig, SyntheticPipeline
+from ..device import resolve_device
+from ..models.config import ModelConfig
+from ..optim.adamw import OptimConfig
+from ..tree import tree_map
+from .train_step import MESH_ITEM, init_state, train_step
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    ckpt_every: int = 20
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    keep: int = 3
+    straggler_factor: float = 3.0
+    straggler_window: int = 20
+
+
+class StragglerMonitor:
+    def __init__(self, factor: float, window: int):
+        self.factor = factor
+        self.window = window
+        self.times: List[float] = []
+        self.events: List[Dict[str, Any]] = []
+
+    def record(self, step: int, dt: float) -> bool:
+        flagged = False
+        if len(self.times) >= 5:
+            med = statistics.median(self.times[-self.window:])
+            if dt > self.factor * med:
+                self.events.append({"step": step, "dt": dt, "median": med})
+                flagged = True
+        self.times.append(dt)
+        return flagged
+
+
+class Trainer:
+    """``Trainer(cfg, ocfg, tcfg, mesh, params, data_cfg, microbatches=1,
+    on_straggler=None, device=None)``: the reference's signature, with
+    ``mesh`` None and the parameters moved to ``device`` (the card unless
+    the caller names another)."""
+
+    def __init__(self, cfg: ModelConfig, ocfg: OptimConfig,
+                 tcfg: TrainerConfig, mesh, params, data_cfg: DataConfig,
+                 microbatches: int = 1,
+                 on_straggler: Optional[Callable[[Dict[str, Any]],
+                                                 None]] = None,
+                 device=None):
+        if mesh is not None:
+            raise NotImplementedError(f"Trainer(mesh=...): {MESH_ITEM}")
+        self.cfg, self.ocfg, self.tcfg = cfg, ocfg, tcfg
+        self.device = resolve_device(device)
+        self.pipeline = SyntheticPipeline(data_cfg, device=self.device)
+        self.state = init_state(tree_map(lambda p: p.to(self.device),
+                                         params))
+        self.step_fn = functools.partial(train_step, cfg, ocfg,
+                                         microbatches)
+        self.saver = ckpt.AsyncCheckpointer()
+        self.monitor = StragglerMonitor(tcfg.straggler_factor,
+                                        tcfg.straggler_window)
+        self.on_straggler = on_straggler
+        self.metrics_log: List[Dict[str, float]] = []
+
+    # -- checkpoint/restart ------------------------------------------------
+
+    def maybe_restore(self) -> int:
+        path = ckpt.latest_valid(self.tcfg.ckpt_dir)
+        if path is None:
+            return 0
+        like = convert.stack_train_state(self.state, self.cfg)
+        stacked, meta = ckpt.load(path, like, device=self.device)
+        self.state = convert.unstack_train_state(stacked, self.cfg)
+        return int(meta["step"])
+
+    def _save(self, step: int) -> None:
+        path = ckpt.step_path(self.tcfg.ckpt_dir, step)
+        self.saver.save(path, convert.stack_train_state(self.state,
+                                                        self.cfg),
+                        meta={"step": step, "arch": self.cfg.name})
+        self._gc(step)
+
+    def _gc(self, newest: int) -> None:
+        if not os.path.isdir(self.tcfg.ckpt_dir):
+            return
+        steps = sorted(
+            int(n.split("_")[1].split(".")[0])
+            for n in os.listdir(self.tcfg.ckpt_dir)
+            if n.startswith("step_") and n.endswith(".ckpt"))
+        for s in steps[:-self.tcfg.keep]:
+            try:
+                os.remove(ckpt.step_path(self.tcfg.ckpt_dir, s))
+            except OSError:
+                pass
+
+    # -- main loop ----------------------------------------------------------
+
+    def run(self, fail_at: Optional[int] = None,
+            delay_at: Optional[int] = None) -> Dict[str, Any]:
+        """Train to ``tcfg.steps``.  ``fail_at``/``delay_at`` are the test
+        hooks: raise a simulated node failure / inject a straggler
+        stall."""
+        start = self.maybe_restore()
+        for step in range(start, self.tcfg.steps):
+            if fail_at is not None and step == fail_at:
+                raise RuntimeError(f"simulated node failure at step {step}")
+            t0 = time.monotonic()
+            if delay_at is not None and step == delay_at:
+                time.sleep(0.25)   # injected straggler
+            batch = self.pipeline.batch(int(self.state.data_step))
+            self.state, m = self.step_fn(self.state, batch)
+            loss = float(m["loss"])           # waits for the step
+            dt = time.monotonic() - t0
+            if self.monitor.record(step, dt) and self.on_straggler:
+                self.on_straggler(self.monitor.events[-1])
+            self.metrics_log.append(
+                {"step": step, "loss": loss,
+                 "grad_norm": float(m["grad_norm"]), "dt": dt})
+            if (step + 1) % self.tcfg.ckpt_every == 0:
+                self._save(step + 1)
+        self.saver.wait()
+        return {"final_loss": self.metrics_log[-1]["loss"],
+                "stragglers": self.monitor.events,
+                "steps_run": len(self.metrics_log)}

@@ -1359,3 +1359,65 @@ def test_quantize_weight_card_equals_cpu(cuda):
         assert torch.equal(got["q"].cpu(), want["q"])
         assert torch.equal(got["s"].cpu().view(torch.int32),
                            want["s"].view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan"])
+def test_kernel_refuses_input_that_requires_grad(cuda, name):
+    """A kernel has no backward: on the card its wrapper raises rather
+    than return an output cut off from the graph, and runs under
+    ``torch.no_grad()``."""
+    if name == "flash_attention":
+        t = torch.randn((1, 2, 128, 64), device=cuda)
+
+        def call(x):
+            return MK.flash_attention(x, x, x)
+    else:
+        t = torch.randn((1, 128, 128), device=cuda)
+        a = torch.rand((1, 128, 128), device=cuda)
+
+        def call(x):
+            return MK.rglru_scan(x, a)
+    t.requires_grad_(True)
+    before = dict(MK.launches)
+    with pytest.raises(RuntimeError, match="use_kernel=False"):
+        call(t)
+    assert MK.launches == before
+    with torch.no_grad():
+        out = call(t)
+    assert not out.requires_grad
+    assert MK.launches[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-9b",
+                                  "granite-moe-1b-a400m", "whisper-small"])
+def test_train_grads_card_equal_cpu(cuda, arch):
+    """``loss_fn``'s loss and every gradient leaf in fp32, card against
+    CPU on the same parameters and batch, at the CPU tests' tolerances
+    (loss 1e-5; gradients atol 1e-5, rtol 1e-4); the training path
+    launches no kernel."""
+    from repro_torch.train.train_step import _value_and_grad
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator().manual_seed(SEED)
+    params = T.init_params(cfg, generator=gen, device="cpu")
+    mb = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen,
+                                  dtype=torch.int32),
+          "targets": torch.randint(0, cfg.vocab, (2, 16), generator=gen,
+                                   dtype=torch.int32)}
+    if cfg.encoder is not None:
+        mb["frames"] = torch.randn((2, cfg.encoder.n_frames, cfg.d_model),
+                                   generator=gen)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lc, _, gc = _value_and_grad(cfg, params, mb)
+        MK.reset_launches()
+        lg, _, gg = _value_and_grad(cfg, tree_map(lambda p: p.to(cuda),
+                                                  params),
+                                    {k: v.to(cuda) for k, v in mb.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert sum(MK.launches.values()) == 0
+    assert abs(float(lg) - float(lc)) <= 1e-5
+    for a, b in zip(leaves(gg), leaves(gc)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4)

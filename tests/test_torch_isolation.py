@@ -36,6 +36,39 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _module_level_imports(tree):
+    """Import statements outside any function body."""
+    out = []
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out.append(node.module)
+        stack.extend(ast.iter_child_nodes(node))
+    return out
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_msgpack_or_zstandard_on_import(path):
+    """The card's machine has neither ``msgpack`` nor ``zstandard``: no
+    module of the port imports them when it is imported, and only the
+    checkpoint codec imports ``zstandard``, inside the function that
+    reads a compressed block."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [m for m in _module_level_imports(tree)
+           if m.split(".")[0] in ("msgpack", "zstandard")]
+    assert not top, f"{path.relative_to(ROOT)} imports {top}"
+    anywhere = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names if a.name.split(".")[0] == "msgpack"]
+    assert not anywhere, f"{path.relative_to(ROOT)} imports msgpack"
+
+
 def test_sources_found():
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 10
@@ -67,6 +100,30 @@ def test_default_convert_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.engine_state_to_torch(st)
     assert isinstance(st.txn_msg, np.ndarray)
+
+
+def test_default_training_entry_points_raise_without_cuda(no_cuda,
+                                                         tmp_path):
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = get_config("smollm-360m", smoke=True)
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    calls = [lambda: SyntheticPipeline(DataConfig(16, 4, 2)),
+             lambda: Trainer(cfg, OptimConfig(), TrainerConfig(), None,
+                             params, DataConfig(16, 4, 2)),
+             lambda: ck.load(ck.save(str(tmp_path / "a.ckpt"),
+                                     {"a": torch.zeros(2)}),
+                             {"a": torch.zeros(2)})]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    batch = SyntheticPipeline(DataConfig(16, 4, 2), device="cpu").batch(0)
+    assert batch["tokens"].device.type == "cpu"
 
 
 def test_default_counters_raise_without_cuda(no_cuda):
