@@ -50,8 +50,8 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    then 32 greedy tokens); and fp32 decode against prefill at 2e-4 at
    full width with depth cut to 5 layers;
 4. the near-memory operators at the paper's §5 sizes, through
-   ``core.pushdown`` on one shard: SELECT over 8 Mi 128-byte rows and
-   regex over 8 Mi rows with a 62-byte string field, each at 1%, 10% and
+   ``core.pushdown`` on one shard: SELECT over 4 Mi 128-byte rows and
+   regex over 4 Mi rows with a 62-byte string field, each at 1%, 10% and
    100% selectivity, and a KVS of 65,536 buckets at chain lengths 1, 8,
    32 and 128 under 1 Mi queries — each run checked against its oracle
    (the predicate, python ``re``, the plain lookup), each call launching
@@ -69,7 +69,7 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    step from the profiler (``step_profile``); ``run_stream`` on zipfian
    traffic at R=64 remotes,
    L=4096 lines of B=32 fp32 words (128-byte lines), MOESI, issue width
-   W=1 at 64 ops per remote (``W1_OPS``) and W=4 at 32 (``W4_OPS``),
+   W=1 at 24 ops per remote (``W1_OPS``) and W=4 at 16 (``W4_OPS``),
    each with the default step budget for its ops and validated by the
    port's own ``validate_run`` against its own ``MultiNodeRef``, with the
    launch count of every kernel in that run;
@@ -85,7 +85,7 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    equal to the dense run of the same configuration;
 7. the packed two-home path at the main path's width: ``EngineConfig(
    remotes=64, lines=4096, block=32, homes=2, packed=True)``, MOESI,
-   zipfian, W=1, 32 ops per remote (``PACKED_OPS``): the device
+   zipfian, W=1, 16 ops per remote (``PACKED_OPS``): the device
    operations, device time and step-kernel entries of one packed step
    (``step_profile(packed=True)``), then the run, validated against the
    two-home oracle, with its own launch table (``packed_any`` 4 and
@@ -96,11 +96,11 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    one step under the admission loop and under the observability plane
    (``step_profile(mode=...)``); no host synchronisation in either loop;
    Poisson arrivals at 0.01 ops/step/remote (``SOJ_RATE``, seed 1) with
-   ``ADMISSION``, 8 ops per remote and the auto budget, which must
+   ``ADMISSION``, 2 ops per remote and the auto budget, which must
    complete oracle-exact with no backlog and ``PER_STEP`` launches per
    step, its sojourn and admission-wait percentiles printed; the same at
-   0.05 (``OVERLOAD_RATE``) over the arrival span, which must end with a
-   backlog; an observed run (4 ops per remote, ``OBS_CAPACITY`` words)
+   0.05 (``OVERLOAD_RATE``, 8 ops) over the arrival span, which must end
+   with a backlog; an observed run (2 ops per remote, ``OBS_CAPACITY`` words)
    equal bit for bit to the plain run, with no violation online or in
    ``check_trace`` over its ring; and a request injected into an open
    request window, which must be latched at its (step, line) and flagged
@@ -169,7 +169,21 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    micro-batches: a warm-up and three steps of ``train_step`` (loss, grad
    norm, lr, s a step, tokens/s, the device's idle share, peak memory;
    within ``TRAIN_BUDGET_S``), then the whole ``TrainState`` saved, verified
-   and loaded back on the card bit for bit (bytes and seconds).
+   and loaded back on the card bit for bit (bytes and seconds);
+13. meshes, on a one-device NCCL world (``make_local_mesh``, shapes
+   (1, 1) and (1, 1, 1); every collective of a world of one is a copy, so
+   each sharded path equals its unsharded twin bit for bit):
+   smollm-360m whole in bf16, ``make_train_step`` in ``"2d"`` and
+   ``"fsdp"`` against ``train_step`` from the same state over two steps of
+   B=4, S=1024 (loss, grad norm and every leaf; the step times printed);
+   ``make_serve_step`` against ``decode_step`` over 32 greedy tokens at
+   B=4 (logits); ``filtered_batch`` against ``pushdown_select`` over 1 Mi
+   128-byte rows at 10%, ``select_scan`` launched once a call;
+   ``compressed_psum`` and ``pipeline_apply`` on a group of one against
+   their closed forms; ``resume_on_mesh`` of a 2-layer full-width
+   ``TrainState`` checkpoint; ``python -m repro_torch.launch.train`` and
+   ``launch.serve`` (smoke) as subprocesses, exit 0; the process group is
+   destroyed at the phase's end.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -202,41 +216,44 @@ R, L, B, P = 64, 4096, 32, 65
 #: two-home W=1 run, cut from the ``WorkloadSpec`` default of 128 so that
 #: the script keeps a margin under its 1200 s limit on a slow host (see
 #: PERF.md, section 4; the packed run cut again from 64 when phase 10
-#: came in).
-W1_OPS = 64
-W4_OPS = 32
-PACKED_OPS = 32
+#: came in; when phase 13 came in, W=1 from 64 and W=4 and the packed
+#: run from 32, after whole runs took 1220.1 and 1207.6 s on slow hosts).
+W1_OPS = 24
+W4_OPS = 16
+PACKED_OPS = 16
 
 #: phase 8, open loop and observation at the main path's width: Poisson
 #: arrivals at 0.01 ops/step/remote (about 47% of the closed loop's
-#: capacity here, 0.0213) and at 0.05 (about 2.3 times it), 8 ops per
-#: remote (16 before phase 12 came in, PERF.md section 4), the admission
-#: cap (max_inflight, reserve) of the reference's knee at R=8, (16, 2),
-#: scaled by R; the observed run at 4 ops per remote (8 before phase 12)
-#: into a ring of 65,536 words.
-SOJ_RATE, OVERLOAD_RATE, OPEN_OPS = 0.01, 0.05, 8
+#: capacity here, 0.0213) and at 0.05 (about 2.3 times it), 2 ops per
+#: remote below the knee (16 before phase 12 came in, 8 before phase 13;
+#: PERF.md section 4) and 8 past it (at 4 the arrival span ended with no
+#: backlog on an H100), the admission cap (max_inflight, reserve) of the
+#: reference's knee at R=8, (16, 2), scaled by R; the observed run at 2
+#: ops per remote (8 before phase 12, 4 before phase 13) into a ring of
+#: 65,536 words.
+SOJ_RATE, OVERLOAD_RATE, OPEN_OPS, OVERLOAD_OPS = 0.01, 0.05, 2, 8
 ADMISSION = (128, 16)
-OBS_OPS, OBS_CAPACITY = 4, 1 << 16
+OBS_OPS, OBS_CAPACITY = 2, 1 << 16
 
 #: the packed two-home path: homes, words per line at R=64.
 HOMES, NW = 2, 2
 
-#: phase 9, fleets at the main path's width: 2 ops per remote (4 before
-#: phase 12 came in, 8 before phase 10), an R x W grid
+#: phase 9, fleets at the main path's width: 1 op per remote (2 before
+#: phase 13 came in, 4 before phase 12, 8 before phase 10), an R x W grid
 #: and a homes sweep at R=64 with a per-home acceptance cap of 1; credits
 #: of 4,096 a VC, since the fleet's home emulation is exact only while
 #: credits cover the lines.
-FLEET_OPS = 2
+FLEET_OPS = 1
 FLEET_GRID = ((16, 1), (16, 4), (64, 1), (64, 4))
 FLEET_HOMES, FLEET_HOME_BW, FLEET_CREDITS = (1, 2, 4), 1, 4096
 
-#: the near-memory phase, at half the rows of the paper's §5 (16 Mi
-#: before phase 12 came in; PERF.md §4): SELECT over 8 Mi rows of 32 fp32
-#: (128-byte rows, 1 GiB) and regex over 8 Mi rows of 128 bytes with a
-#: 62-byte string field, each at three
+#: the near-memory phase, at a quarter of the rows of the paper's §5 (16
+#: Mi before phase 12 came in, 8 Mi before phase 13; PERF.md §4): SELECT
+#: over 4 Mi rows of 32 fp32 (128-byte rows, 512 MiB) and regex over 4 Mi
+#: rows of 128 bytes with a 62-byte string field, each at three
 #: selectivities; a KVS of 65,536 buckets at four chain lengths, 1 Mi
 #: queries with about 11% misses (keys 1..n, queries in [1, 1.125 n)).
-NMP_ROWS, SEL_W = 8_388_608, 32
+NMP_ROWS, SEL_W = 4_194_304, 32
 SELECTIVITIES = (0.01, 0.1, 1.0)
 REGEX_W, STR_LO, STR_HI, PATTERN = 128, 8, 70, "xyzzy"
 KVS_BUCKETS, KVS_QUERIES, V_WIDTH, MISS = 65_536, 1_048_576, 28, 0.125
@@ -305,6 +322,16 @@ TRAIN_BUDGET_S = 90
 LOSS_TOL, GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-5, 1e-4
 #: smollm-360m at full width cut to 2 layers, fp32, B=2 over S=512.
 TRAIN_EXACT_LAYERS, TRAIN_EXACT_B, TRAIN_EXACT_S = 2, 2, 512
+#: phase 13, meshes on a one-device NCCL world: smollm-360m whole in bf16,
+#: ``MESH_STEPS`` sharded train steps of B x S in each mode against the
+#: unsharded step; ``MESH_TOKENS`` greedy tokens of the sharded serve step
+#: at B; ``filtered_batch`` over ``MESH_ROWS`` 128-byte rows at
+#: ``MESH_SEL``; ``resume_on_mesh`` of a ``MESH_RESUME_LAYERS``-layer
+#: full-width ``TrainState``.  ``MESH_BUDGET_S`` is printed beside the
+#: phase's wall time.
+MESH_ARCH, MESH_B, MESH_S, MESH_STEPS, MESH_TOKENS = (
+    "smollm-360m", 4, 1024, 2, 32)
+MESH_ROWS, MESH_SEL, MESH_RESUME_LAYERS, MESH_BUDGET_S = 1 << 20, 0.1, 2, 60
 #: the cases of ``tests/test_kernels.py``: (B, Hq, Hkv, Sq, Sk, D, causal,
 #: window, softcap) and (B, S, D), with its tolerances per dtype.
 ATTN_CASES = ((2, 4, 2, 64, 64, 32, True, None, None),
@@ -2795,6 +2822,288 @@ def phase_train(dev, rows) -> None:
           f"{TRAIN_BUDGET_S} s for the {TRAIN_STEPS} timed steps)")
 
 
+def _timed(fn):
+    """(``fn()``, its wall s to a device synchronisation)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same_leaves(label: str, want, got) -> int:
+    """Fail unless every leaf of ``got`` (DTensors or tensors) equals the
+    leaf of ``want`` bit for bit, dtype and all; the number of leaves."""
+    import torch
+    from repro_torch.launch.sharding import full
+    from repro_torch.tree import leaves_with_path
+    pairs = list(zip(leaves_with_path(want), leaves_with_path(got)))
+    for (path, a), (_, b) in pairs:
+        b = full(b)
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not torch.equal(bits(a), bits(b)):
+            fail(f"{label}: leaf {'/'.join(map(str, path))} differs")
+    return len(pairs)
+
+
+def mesh_train(dev, meshes) -> None:
+    """smollm-360m whole in bf16: ``MESH_STEPS`` steps of ``train_step``,
+    then of ``make_train_step`` in each mode from the same state, loss,
+    grad norm and every leaf bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_state, make_train_step, train_step
+    cfg = get_config(MESH_ARCH)
+    torch.cuda.empty_cache()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, total_steps=100)
+    pipe = SyntheticPipeline(DataConfig(cfg.vocab, MESH_S, MESH_B),
+                             device=dev)
+    batches = [pipe.batch(i) for i in range(MESH_STEPS)]
+    want, metrics, times = init_state(params), [], []
+    for b in batches:
+        (want, m), t = _timed(lambda: train_step(cfg, ocfg, 1, want, b))
+        metrics.append(m)
+        times.append(t)
+    print(f"mesh train: {cfg.name} {cfg.dtype} whole ({cfg.n_layers} "
+          f"layers, d={cfg.d_model}), B={MESH_B} S={MESH_S}: train_step "
+          f"{', '.join(f'{t:.3f}' for t in times)} s; losses "
+          f"{', '.join(f'{float(m['loss']):.6f}' for m in metrics)}")
+    for mode, mesh in meshes:
+        step = make_train_step(cfg, ocfg, mesh, params, 1,
+                               sharding_mode=mode)
+        got, ts = init_state(params), []
+        for b, m in zip(batches, metrics):
+            (got, m2), t = _timed(lambda: step(got, b))
+            ts.append(t)
+            for k in ("loss", "lr", "grad_norm"):
+                if not torch.equal(bits(m[k]), bits(m2[k])):
+                    fail(f"mesh train {mode}: {k} {float(m2[k])} against "
+                         f"the unsharded {float(m[k])}")
+        n = _same_leaves(f"mesh train {mode}", want, got)
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        print(f"mesh train {mode} on {shape}: "
+              f"make_train_step {', '.join(f'{t:.3f}' for t in ts)} s "
+              f"against train_step {', '.join(f'{t:.3f}' for t in times)} s; "
+              f"loss, lr, grad norm and all {n} leaves bit for bit")
+        del got, step
+
+
+def mesh_serve(dev, mesh) -> None:
+    """smollm-360m whole in bf16: ``MESH_TOKENS`` greedy tokens through
+    ``make_serve_step`` and through ``decode_step``, logits bit for
+    bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import make_serve_step
+    cfg = get_config(MESH_ARCH)
+    torch.cuda.empty_cache()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    s1 = T.init_decode_state(cfg, MESH_B, MESH_TOKENS + 1, dev)
+    s2 = T.init_decode_state(cfg, MESH_B, MESH_TOKENS + 1, dev)
+    step = make_serve_step(cfg, mesh, s2, params, global_batch=MESH_B)
+    tok = torch.arange(MESH_B, dtype=torch.int32, device=dev)
+    t_plain = t_mesh = 0.0
+    with torch.no_grad():
+        for i in range(MESH_TOKENS):
+            (l1, s1), t = _timed(lambda: T.decode_step(params, cfg, tok, i,
+                                                       s1))
+            t_plain += t
+            (l2, s2), t = _timed(lambda: step(params, tok, i, s2))
+            t_mesh += t
+            if not torch.equal(bits(l1), bits(l2.full_tensor())):
+                fail(f"mesh serve: the logits of token {i} differ")
+            tok = l1.argmax(-1).to(torch.int32)
+    print(f"mesh serve: {cfg.name} {cfg.dtype} whole, B={MESH_B}, "
+          f"{MESH_TOKENS} "
+          f"greedy tokens: make_serve_step logits == decode_step's bit for "
+          f"bit; {t_mesh / MESH_TOKENS * 1e3:.3f} ms a token sharded "
+          f"(the 'serve' weights gathered every token) against "
+          f"{t_plain / MESH_TOKENS * 1e3:.3f} ms")
+
+
+def mesh_filtered(dev, mesh, rows) -> None:
+    """``filtered_batch`` over the mesh's ``data`` axis (one shard)
+    against ``pushdown_select`` on the card, bit for bit, with
+    ``select_scan`` launched once a call in the counted window."""
+    import torch
+    from repro_torch.core import pushdown as PD
+    from repro_torch.data.pipeline import filtered_batch
+    from repro_torch.kernels import nmp as NK
+    n, w = MESH_ROWS, SEL_W
+    g = torch.Generator(device=dev).manual_seed(57)
+    table = torch.randn((n, w), generator=g, device=dev)
+    match = torch.rand(n, generator=g, device=dev) < MESH_SEL
+    table[:, 0] = torch.where(match, 1.0, -1.0)
+    table[:, 1] = torch.where(match, 0.0, 2.0)
+    torch.cuda.synchronize()
+    NK.reset_launches()
+    got, t = _timed(lambda: filtered_batch(mesh, "data", table, 0.0, 1.0,
+                                           n))
+    for _ in range(2):
+        got, t2 = _timed(lambda: filtered_batch(mesh, "data", table, 0.0,
+                                                1.0, n))
+        t = min(t, t2)
+    counts = dict(NK.launches)
+    if counts != {"select_scan": 3, "regex_dfa": 0, "hash_probe": 0}:
+        fail(f"mesh filtered_batch: launches {counts}, expected select_scan "
+             f"once a call")
+    rows["select_scan"]["launches"] += counts["select_scan"]
+    want, tw = _timed(lambda: PD.pushdown_select([dev], n, table, 0.0, 1.0))
+    same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+    if not same or int(got.moved_rows) != int(match.sum()):
+        fail("mesh filtered_batch: differs from pushdown_select")
+    print(f"mesh filtered_batch: {n} rows x {w} fp32 at {MESH_SEL}, "
+          f"{int(got.moved_rows)} matches == pushdown_select bit for bit; "
+          f"{t * 1e3:.3f} ms (best of 3) against {tw * 1e3:.3f} ms; "
+          f"select_scan launched {counts['select_scan']} times in 3 calls")
+
+
+def mesh_collectives(dev, mesh) -> None:
+    """``compressed_psum`` and ``pipeline_apply`` on a group of one
+    against their closed forms, bit for bit."""
+    import torch
+    from repro_torch.optim import compression
+    from repro_torch.runtime import pipeline_apply
+    g = {"w": torch.randn((960, 2560), generator=torch.Generator(
+        device=dev).manual_seed(59), device=dev)}
+    err = compression.init_error(g)
+    mean, new_err = compression.compressed_psum(g, err, "data", mesh)
+    q, sc, want_err = compression.compress_tree(g, err)
+    if not (torch.equal(mean["w"], compression.dequantize(q["w"], sc["w"]))
+            and torch.equal(new_err["w"], want_err["w"])):
+        fail("mesh compressed_psum: differs from the dequantized codes")
+    xm = torch.arange(24, dtype=torch.float32, device=dev).reshape(6, 4)
+    out = pipeline_apply(mesh, "model", lambda p, x: x * p[0] + 1.0,
+                         torch.full((1, 2), 3.0, device=dev), xm)
+    if not torch.equal(out, xm * 3.0 + 1.0):
+        fail("mesh pipeline_apply: differs from the serial stage")
+    print("mesh collectives: compressed_psum (a [960, 2560] gradient) and "
+          "pipeline_apply (one stage, 6 micro-batches) on a group of one "
+          "equal their closed forms bit for bit")
+
+
+def mesh_resume(dev, mesh) -> None:
+    """A ``MESH_RESUME_LAYERS``-layer full-width ``TrainState`` after one
+    step, checkpointed and resumed onto ``mesh``, bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptimConfig
+    from repro_torch.runtime import resume_on_mesh
+    from repro_torch.train import init_state, train_step
+    cfg = dataclasses.replace(get_config(MESH_ARCH),
+                              n_layers=MESH_RESUME_LAYERS)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 256), generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev, dtype=torch.int32)
+    state, _ = train_step(cfg, OptimConfig(), 1, init_state(params),
+                          {"tokens": toks, "targets": toks})
+    root = tempfile.mkdtemp(prefix="mesh_resume_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        path = ckpt.save(ckpt.step_path(root, 1),
+                         convert.stack_train_state(state, cfg),
+                         meta={"step": 1, "arch": cfg.name})
+        (back, meta), t = _timed(lambda: resume_on_mesh(path, state, mesh,
+                                                        cfg))
+        n = _same_leaves("mesh resume", state, back)
+        print(f"mesh resume: a {MESH_RESUME_LAYERS}-layer {cfg.name} "
+              f"TrainState ({n} leaves, {os.path.getsize(path):,} bytes) "
+              f"resumed onto {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"in {t:.3f} s, every leaf bit for bit; meta "
+              f"{json.dumps(meta)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mesh_drivers() -> None:
+    """``python -m repro_torch.launch.train`` and ``launch.serve`` on the
+    smoke config, as subprocesses (run together), each to exit 0."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="mesh_drivers_",
+                            dir=os.path.join(HERE, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cmds = {"train": ["--arch", MESH_ARCH, "--smoke", "--steps", "4",
+                      "--ckpt-every", "2", "--ckpt-dir",
+                      os.path.join(root, "ck")],
+            "serve": ["--arch", MESH_ARCH, "--smoke"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.launch.{k}", *a], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, a in cmds.items()}
+    try:
+        outs = {k: p.communicate(timeout=300) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    for k, p in procs.items():
+        if p.returncode != 0:
+            fail(f"mesh drivers: launch.{k} exited {p.returncode}: "
+                 f"{outs[k][1][-2000:]}")
+        print(f"mesh drivers: python -m repro_torch.launch.{k} "
+              f"{' '.join(cmds[k][:3])}: exit 0; "
+              f"{' '.join(outs[k][0].split())[-240:]}")
+    print(f"mesh drivers: {time.perf_counter() - t0:.1f} s together")
+
+
+def phase_mesh(dev, rows) -> None:
+    """Phase 13: meshes on a one-device NCCL world (``mesh_train``,
+    ``mesh_serve``, ``mesh_filtered``, ``mesh_collectives``,
+    ``mesh_resume``, ``mesh_drivers``); the group is destroyed at the
+    end, whatever happened."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import close, make_local_mesh, make_mesh
+    t0 = time.perf_counter()
+    mesh2 = make_local_mesh(("data", "model"), device=dev)
+    try:
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), dev)
+        backend = str(dist.get_backend())
+        if backend != "nccl":
+            fail(f"mesh: the process group speaks {backend}, not nccl")
+        print(f"mesh: a one-device world over {backend}: "
+              f"{dict(zip(mesh2.mesh_dim_names, mesh2.shape))} and "
+              f"{dict(zip(mesh3.mesh_dim_names, mesh3.shape))}")
+        for label, fn in (
+                ("train", lambda: mesh_train(dev, (("2d", mesh2),
+                                                   ("fsdp", mesh3)))),
+                ("serve", lambda: mesh_serve(dev, mesh3)),
+                ("filtered_batch", lambda: mesh_filtered(dev, mesh2, rows)),
+                ("collectives", lambda: mesh_collectives(dev, mesh2)),
+                ("resume", lambda: mesh_resume(dev, mesh3))):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.empty_cache()
+            print(f"mesh {label} {time.perf_counter() - t1:.1f} s")
+    finally:
+        close()
+    if dist.is_initialized():
+        fail("mesh: a process group outlived the phase")
+    t1 = time.perf_counter()
+    mesh_drivers()
+    print(f"mesh drivers {time.perf_counter() - t1:.1f} s")
+    print(f"mesh phase {time.perf_counter() - t0:.1f} s (budget "
+          f"{MESH_BUDGET_S} s)")
+
+
 def check_no_host_sync(eng, ops: int, width: int, label: str,
                        **stream) -> None:
     """The step loop makes no host synchronisation: the synchronising
@@ -3062,20 +3371,21 @@ def phase_small_stream(dev):
     poisson = dict(arrivals=ArrivalSpec("poisson", rate=0.2, seed=1),
                    admission=AdmissionConfig(16, 2))
     # (ops per remote, engine options, stream options); the wide packed
-    # streams and the open-loop and observed ones take 8 ops, since their
-    # step budget grows with R * ops (and with the last arrival) and each
-    # runs two or three times (card, CPU, and dense on the card).
+    # streams take 4 ops (R=64 2) and the R=8 ones 8, since their step
+    # budget grows with R * ops (and with the last arrival) and each runs
+    # two or three times (card, CPU, and dense on the card); before phase
+    # 13 the R=8 closed loops took 32 and the packed ones 8.
     cases = [
-        (32, dict(remotes=8, moesi=False), {}),
-        (32, dict(remotes=8, moesi=True), {}),
-        (8, dict(remotes=33, homes=2, packed=True, moesi=False), {}),
-        (8, dict(remotes=64, homes=2, packed=True, moesi=True), {}),
-        (32, dict(remotes=8, homes=2, home_bw=1), {}),
-        (32, dict(remotes=8, shared_credits=True, credits=4), {}),
+        (8, dict(remotes=8, moesi=False), {}),
+        (8, dict(remotes=8, moesi=True), {}),
+        (4, dict(remotes=33, homes=2, packed=True, moesi=False), {}),
+        (2, dict(remotes=64, homes=2, packed=True, moesi=True), {}),
+        (8, dict(remotes=8, homes=2, home_bw=1), {}),
+        (8, dict(remotes=8, shared_credits=True, credits=4), {}),
         (8, dict(remotes=8), poisson),
         (8, dict(remotes=8), dict(arrivals=ArrivalSpec("bursty", rate=0.2,
                                                        seed=2))),
-        (8, dict(remotes=33, homes=2, packed=True, moesi=False), poisson),
+        (4, dict(remotes=33, homes=2, packed=True, moesi=False), poisson),
         (8, dict(remotes=8), dict(observe=ObserveConfig(
             specs=("req_resp", "single_writer", "readonly"),
             inject=(40, 3, int(MsgType.REQ_READ_SHARED))))),
@@ -3157,8 +3467,9 @@ def phase_open_loop(dev, rows):
     cfg = EngineConfig(remotes=R, lines=L, block=B)
     adm = AdmissionConfig(*ADMISSION)
     print(f"open loop: zipfian R={R} L={L} B={B} MOESI dense W=1, "
-          f"{OPEN_OPS} ops per remote, Poisson arrivals (seed 1) at "
-          f"{SOJ_RATE} and {OVERLOAD_RATE} ops/step/remote, admission "
+          f"Poisson arrivals (seed 1) at {SOJ_RATE} ({OPEN_OPS} ops per "
+          f"remote) and {OVERLOAD_RATE} ({OVERLOAD_OPS}) ops/step/remote, "
+          f"admission "
           f"{ADMISSION}; observed against plain at {OBS_OPS} ops per "
           f"remote, ring of {OBS_CAPACITY} words")
     for mode in ("", "admission", "observed"):     # the dense step beside
@@ -3188,8 +3499,8 @@ def phase_open_loop(dev, rows):
 
     # ---- past the knee: a fixed window of the arrival span --------------
     over = ArrivalSpec("poisson", rate=OVERLOAD_RATE, seed=1)
-    last = int(over.materialize(OPEN_OPS, R).step.max())
-    run, wall = drive(dev, cfg, 1, OPEN_OPS, PER_STEP, rows,
+    last = int(over.materialize(OVERLOAD_OPS, R).step.max())
+    run, wall = drive(dev, cfg, 1, OVERLOAD_OPS, PER_STEP, rows,
                       f"open loop rate {OVERLOAD_RATE}", steps=last,
                       validate=False, arrivals=over, admission=adm)
     s = sojourn_summary(run)
@@ -3782,6 +4093,7 @@ def main() -> int:
     phase_store_serve(dev, rows)
     phase_families(dev, rows)
     phase_train(dev, rows)
+    phase_mesh(dev, rows)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

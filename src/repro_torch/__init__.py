@@ -8,9 +8,12 @@ counters; ``nmp/`` the near-memory operators (SELECT, regex, KVS pointer
 chase) that ``core/pushdown.py`` runs at the data's home; ``models/``
 and ``configs/`` the model substrate's prefill, decode and training loss
 for every family of the configs; ``optim/``, ``data/``, ``train/`` and
-``checkpoint/`` training on one device (AdamW, the synthetic pipeline,
-the train step and ``Trainer``, checkpoints in the reference's format,
-written and read with the standard library alone); ``kernels/`` the eleven
+``checkpoint/`` training (AdamW, the synthetic pipeline, the train step
+and ``Trainer``, checkpoints in the reference's format, written and read
+with the standard library alone); ``launch/`` and ``runtime/`` meshes
+(``torch.distributed`` device meshes with the reference's sharding
+rules, the sharded train and serve steps, pipeline stages, elastic
+resume, the training and serving drivers); ``kernels/`` the eleven
 hand-written kernels — six of the per-step inner plane, three of the
 near-memory operators, attention and the RG-LRU scan of the models (CUDA
 C++ under ``csrc/``) — beside their plain PyTorch versions.

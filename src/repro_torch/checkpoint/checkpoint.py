@@ -20,6 +20,13 @@ so a partial one is never visible; a corrupted one fails ``verify`` and
 
 ``AsyncCheckpointer.save`` copies the tree to the host in the caller;
 the framing, hashing and I/O run on a thread.
+
+On a mesh (a tree with DTensor leaves, or an ``AsyncCheckpointer(mesh)``)
+every rank gathers each DTensor's whole tensor, only rank 0 writes, and
+every rank then passes a barrier (at the end of ``save``, or of the
+``AsyncCheckpointer``'s ``wait``); the file holds full logical arrays,
+the reference's format, whatever mesh wrote it.  ``load`` runs on every
+rank.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..device import resolve_device
 from ..tree import key, leaves_with_path, tree_map, unflatten_like
@@ -58,7 +67,10 @@ def _host(leaf) -> torch.Tensor:
 
 
 def _snapshot(leaf) -> torch.Tensor:
-    """A host copy of a leaf that later in-place updates do not touch."""
+    """A host copy of a leaf that later in-place updates do not touch (a
+    DTensor's whole tensor, gathered: a collective)."""
+    if isinstance(leaf, DTensor):
+        return leaf.full_tensor().detach().to("cpu", copy=True).contiguous()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).contiguous()
     return _host(np.array(leaf, copy=True))
@@ -88,8 +100,30 @@ def _archive(tree, meta) -> list:
                               "manifest_sha": manifest.hexdigest()})
 
 
+def _on_mesh(tree) -> bool:
+    return any(isinstance(leaf, DTensor) for _, leaf in
+               leaves_with_path(tree))
+
+
+def is_writer() -> bool:
+    """Whether this process writes a mesh's checkpoint: rank 0."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(path: str, tree, meta: Optional[Dict[str, Any]] = None) -> str:
-    """Write a checkpoint of ``tree`` atomically; the final path."""
+    """Write a checkpoint of ``tree`` atomically; the final path.  A tree
+    with DTensor leaves is gathered on every rank, written by rank 0, and
+    every rank returns after a barrier."""
+    if _on_mesh(tree):
+        host = tree_map(_snapshot, tree)
+        if is_writer():
+            _write(path, host, meta)
+        dist.barrier()
+        return path
+    return _write(path, tree, meta)
+
+
+def _write(path: str, tree, meta: Optional[Dict[str, Any]]) -> str:
     parts = _archive(tree, meta)
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -172,23 +206,31 @@ def latest_valid(ckpt_dir: str) -> Optional[str]:
 
 class AsyncCheckpointer:
     """Overlap checkpoint I/O with training (one save in flight).  A save
-    that failed on the thread raises in the next ``wait`` (or ``save``)."""
+    that failed on the thread raises in the next ``wait`` (or ``save``).
+    With a ``mesh`` (or a tree with DTensor leaves) every rank calls
+    ``save`` and ``wait`` at the same points: ``save`` gathers on every
+    rank, rank 0 alone writes, and ``wait`` ends in a barrier."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
+        self.mesh = mesh
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False
         self.last_path: Optional[str] = None
 
     def save(self, path: str, tree, meta=None) -> None:
         self.wait()
+        self._barrier = self.mesh is not None or _on_mesh(tree)
         host = tree_map(_snapshot, tree)   # device -> host in the caller
+        if self._barrier and not is_writer():
+            return
         self._thread = threading.Thread(
             target=self._run, args=(path, host, meta), daemon=True)
         self._thread.start()
 
     def _run(self, path, host, meta):
         try:
-            save(path, host, meta)
+            _write(path, host, meta)
         except BaseException as e:      # handed to the caller by wait()
             self._error = e
             return
@@ -198,6 +240,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

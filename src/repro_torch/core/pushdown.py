@@ -99,30 +99,39 @@ def stitch(packed: torch.Tensor, counts: torch.Tensor, capacity: int
     return rows, ends[-1].to(torch.int32)
 
 
+def select_shard(tbl: torch.Tensor, capacity: int, x, y
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One home shard's SELECT: (its matches stitched into ``capacity``
+    rows, their count [] int32) — ``ops.select`` over its rows, one
+    ``select_scan`` launch on the card; ``capacity`` 0 is every row of
+    the shard."""
+    n = tbl.shape[0]
+    cap = capacity or n
+    if not 0 < cap <= n:
+        raise ValueError(f"pushdown_select: capacity {cap} must be in "
+                         f"[1, {n}], the rows of a shard")
+    packed, cnt = ops.select(tbl, x, y)
+    pad = packed.shape[0] * packed.shape[1] - n
+    fill = scalar(ops.pad_fill(tbl.dtype), tbl.dtype)
+    if pad and bool((fill > scalar(x, tbl.dtype))
+                    & (fill < scalar(y, tbl.dtype))):
+        # the padding rows matched (x below the fill, as x = -inf is):
+        # they sit last in the last block, after its real matches.
+        cnt = cnt.clone()
+        cnt[-1] -= pad
+    return stitch(packed, cnt, cap)
+
+
 def pushdown_select(devices: Optional[Sequence], capacity: int,
                     table: torch.Tensor, x, y) -> PushdownResult:
     """Distributed SELECT: each home shard filters its rows
-    (``ops.select``), stitches its blocks' matches into ``capacity``
+    (``select_shard``), stitches its blocks' matches into ``capacity``
     rows, and the matches are gathered.  Rows split over ``devices`` in
     contiguous blocks; ``capacity`` 0 is every row of a shard."""
     devs = shard_devices(devices)
     packs, counts = [], []
     for tbl in _row_shards(table, devs):
-        n = tbl.shape[0]
-        cap = capacity or n
-        if not 0 < cap <= n:
-            raise ValueError(f"pushdown_select: capacity {cap} must be in "
-                             f"[1, {n}], the rows of a shard")
-        packed, cnt = ops.select(tbl, x, y)
-        pad = packed.shape[0] * packed.shape[1] - n
-        fill = scalar(ops.pad_fill(tbl.dtype), tbl.dtype)
-        if pad and bool((fill > scalar(x, tbl.dtype))
-                        & (fill < scalar(y, tbl.dtype))):
-            # the padding rows matched (x below the fill, as x = -inf is):
-            # they sit last in the last block, after its real matches.
-            cnt = cnt.clone()
-            cnt[-1] -= pad
-        rows, count = stitch(packed, cnt, cap)
+        rows, count = select_shard(tbl, capacity, x, y)
         packs.append(rows)
         counts.append(count)
     return _gather(packs, counts, devs[0])

@@ -5,9 +5,10 @@ The port of ``repro.data.pipeline``: the pipeline is a pure function of
 restarted run consumes the same token stream bit for bit.  The draw is
 numpy's Philox, exactly as the reference's, so both packages give the
 same batches; the port hands them over as int32 tensors on its device.
-Sharding a batch over a mesh, and ``filtered_batch`` (a SELECT pushed
-down to the shards as a data-plane operator), wait for meshes: ROADMAP
-Queue 1 item 17b.
+On a mesh every rank draws the same batch and keeps its rows under
+``batch_spec``: a DTensor whose blocks are the reference's shards, bit
+for bit.  ``filtered_batch`` pushes a SELECT down to the shards that
+hold the rows, as a data-plane operator.
 """
 from __future__ import annotations
 
@@ -18,9 +19,6 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-
-#: the ROADMAP item that ports meshes.
-MESH_ITEM = "ROADMAP Queue 1 item 17b (launch/sharding.py, meshes)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,14 +33,21 @@ class SyntheticPipeline:
     """Markov-ish synthetic token stream (not uniform noise, so loss curves
     mean something: with p=0.5 token t+1 is ``(7 * token t + 3) mod
     vocab``, else fresh).  Batches land on ``device`` (the card unless
-    the caller names another)."""
+    the caller names another); with a ``mesh``, on this rank's device of
+    the mesh as DTensors with the batch over the data-parallel axes."""
 
     def __init__(self, cfg: DataConfig, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(f"SyntheticPipeline(mesh=...): "
-                                      f"{MESH_ITEM}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from ..launch.mesh import mesh_device
+            self.device = mesh_device(mesh)
+            if device is not None and \
+                    resolve_device(device).type != self.device.type:
+                raise ValueError(f"SyntheticPipeline: device {device} "
+                                 f"against a {self.device.type} mesh")
 
     def _raw(self, step: int) -> np.ndarray:
         c = self.cfg
@@ -61,13 +66,44 @@ class SyntheticPipeline:
     def batch(self, step: int, device=None) -> Dict[str, torch.Tensor]:
         """{"tokens", "targets"}: int32 [global_batch, seq_len], the
         targets shifted by one token, on ``device`` (the pipeline's if
-        None)."""
+        None); on a mesh, DTensors under ``batch_spec(mesh)``."""
         dev = self.device if device is None else resolve_device(device)
         raw = torch.from_numpy(self._raw(int(step))).to(dev)
-        return {"tokens": raw[:, :-1].contiguous(),
-                "targets": raw[:, 1:].contiguous()}
+        out = {"tokens": raw[:, :-1].contiguous(),
+               "targets": raw[:, 1:].contiguous()}
+        if self.mesh is not None:
+            from ..launch.sharding import batch_spec, distribute
+            spec = batch_spec(self.mesh)
+            out = {k: distribute(v, self.mesh, spec) for k, v in out.items()}
+        return out
 
 
 def filtered_batch(mesh, axis: str, table, x: float, y: float,
                    capacity: int):
-    raise NotImplementedError(f"filtered_batch: {MESH_ITEM}")
+    """The SELECT pushed down as a data-plane operator, SPMD over the
+    mesh axis ``axis``: rank ``s`` of the axis takes the ``s``-th
+    contiguous block of ``table``'s rows (the whole table on every rank,
+    or a DTensor), runs ``core.pushdown.select_shard`` on it (one
+    ``select_scan`` launch on the card), and the stitched matches and
+    counts of every rank are all-gathered: a ``PushdownResult`` equal to
+    ``pushdown_select`` over the same shards, on every rank."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ..core.pushdown import PushdownResult, select_shard
+    from ..launch.collectives import gather_stack
+    from ..launch.mesh import mesh_device
+    group = mesh.get_group(axis)
+    n_shards, s = dist.get_world_size(group), dist.get_rank(group)
+    if isinstance(table, DTensor):
+        table = table.full_tensor()
+    n = table.shape[0]
+    if n % n_shards:
+        raise ValueError(f"filtered_batch: {n} rows do not split over "
+                         f"{n_shards} shards")
+    per = n // n_shards
+    tbl = table[s * per:(s + 1) * per].to(mesh_device(mesh))
+    rows, count = select_shard(tbl, capacity, x, y)
+    counts = gather_stack(count, group)
+    return PushdownResult(gather_stack(rows, group), counts,
+                          counts.sum(dtype=torch.int32))

@@ -31,6 +31,16 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+def refuse_dtensor(name: str, *args) -> None:
+    """Raise if an argument is a DTensor (``launch.sharding``): a kernel
+    would read only this rank's block of it.  The caller passes its whole
+    tensor (``full_tensor()``) or its block (``to_local()``)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(a, DTensor) for a in args):
+        raise TypeError(f"{name}: a DTensor argument; pass its whole tensor "
+                        f"(full_tensor()) or this rank's block (to_local())")
+
+
 def find_nvcc() -> str:
     """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else
     ``/usr/local/cuda/bin/nvcc``; raises when none exists."""

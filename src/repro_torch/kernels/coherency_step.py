@@ -34,7 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import ref
-from .build import Library
+from .build import Library, refuse_dtensor
 
 #: the latency histogram's bucket edges (engine steps), fixed in the CUDA
 #: source as ``lat_bucket``'s ``edges``.
@@ -155,6 +155,7 @@ def check_plane_span(name: str, *planes: torch.Tensor) -> None:
 def credit_rank(active: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """[..., L] int32: per initiator row, the occupancy of the line's
     odd/even VC plus the count of earlier same-parity candidates."""
+    refuse_dtensor("credit_rank", active, cand)
     if active.device.type == "cpu":
         return ref.credit_rank_ref(active, cand)
     if cand.shape != active.shape:
@@ -175,6 +176,7 @@ def arb_winner(ready_all: torch.Tensor, arb_rr: torch.Tensor
     """[..., L] int32: per line, the ready participant of the ``[..., P,
     L]`` plane with the lowest ``(p - arb_rr) mod P``; the lowest id wins
     ties (which occur only when no participant is ready)."""
+    refuse_dtensor("arb_winner", ready_all, arb_rr)
     if ready_all.device.type == "cpu":
         return ref.arb_winner_ref(ready_all, arb_rr)
     P, L = ready_all.shape[-2:]
@@ -222,6 +224,7 @@ def count_fold(mask: torch.Tensor, msg: torch.Tensor,
     launch).  The grouped base is read where it lies: rows of 16
     contiguous counts at any row stride, payload counts at any stride,
     such as the views of the last call's output."""
+    refuse_dtensor("count_fold", mask, msg, has_payload, *(base or ()))
     if mask.device.type == "cpu":
         return ref.count_fold_ref(mask, msg, has_payload, base,
                                   grouped=grouped)
@@ -266,6 +269,7 @@ def count_fold(mask: torch.Tensor, msg: torch.Tensor,
 def lat_hist(lat: torch.Tensor, retired: torch.Tensor) -> torch.Tensor:
     """[R, 10] int32 latency histogram of the retired lanes of ``[R, L]``:
     bucket ``sum_e (lat >= LAT_EDGES[e])``."""
+    refuse_dtensor("lat_hist", lat, retired)
     if lat.device.type == "cpu":
         return ref.lat_hist_ref(lat, retired, LAT_EDGES)
     if lat.dim() != 2 or retired.shape != lat.shape:
@@ -296,6 +300,7 @@ def packed_any(*planes: torch.Tensor) -> torch.Tensor:
     if not 1 <= len(planes) <= MAX_PLANES:
         raise ValueError(f"packed_any: {len(planes)} word planes, expected "
                          f"1 to {MAX_PLANES}")
+    refuse_dtensor("packed_any", *planes)
     if planes[0].device.type == "cpu":
         return ref.packed_any_ref(*planes)
     shape, dev = tuple(planes[0].shape), planes[0].device
@@ -334,6 +339,8 @@ def packed_fanout(pres: torch.Tensor, excl: torch.Tensor,
     if (home_read is None) != (home_write is None):
         raise ValueError("packed_fanout: home_read and home_write go "
                          "together")
+    refuse_dtensor("packed_fanout", pres, excl, node, shared_req, excl_req,
+                   home_read, home_write)
     if pres.device.type == "cpu":
         return ref.packed_fanout_ref(pres, excl, node, shared_req, excl_req,
                                      home_read, home_write)

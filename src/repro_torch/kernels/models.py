@@ -32,7 +32,7 @@ from typing import Dict, Optional
 import torch
 
 from . import ref
-from .build import Library
+from .build import Library, refuse_dtensor
 from .coherency_step import _check
 
 #: the input dtypes the kernels take, as the CUDA entry points number them.
@@ -87,6 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     one of ``HEAD_DIMS``; bf16 runs on the tensor cores, with p rounded to
     bf16 before its product with v, and its tensors start at 16-byte
     boundaries (TMA's rule)."""
+    refuse_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         # the Pallas kernel returns q's dtype, its oracle v's.
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -129,6 +130,7 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """[B, S, D] in ``x``'s dtype: ``h_t = a_t h_{t-1} + sqrt(max(1 -
     a_t^2, 0)) x_t`` from ``h_{-1} = 0``, carried in fp32.  On the card
     x and a share one dtype (float32 or bfloat16) and are contiguous."""
+    refuse_dtensor("rglru_scan", x, a)
     if x.device.type == "cpu":
         return ref.rglru_scan_ref(x, a)
     if x.dim() != 3 or a.shape != x.shape:

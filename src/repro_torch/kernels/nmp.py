@@ -32,7 +32,7 @@ import torch
 from ..nmp.kvstore import records
 from ..nmp.select import scalar
 from . import ref
-from .build import Library
+from .build import Library, refuse_dtensor
 from .coherency_step import _check, rows_stride
 
 _P = ctypes.c_void_p
@@ -64,6 +64,7 @@ def select_scan(table: torch.Tensor, x, y, block_rows: int = 256
     ``y`` are rounded to the table's dtype and compared in it, as the
     reference's weak-typed scalars are.  On the card the table is one of
     ``SELECT_DTYPES`` and ``block_rows`` a multiple of 32 up to 1024."""
+    refuse_dtensor("select_scan", table)
     if table.device.type == "cpu":
         return ref.select_scan_ref(table, x, y, block_rows)
     if table.dim() != 2 or table.shape[1] < 2:
@@ -97,6 +98,7 @@ def regex_dfa(trans: torch.Tensor, accept: torch.Tensor,
     rows must be contiguous, at any row stride of at least their width and
     any storage offset, and are read where they lie.  The kernel writes
     the answer, so a call is one device operation."""
+    refuse_dtensor("regex_dfa", trans, accept, strings)
     if strings.device.type == "cpu":
         return ref.regex_dfa_ref(trans, accept, strings)
     dev = strings.device
@@ -136,6 +138,7 @@ def hash_probe(heads: torch.Tensor, keys: torch.Tensor, nxt: torch.Tensor,
     ``[n, 2]`` tensor (the records layout of ``nmp.kvstore.as_records``,
     launched as it lies: one device operation) or two contiguous arrays,
     interleaved into records first (one more device operation)."""
+    refuse_dtensor("hash_probe", heads, keys, nxt, queries)
     if queries.device.type == "cpu":
         return ref.hash_probe_ref(heads, keys, nxt, queries, max_chain)
     dev = queries.device

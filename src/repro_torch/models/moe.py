@@ -16,8 +16,14 @@ not an accumulation; each token's k contributions are summed over a
 ``dispatch_int8=True`` sends the buffer and the experts' outputs through
 int8 with a per-slot scale, as the reference's ``_dispatch_q8`` and
 ``_combine_q8`` do, with their custom gradients (``torch.autograd.Function`` subclasses:
-the cotangent passes the wire unrounded).  The shard-local
-dispatch and the expert-parallel sharding constraint belong to meshes.
+the cotangent passes the wire unrounded).
+
+On a mesh: ``moe_block_global`` routes the tokens of every rank of a
+data-parallel group as one batch (capacity and aux loss over all of
+them, the reference's sharded step); ``moe_block_local`` routes each
+rank's own tokens (the reference's shard-local dispatch, per-shard
+capacity).  ``set_ep_spec`` names the expert buffers' layout, which a
+DTensor buffer is redistributed to; a plain tensor passes unchanged.
 """
 from __future__ import annotations
 
@@ -25,20 +31,30 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .config import ModelConfig
 from .layers import Params, dense_init, qeinsum, rms_norm
 
-#: the ROADMAP item that ports meshes and training.
-MESH_ITEM = "ROADMAP Queue 1 item 17b (launch/sharding.py, meshes)"
+#: the (E, C, d) expert buffers' layout (a ``launch.sharding.
+#: NamedSharding``; None: no constraint), set by the mesh builders.
+_EP_SPEC = None
 
 
 def set_ep_spec(spec) -> None:
-    raise NotImplementedError(f"set_ep_spec: {MESH_ITEM}")
+    global _EP_SPEC
+    _EP_SPEC = spec
 
 
-def moe_block_local(*args, **kwargs):
-    raise NotImplementedError(f"moe_block_local: {MESH_ITEM}")
+def _constrain_ep(x):
+    """``x`` in the expert layout: a DTensor on the spec's mesh is
+    redistributed; anything else passes unchanged."""
+    if _EP_SPEC is None or not isinstance(x, DTensor) or \
+            x.device_mesh is not _EP_SPEC.mesh:
+        return x
+    from ..launch.sharding import placements
+    mesh = _EP_SPEC.mesh
+    return x.redistribute(mesh, placements(mesh, _EP_SPEC.spec, x.shape))
 
 
 def moe_params(gen, cfg: ModelConfig, dtype, device) -> Params:
@@ -218,6 +234,7 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor
         buf = _dispatch_q8(src, flat_e, pos, keep, E, cap)
     else:
         buf = _scatter_kept(src, flat_e, pos, keep, E, cap)
+    buf = _constrain_ep(buf)
 
     # the experts' swiglu FFN over [E, C, d]
     h = qeinsum("ecd,edf->ecf", buf, p["w1"])
@@ -233,3 +250,50 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor
     slot_w = gate_w.reshape(-1).to(x.dtype)
     y = (slot_out * slot_w[:, None]).view(n_tok, k, d).sum(dim=1)
     return x + y.reshape(B, S, d), aux
+
+
+def moe_block_global(p: Params, cfg: ModelConfig, x: torch.Tensor, group
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_block`` over the rows of ``x`` [b, S, d] of every rank of
+    ``group`` (a process group over the data-parallel axes), as one
+    batch: (this rank's rows of the output, the aux loss of the whole
+    batch).  The gather is differentiable: each rank's cotangents reach
+    the rows' owner.  On a group of one it is ``moe_block``."""
+    from ..launch.collectives import gather_rows, group_size
+    if group_size(group) == 1:
+        return moe_block(p, cfg, x)
+    import torch.distributed as dist
+    b = x.shape[0]
+    r = dist.get_rank(group)
+    y, aux = moe_block(p, cfg, gather_rows(x, group))
+    return y[r * b:(r + 1) * b], aux
+
+
+def moe_block_local(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh,
+                    dp_axes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shard-local MoE dispatch: each data-parallel rank routes only its
+    own tokens into capacity buffers of its own (per-shard capacity, the
+    standard shard-local semantics), against the whole expert weights;
+    the aux loss is the mean over the ranks.
+
+    ``x`` [B, S, d]: a DTensor (redistributed to rows over ``dp_axes``)
+    or the whole batch on every rank.  ``p``: plain tensors or DTensors
+    (gathered).  Returns (y, a DTensor [B, S, d] with the batch over
+    ``dp_axes``; aux, the same fp32 scalar on every rank)."""
+    from ..launch import sharding as sh
+    from ..launch.collectives import pmean
+    dp = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes)
+    spec = sh.P(dp, None, None)
+    pl = sh.placements(mesh, spec, x.shape)
+    if isinstance(x, DTensor):
+        xl = x.redistribute(mesh, pl).to_local()
+    else:
+        b = x.shape[0] // sh.axes_size(mesh, dp)
+        r = sh.axes_index(mesh, dp)
+        xl = x[r * b:(r + 1) * b]
+    y, aux = moe_block(sh.full_tree(p), cfg, xl)
+    aux = pmean(aux, sh.axes_group(mesh, dp))
+    y = DTensor.from_local(y, mesh, pl, run_check=False,
+                           shape=torch.Size(x.shape),
+                           stride=torch.empty(x.shape, device="meta").stride())
+    return y, aux

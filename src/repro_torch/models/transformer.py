@@ -8,8 +8,13 @@ each slot's weights over superlayers and scans them, the port keeps one
 parameter dict per layer in layer order and loops over them — the same
 layers in the same order; the encoder's layers and the per-superlayer
 cross-attention likewise.  ``cfg.remat`` recomputes each superlayer in
-the backward pass; there is no sharding constraint: that belongs to
-meshes (ROADMAP Queue 1 item 17b).
+the backward pass.  ``set_activation_spec`` names the activations'
+layout at every superlayer boundary: a DTensor is redistributed to it,
+a plain tensor passes unchanged (as the reference's constraint with no
+mesh context).  ``moe_group``: the process group whose ranks hold the
+other rows of a batch sharded over data parallelism; a MoE layer then
+routes the tokens of every rank as one batch (``moe.moe_block_global``),
+as the reference's sharded step does.
 
 Entry points:
   ``init_params``       — parameters drawn from a ``torch.Generator``.
@@ -25,11 +30,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..device import resolve_device
 from . import layers as L
 from .config import ModelConfig
-from .moe import moe_block, moe_params
+from .moe import moe_block, moe_block_global, moe_params
 from .rglru import rglru_block, rglru_init_state, rglru_params
 from .rwkv6 import rwkv_block, rwkv_init_state, rwkv_params
 
@@ -38,6 +44,27 @@ CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
 
 _MIXERS = {"ga": L.attn_params, "la": L.attn_params, "rg": rglru_params,
            "rwkv": rwkv_params}
+
+#: the activations' layout at every superlayer boundary (a
+#: ``launch.sharding.NamedSharding``; None: no constraint), set by the
+#: mesh builders.
+_ACT_SPEC: Any = None
+
+
+def set_activation_spec(spec) -> None:
+    global _ACT_SPEC
+    _ACT_SPEC = spec
+
+
+def _constrain(x):
+    """``x`` in the activation layout: a DTensor on the spec's mesh is
+    redistributed; anything else passes unchanged."""
+    if _ACT_SPEC is None or not isinstance(x, DTensor) or \
+            x.device_mesh is not _ACT_SPEC.mesh:
+        return x
+    from ..launch.sharding import placements
+    mesh = _ACT_SPEC.mesh
+    return x.redistribute(mesh, placements(mesh, _ACT_SPEC.spec, x.shape))
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -136,16 +163,18 @@ def cross_kv(params: Params, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, moe_group=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A layer's FFN: (x, the MoE aux loss or None)."""
     if cfg.moe is not None:
+        if moe_group is not None:
+            return moe_block_global(p["ffn"], cfg, x, moe_group)
         return moe_block(p["ffn"], cfg, x)
     return L.mlp_block(p["ffn"], cfg, x), None
 
 
 def _block(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
-           pos: torch.Tensor, use_kernel: bool
+           pos: torch.Tensor, use_kernel: bool, moe_group=None
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the stack: its mixer, then its FFN (an ``rwkv`` layer
     has none): (x, the MoE aux loss or None)."""
@@ -160,7 +189,7 @@ def _block(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
             use_kernel=use_kernel)
     if kind == "rwkv":
         return x, None
-    return _ffn(p, cfg, x)
+    return _ffn(p, cfg, x, moe_group)
 
 
 #: the ops whose outputs ``remat_policy="dots"`` keeps for the backward
@@ -186,7 +215,7 @@ def _remat(fn, *args, policy: str):
 
 def forward_body(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                  frames: Optional[torch.Tensor] = None,
-                 use_kernel: bool = True
+                 use_kernel: bool = True, moe_group=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (final hidden states [B, S, d] before the head,
     the summed MoE aux loss, fp32 scalar).
@@ -210,9 +239,10 @@ def forward_body(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     kinds, P = layer_kinds(cfg), len(cfg.block_pattern)
 
     def superlayer(li: int, x: torch.Tensor, aux: torch.Tensor):
+        x = _constrain(x)
         for j in range(li * P, (li + 1) * P):
             x, a = _block(kinds[j], params["layers"][j], cfg, x, pos,
-                          use_kernel)
+                          use_kernel, moe_group)
             if a is not None:
                 aux = aux + a
         if cross is not None:
@@ -228,7 +258,7 @@ def forward_body(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             x, aux = superlayer(li, x, aux)
     for j in range(cfg.n_superlayers * P, len(kinds)):
         x, a = _block(kinds[j], params["layers"][j], cfg, x, pos,
-                      use_kernel)
+                      use_kernel, moe_group)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -252,13 +282,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    frames: Optional[torch.Tensor] = None,
-                   use_kernel: bool = False
+                   use_kernel: bool = False, moe_group=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward up to the final hidden states (no LM head), so that the
     loss can chunk the head: ``forward_body`` with the reference's
     signature and default (the plain attention and scan)."""
     return forward_body(params, cfg, tokens, frames=frames,
-                        use_kernel=use_kernel)
+                        use_kernel=use_kernel, moe_group=moe_group)
 
 
 def _nll_sum(embed_p: Params, cfg: ModelConfig, xc: torch.Tensor,
@@ -300,12 +330,13 @@ def _chunk_nll(embed_p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             targets: torch.Tensor, frames: Optional[torch.Tensor] = None,
-            use_kernel: bool = False
+            use_kernel: bool = False, moe_group=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(token NLL + MoE aux loss, {"nll", "aux"}), fp32 scalars, over
     tokens and targets [B, S].  The default ``use_kernel=False`` is the
     reference's: its training path reaches no kernel."""
-    x, aux = forward_hidden(params, cfg, tokens, frames, use_kernel)
+    x, aux = forward_hidden(params, cfg, tokens, frames, use_kernel,
+                            moe_group)
     nll = _chunk_nll(params["embed"], cfg, x, targets)
     return nll + aux, {"nll": nll, "aux": aux}
 
@@ -342,7 +373,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 index: int, state: List[Dict[str, torch.Tensor]],
-                cross: Optional[CrossKV] = None
+                cross: Optional[CrossKV] = None, moe_group=None
                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """One decode step: token [B] at position ``index`` (the cache
     occupancy) -> (logits [B, V_padded] fp32, new state).  KV caches and
@@ -351,14 +382,18 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     (sub-quadratic memory).  ``cross``: the encoder's K/V (``cross_kv``);
     without it an encoder-decoder skips its cross-attention, as the
     reference's ``decode_step`` does.  A MoE layer routes the B tokens of
-    the step as one batch."""
+    the step as one batch (with ``moe_group``, the tokens of every rank
+    of the group)."""
     index = int(index)
     x = L.embed(params["embed"], token[:, None]).to(dtype_of(cfg))
     pos = torch.full((1,), index, dtype=torch.int64, device=token.device)
     ends = cross_after(cfg) if cross is not None else {}
+    P = len(cfg.block_pattern)
     new_state = []
     for li, (kind, p, st) in enumerate(zip(layer_kinds(cfg),
                                            params["layers"], state)):
+        if li % P == 0 and li < cfg.n_superlayers * P:
+            x = _constrain(x)
         if kind == "ga":
             x, _ = L.attention_block(
                 p["mixer"], cfg, x, pos, window=None,
@@ -372,7 +407,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             x, st = rwkv_block(p["mixer"], cfg, x, state=st)
         new_state.append(st)
         if kind != "rwkv":
-            x, _ = _ffn(p, cfg, x)
+            x, _ = _ffn(p, cfg, x, moe_group)
         if li in ends:
             x, _ = L.attention_block(params["cross"][ends[li]], cfg, x, pos,
                                      window=None, cross_kv=cross[ends[li]],

@@ -74,10 +74,12 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """(grads scaled by ``min(1, max_norm / norm)``, in their dtypes; the
-    fp32 norm)."""
-    norm = global_norm(grads)
+    fp32 norm).  ``norm``: the global norm when ``grads`` are this rank's
+    shards of a tree sharded over a mesh (None: the norm of ``grads``)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp_max(
         _scalar(norm, max_norm) / torch.clamp_min(norm, 1e-9), 1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
@@ -93,12 +95,14 @@ def _decayable(path) -> bool:
                  "cm_mix"))
 
 
-def update(cfg: OptimConfig, state: OptState, params, grads
+def update(cfg: OptimConfig, state: OptState, params, grads, norm=None
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step: (new params, new state, {"lr", "grad_norm"}).  The
-    gradients are clipped by their global norm first; the bias
-    corrections use the new step."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    gradients are clipped by their global norm first (``norm``, when the
+    trees are one rank's shards; see ``clip_by_global_norm``); the bias
+    corrections use the new step.  Every other operation is elementwise,
+    so it runs on shards as on whole tensors."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     step = state.step + 1
     lr = schedule(cfg, step)
     t = step.float()

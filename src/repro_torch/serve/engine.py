@@ -14,8 +14,14 @@ arrays are immutable; so ``prefill`` and ``decode`` copy the state they
 are given once on entry (one copy a call, not a token), and a state the
 tier hands out any number of times stays as it was published.
 
-The mesh paths (``mesh=``, ``decode_state_specs``, ``make_serve_step``)
-shard over ``launch/sharding.py``, which is not ported yet.
+``make_serve_step`` is the decode step sharded over a mesh: the weights
+in the serving layout (replicated over ``data``, TP over ``model``), the
+batch and the decode state over the data-parallel axes, the KV caches'
+heads (or sequence) over ``model`` (``decode_state_specs``).  Each step
+gathers the ``model``-sharded weights and the caches' other blocks and
+runs ``decode_step`` on this rank's rows: what the unsharded step
+computes, at the cost of a weight gather every token (a real
+tensor-parallel decode would not gather).
 """
 from __future__ import annotations
 
@@ -23,22 +29,100 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core import READ_ONLY, CoherentStore
 from ..device import resolve_device
+from ..launch import sharding as sh
 from ..models import decode_step, init_decode_state
 from ..models.config import ModelConfig
-
-#: the ROADMAP item that ports the mesh paths (``launch/sharding.py``).
-MESH_ITEM = "ROADMAP Queue 1 item 17b (launch/sharding.py)"
+from ..tree import tree_map
 
 
-def decode_state_specs(*args, **kwargs):
-    raise NotImplementedError(f"decode_state_specs: {MESH_ITEM}")
+def decode_state_specs(cfg: ModelConfig, mesh, state,
+                       shard_batch: bool = True) -> Any:
+    """Specs for a decode state (the port's, one state per layer): KV
+    caches and ring buffers [B, Hkv, S, hd] take ``kv_cache_spec``;
+    recurrent states shard the batch over the data-parallel axes.  With
+    ``shard_batch=False`` (a global batch the DP degree does not divide)
+    the batch replicates and only the model axis shards."""
+    def spec_of(path, leaf):
+        name = str(path[-1])
+        if name in ("k", "v") and leaf.ndim >= 4:
+            spec = sh.kv_cache_spec(mesh, cfg.n_kv_heads, stacked=False)
+            return spec if shard_batch else sh.P(None, *spec[1:])
+        spec = [None] * leaf.ndim
+        if shard_batch:
+            spec[0] = sh.dp_axes(mesh)
+        return sh.P(*spec)
+
+    return tree_map(spec_of, state, with_path=True)
 
 
-def make_serve_step(*args, **kwargs):
-    raise NotImplementedError(f"make_serve_step: {MESH_ITEM}")
+def make_serve_step(cfg: ModelConfig, mesh, state_like, params_like,
+                    global_batch: Optional[int] = None, donate: bool = True):
+    """The single-token decode sharded over ``mesh``: ``step(params,
+    token, index, state) -> (logits, state)``, what ``decode_step``
+    computes on the global batch.  ``params`` and ``state``: DTensors or
+    whole tensors (distributed on entry); ``token`` [B]; ``index`` the
+    cache occupancy.  The logits come out as a DTensor [B, V_padded]
+    with the batch over the data-parallel axes (replicated when
+    ``global_batch`` does not divide over them), the state as DTensors
+    under ``decode_state_specs``.  A MoE layer routes the tokens of every
+    rank as one batch.  ``donate`` is accepted and ignored; as
+    ``decode_step`` does, the step writes the caches of its state in
+    place."""
+    from ..launch.mesh import mesh_device
+    from ..models import moe as moe_mod
+    from ..models import transformer as tr
+    dp = sh.dp_axes(mesh)
+    n_dp = sh.axes_size(mesh, dp)
+    shard_batch = global_batch is None or global_batch % n_dp == 0
+    bdp = dp if shard_batch else None
+    tr.set_activation_spec(sh.NamedSharding(mesh, sh.P(bdp, None, None)))
+    moe_mod.set_ep_spec(sh.NamedSharding(mesh, sh.P("model", None, None)))
+    pspecs = sh.param_specs(params_like, mode="serve")
+    sh.param_shardings(mesh, params_like, "serve")     # every dim divides
+    sspecs = decode_state_specs(cfg, mesh, state_like, shard_batch)
+    group = sh.axes_group(mesh, dp) if shard_batch else None
+    r_dp = sh.axes_index(mesh, dp) if shard_batch else 0
+    moe_group = group if cfg.moe is not None and shard_batch and \
+        n_dp > 1 else None
+    dev = mesh_device(mesh)
+
+    def put(t, spec):
+        return t if isinstance(t, DTensor) else \
+            sh.distribute(t.to(dev), mesh, spec)
+
+    def rows(spec):
+        """The spec with only its batch entry: this rank's rows, whole."""
+        return sh.P(spec[0], *([None] * (len(spec) - 1)))
+
+    def to_rows(t, spec):
+        return t.redistribute(mesh, sh.placements(mesh, rows(spec),
+                                                  t.shape)).to_local()
+
+    def from_rows(t, like, spec):
+        d = DTensor.from_local(t, mesh, sh.placements(mesh, rows(spec)),
+                               run_check=False, shape=like.shape,
+                               stride=like.stride())
+        return d.redistribute(mesh, sh.placements(mesh, spec, like.shape))
+
+    def step(params, token, index, state):
+        full = tree_map(lambda t, s: sh.full(put(t, s)), params, pspecs)
+        st = tree_map(put, state, sspecs)
+        tok = sh.full(token).to(dev)
+        B = tok.shape[0]
+        b = B // n_dp if shard_batch else B
+        lg, new = decode_step(full, cfg, tok[r_dp * b:r_dp * b + b], index,
+                              tree_map(to_rows, st, sspecs),
+                              moe_group=moe_group)
+        logits = DTensor.from_local(
+            lg, mesh, sh.placements(mesh, sh.P(bdp, None)), run_check=False,
+            shape=torch.Size((B, lg.shape[1])), stride=(lg.shape[1], 1))
+        return logits, tree_map(from_rows, new, st, sspecs)
+
+    return step
 
 
 def _copy_state(state: List[Dict[str, torch.Tensor]]
@@ -50,12 +134,14 @@ class ServeEngine:
     """Small batched generation engine on one device (``device`` defaults
     to ``"cuda"``; with no GPU present that raises — pass
     ``device="cpu"``).  ``params`` lie on that device, dense or quantized
-    (``serve.quantize``)."""
+    (``serve.quantize``).  ``mesh`` is accepted and ignored, as the
+    reference's is: the engine serves locally, with no activation
+    constraint."""
 
     def __init__(self, cfg: ModelConfig, params, max_seq: int = 128,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh serving: {MESH_ITEM}")
+        from ..models import transformer as tr
+        tr.set_activation_spec(None)   # local single-host serving
         self.device = resolve_device(device)
         self.cfg, self.params, self.max_seq = cfg, params, max_seq
 

@@ -1,12 +1,16 @@
 """The train step: micro-batched gradient accumulation and AdamW, with
 parameters in the model's dtype and fp32 moments.
 
-The port of ``repro.train.train_step`` on one device.  ``train_step`` is
-a pure function of (state, batch): autograd differentiates ``loss_fn``
-(the plain attention and scan, ``use_kernel=False``, as the reference's
+The port of ``repro.train.train_step``.  ``train_step`` is a pure
+function of (state, batch): autograd differentiates ``loss_fn`` (the
+plain attention and scan, ``use_kernel=False``, as the reference's
 training path) with respect to detached copies of the parameters, so the
-state's own tensors never carry a graph.  ``make_train_step``, the step
-sharded over a mesh, is ROADMAP Queue 1 item 17b.
+state's own tensors never carry a graph.  ``make_train_step`` is the
+step sharded over a mesh (``launch.sharding``): the parameters and
+moments are DTensors; each step gathers the parameters, runs the same
+math on this rank's rows of each micro-batch, reduce-scatters the
+gradients onto the parameters' placements (the mean over the
+data-parallel ranks) and runs AdamW on the local shards.
 """
 from __future__ import annotations
 
@@ -17,10 +21,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.transformer import loss_fn
 from ..optim import adamw
-from ..tree import leaves_with_path, tree_map
-
-#: the ROADMAP item that ports meshes.
-MESH_ITEM = "ROADMAP Queue 1 item 17b (launch/sharding.py, meshes)"
+from ..tree import leaves, leaves_with_path, tree_map
 
 
 class TrainState(NamedTuple):
@@ -44,17 +45,20 @@ def _split_micro(batch: Dict[str, torch.Tensor], k: int
              for name, x in batch.items()} for i in range(k)]
 
 
-def _value_and_grad(cfg: ModelConfig, params, mb: Dict[str, torch.Tensor]
+def _value_and_grad(cfg: ModelConfig, params, mb: Dict[str, torch.Tensor],
+                    moe_group=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """(loss, metrics, gradients in the parameters' dtypes) of
     ``loss_fn`` on one micro-batch; a parameter the loss does not reach
-    gets zeros, as ``jax.grad`` gives it."""
+    gets zeros, as ``jax.grad`` gives it.  ``moe_group``: see
+    ``loss_fn``."""
     flat = [p for _, p in leaves_with_path(params)]
     live = {id(p): p.detach().requires_grad_(True) for p in flat}
     p2 = tree_map(lambda p: live[id(p)], params)
     with torch.enable_grad():
         loss, metrics = loss_fn(p2, cfg, mb["tokens"], mb["targets"],
-                                frames=mb.get("frames"))
+                                frames=mb.get("frames"),
+                                moe_group=moe_group)
         ins = [live[id(p)] for p in flat]
         gs = torch.autograd.grad(loss, ins, allow_unused=True)
     grads = {id(p): torch.zeros_like(p) if g is None else g
@@ -63,35 +67,152 @@ def _value_and_grad(cfg: ModelConfig, params, mb: Dict[str, torch.Tensor]
             tree_map(lambda p: grads[id(p)], params))
 
 
+def _loss_and_grads(cfg: ModelConfig, params, mbs, moe_group=None
+                    ) -> Tuple[torch.Tensor, Any]:
+    """(loss, gradients) over the micro-batches ``mbs``.  With one the
+    gradients come in the parameters' dtypes; with several, they are
+    summed into fp32 zeros in micro-batch order and divided by their
+    number, as the loss is."""
+    if len(mbs) == 1:
+        loss, _, grads = _value_and_grad(cfg, params, mbs[0], moe_group)
+        return loss, grads
+    dev = leaves(params)[0].device
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+    lsum = torch.zeros((), dtype=torch.float32, device=dev)
+    for mb in mbs:
+        l, _, g = _value_and_grad(cfg, params, mb, moe_group)
+        tree_map(lambda acc, gi: acc.add_(gi), gsum, g)
+        lsum = lsum + l
+        del g
+    k = torch.tensor(float(len(mbs)), device=dev)
+    return lsum / k, tree_map(lambda g: g / k, gsum)
+
+
 def train_step(cfg: ModelConfig, ocfg: adamw.OptimConfig,
                microbatches: int, state: TrainState,
                batch: Dict[str, torch.Tensor]
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One optimizer step: (new state, {"loss", "lr", "grad_norm"}).
-    With one micro-batch the gradients come in the parameters' dtypes;
-    with several, they are summed into fp32 zeros in micro-batch order
-    and divided by their number, as the loss is."""
-    if microbatches == 1:
-        loss, _, grads = _value_and_grad(cfg, state.params, batch)
-    else:
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device),
-                        state.params)
-        dev = state.data_step.device
-        lsum = torch.zeros((), dtype=torch.float32, device=dev)
-        for mb in _split_micro(batch, microbatches):
-            l, _, g = _value_and_grad(cfg, state.params, mb)
-            tree_map(lambda acc, gi: acc.add_(gi), gsum, g)
-            lsum = lsum + l
-            del g
-        k = torch.tensor(float(microbatches), device=dev)
-        grads = tree_map(lambda g: g / k, gsum)
-        loss = lsum / k
+    """One optimizer step: (new state, {"loss", "lr", "grad_norm"})."""
+    loss, grads = _loss_and_grads(
+        cfg, state.params, [batch] if microbatches == 1
+        else _split_micro(batch, microbatches))
     new_params, new_opt, om = adamw.update(ocfg, state.opt, state.params,
                                            grads)
     return (TrainState(new_params, new_opt, state.data_step + 1),
             {"loss": loss, **om})
 
 
-def make_train_step(*args, **kwargs):
-    raise NotImplementedError(f"make_train_step: {MESH_ITEM}")
+def make_train_step(cfg: ModelConfig, ocfg: adamw.OptimConfig, mesh,
+                    params_like, microbatches: int = 1, donate: bool = True,
+                    sharding_mode: str = "2d"):
+    """The train step sharded over ``mesh``: ``step(state, batch) ->
+    (state, {"loss", "lr", "grad_norm"})``, computing what ``train_step``
+    computes on the global batch.
+
+    The state's params and moments come out as DTensors under
+    ``param_specs(params_like, sharding_mode)`` (``"2d"``: TP x FSDP;
+    ``"fsdp"``: DP + FSDP over both axes), ``step`` and ``data_step``
+    replicated; a plain tensor given in their place is distributed first.
+    ``batch`` holds the global batch: DTensors (``SyntheticPipeline(mesh=
+    ...)``) or whole tensors.  The metrics are plain tensors, the same on
+    every rank.  ``donate`` is accepted and ignored: nothing here aliases
+    the input state.
+
+    The global batch splits into micro-batches first, and each
+    micro-batch then over the data-parallel ranks, as in the reference
+    (a rank's own rows split otherwise would give other micro-batches,
+    which a MoE's per-micro-batch capacity would see).  A MoE layer
+    routes every rank's tokens of the micro-batch as one batch
+    (``moe_block_global``).  The loss is the mean of the ranks' means,
+    right because their shards are of equal size.  The gradient norm sums
+    each distinct shard once: a rank counts a leaf only where its
+    coordinate is 0 on every mesh axis that replicates the leaf.  Every
+    collective of a mesh of one device is a copy, so there this step
+    equals ``train_step`` bit for bit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..launch import sharding as sh
+    from ..launch.collectives import pmean, psum
+    from ..launch.mesh import mesh_device
+    from ..models import moe as moe_mod
+    from ..models import transformer as tr
+    dp = sh.dp_axes(mesh, sharding_mode)
+    tr.set_activation_spec(sh.NamedSharding(mesh, sh.P(dp, None, None)))
+    moe_mod.set_ep_spec(sh.NamedSharding(mesh, sh.P(
+        None, ("data", "model"), None) if sharding_mode == "fsdp"
+        else sh.P("model", None, None)))
+    pspecs = sh.param_specs(params_like, sharding_mode)
+    sh.param_shardings(mesh, params_like, sharding_mode)   # every dim divides
+    names = tuple(mesh.mesh_dim_names)
+    n_dp, r_dp = sh.axes_size(mesh, dp), sh.axes_index(mesh, dp)
+    dp_group = sh.axes_group(mesh, dp)
+    all_group = sh.axes_group(mesh, names)
+    moe_group = dp_group if cfg.moe is not None and n_dp > 1 else None
+    dev = mesh_device(mesh)
+    coord = mesh.get_coordinate()
+    # the leaves whose shard this rank counts in the global norm.
+    owned = [all(isinstance(q, Shard) or c == 0 for q, c in zip(
+        sh.placements(mesh, s, p.shape), coord))
+        for p, s in zip(leaves(params_like), leaves(pspecs))]
+    partial = [Partial() if a in dp else Replicate() for a in names]
+
+    def as_dtensor(t, spec):
+        return t if isinstance(t, DTensor) else \
+            sh.distribute(t.to(dev), mesh, spec)
+
+    def wrap(local, like):
+        return DTensor.from_local(local, mesh, like.placements,
+                                  run_check=False, shape=like.shape,
+                                  stride=like.stride())
+
+    def reduce_grad(g, spec):
+        """This rank's partial gradient summed over the data-parallel
+        ranks onto the parameter's placements, divided by their number."""
+        g = DTensor.from_local(g, mesh, partial, run_check=False
+                               ).redistribute(mesh, sh.placements(
+                                   mesh, spec, g.shape)).to_local()
+        return g if n_dp == 1 else g / torch.tensor(
+            float(n_dp), dtype=g.dtype, device=g.device)
+
+    def step(state: TrainState, batch: Dict[str, Any]):
+        params = tree_map(as_dtensor, state.params, pspecs)
+        m = tree_map(as_dtensor, state.opt.m, pspecs)
+        v = tree_map(as_dtensor, state.opt.v, pspecs)
+        full = tree_map(sh.full, params)
+        batch = {k: sh.full(x).to(dev) for k, x in batch.items()}
+        B = batch["tokens"].shape[0]
+        if B % (microbatches * n_dp):
+            raise ValueError(f"make_train_step: a global batch of {B} does "
+                             f"not split into {microbatches} micro-batches "
+                             f"over {n_dp} data-parallel ranks")
+        b = B // microbatches // n_dp
+        # micro-batch i's rows of this rank: its block of [i B/k, (i+1) B/k).
+        los = [i * (B // microbatches) + r_dp * b
+               for i in range(microbatches)]
+        loss, grads = _loss_and_grads(
+            cfg, full, [{k: x[lo:lo + b] for k, x in batch.items()}
+                        for lo in los], moe_group)
+        del full
+        loss = pmean(loss, dp_group)
+        grads = tree_map(reduce_grad, grads, pspecs)
+        sq = sum((torch.sum(torch.square(g.float()))
+                  for g, own in zip(leaves(grads), owned) if own),
+                 torch.zeros((), dtype=torch.float32, device=dev))
+        norm = torch.sqrt(psum(sq, all_group))
+        opt = adamw.OptState(sh.local(state.opt.step).to(dev),
+                             tree_map(sh.local, m), tree_map(sh.local, v))
+        new_p, new_opt, om = adamw.update(ocfg, opt,
+                                          tree_map(sh.local, params), grads,
+                                          norm=norm)
+        out = TrainState(
+            params=tree_map(wrap, new_p, params),
+            opt=adamw.OptState(
+                step=sh.distribute(new_opt.step, mesh, sh.P()),
+                m=tree_map(wrap, new_opt.m, m),
+                v=tree_map(wrap, new_opt.v, v)),
+            data_step=sh.distribute(sh.local(state.data_step).to(dev) + 1,
+                                    mesh, sh.P()))
+        return out, {"loss": loss, **om}
+
+    return step

@@ -3,7 +3,8 @@ port's parameters, optimizer state and train state are made of.
 
 Leaves are visited in ``jax.tree_util``'s order — a NamedTuple by its
 fields, a dict by its sorted keys, a list or tuple by index; ``None`` is
-an empty subtree — and each comes with its path, whose elements are a
+an empty subtree; any other tuple subclass (a ``PartitionSpec``, a
+``torch.Size``) is a leaf — and each comes with its path, whose elements are a
 field as ``".name"``, a dict key as itself and an index as an int.  So
 ``key(path)`` is the reference checkpoint's key of the same leaf
 (``repro.checkpoint._flatten``): ``.params/layers/slot0/ffn/w1``.
@@ -29,7 +30,7 @@ def leaves_with_path(tree, path: Path = ()) -> Iterator[Tuple[Path, Any]]:
     elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves_with_path(tree[k], path + (k,))
-    elif isinstance(tree, (list, tuple)):
+    elif type(tree) in (list, tuple):
         for i, v in enumerate(tree):
             yield from leaves_with_path(v, path + (i,))
     else:
@@ -61,7 +62,7 @@ def tree_map(fn: Callable, tree, *rest, path: Path = (),
         return {k: tree_map(fn, v, *(r[k] for r in rest), path=path + (k,),
                             with_path=with_path)
                 for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if type(tree) in (list, tuple):
         out = [tree_map(fn, v, *(r[i] for r in rest), path=path + (i,),
                         with_path=with_path)
                for i, v in enumerate(tree)]

@@ -1421,3 +1421,74 @@ def test_train_grads_card_equal_cpu(cuda, arch):
     assert abs(float(lg) - float(lc)) <= 1e-5
     for a, b in zip(leaves(gg), leaves(gc)):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4)
+
+
+@pytest.fixture
+def mesh1(cuda):
+    """A one-device NCCL mesh (a world of one, ended afterwards)."""
+    from repro_torch.launch.mesh import close, make_local_mesh
+    mesh = make_local_mesh(("pod", "data", "model"), device=cuda)
+    yield mesh
+    close()
+
+
+@pytest.mark.parametrize("mode,micro", [("2d", 1), ("fsdp", 2)])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m"])
+def test_make_train_step_on_card_equals_train_step(mesh1, arch, mode,
+                                                   micro):
+    """On a one-device NCCL mesh every collective is a copy: two steps of
+    ``make_train_step`` equal ``train_step``'s bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_state, make_train_step, train_step
+    from repro_torch.tree import leaves
+    assert dist.get_backend() == "nccl"
+    cfg = get_config(arch, smoke=True)
+    dev = torch.device("cuda")
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 16), generator=gen,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    ocfg = OptimConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(cfg, ocfg, mesh1, params, micro,
+                           sharding_mode=mode)
+    a, b = init_state(params), init_state(params)
+    for _ in range(2):
+        a, ma = train_step(cfg, ocfg, micro, a, batch)
+        b, mb = step(b, batch)
+        for k in ("loss", "lr", "grad_norm"):
+            assert torch.equal(ma[k], mb[k]), k
+    for x, y in zip(leaves(a), leaves(b)):
+        assert torch.equal(x, y.full_tensor())
+
+
+def test_filtered_batch_on_card_equals_pushdown_select(mesh1):
+    """``filtered_batch`` over the mesh's ``data`` axis (one shard) is
+    ``pushdown_select`` over the card bit for bit, and launches
+    ``select_scan`` once."""
+    from repro_torch.data.pipeline import filtered_batch
+    table = make_table(SEED, 1 << 16, 32, 0.1, device="cuda")
+    want = PD.pushdown_select(["cuda"], 4096, table, 0.0, 1.0)
+    before = NK.launches["select_scan"]
+    got = filtered_batch(mesh1, "data", table, 0.0, 1.0, 4096)
+    assert NK.launches["select_scan"] == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert int(got.moved_rows) > 0
+
+
+def test_kernel_wrappers_refuse_dtensor_on_card(mesh1):
+    """A DTensor on the card is refused, not read as its local block."""
+    from repro_torch.launch import sharding as sh
+    table = sh.distribute(make_table(SEED, 1024, 8, 0.1, device="cuda"),
+                          mesh1, sh.P("data", None))
+    q = sh.distribute(torch.zeros((1, 2, 64, 64), device="cuda"), mesh1,
+                      sh.P())
+    before = dict(NK.launches), dict(MK.launches)
+    with pytest.raises(TypeError, match="select_scan: a DTensor"):
+        NK.select_scan(table, 0.0, 1.0)
+    with pytest.raises(TypeError, match="flash_attention: a DTensor"):
+        MK.flash_attention(q, q.to_local(), q.to_local())
+    assert (dict(NK.launches), dict(MK.launches)) == before

@@ -126,6 +126,87 @@ def test_default_training_entry_points_raise_without_cuda(no_cuda,
     assert batch["tokens"].device.type == "cpu"
 
 
+def test_default_mesh_raises_without_cuda(no_cuda):
+    """``make_local_mesh()`` and the drivers' mesh default to the card:
+    with no GPU they raise before any process group starts; a CPU mesh is
+    asked for by name."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import close, make_local_mesh, make_mesh
+    for call in (make_local_mesh, lambda: make_mesh((1, 1),
+                                                    ("data", "model"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not dist.is_initialized()
+    mesh = make_local_mesh(device="cpu")
+    try:
+        assert mesh.device_type == "cpu"
+        assert dist.get_backend() == "gloo"
+    finally:
+        close()
+
+
+def test_cuda_mesh_never_falls_back_to_gloo(monkeypatch):
+    """A CUDA mesh without NCCL raises; so does a CUDA mesh in a gloo
+    world."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs NCCL"):
+        M.make_local_mesh(device="cuda")
+    assert not dist.is_initialized()
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: True)
+    M.make_local_mesh(device="cpu")
+    try:
+        with pytest.raises(RuntimeError, match="needs nccl"):
+            M.make_local_mesh(device="cuda")
+    finally:
+        M.close()
+
+
+def test_kernel_wrappers_refuse_dtensors():
+    """A kernel wrapper refuses a DTensor (it would read one rank's block)
+    before it dispatches, on any device."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels import coherency_step as C
+    from repro_torch.kernels import models as MK
+    from repro_torch.kernels import nmp as N
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import close, make_local_mesh
+    mesh = make_local_mesh(device="cpu")
+    try:
+        def d(t):
+            return sh.distribute(t, mesh, sh.P())
+        b = torch.zeros((2, 8), dtype=torch.bool)
+        i32 = torch.zeros((2, 8), dtype=torch.int32)
+        f = torch.zeros((1, 2, 64, 32))
+        calls = {"credit_rank": lambda: C.credit_rank(d(b), b),
+                 "arb_winner": lambda: C.arb_winner(b, d(i32[0])),
+                 "count_fold": lambda: C.count_fold(b, d(b.to(torch.int8)),
+                                                    b),
+                 "lat_hist": lambda: C.lat_hist(d(i32), b),
+                 "packed_any": lambda: C.packed_any(d(i32)),
+                 "packed_fanout": lambda: C.packed_fanout(
+                     i32, d(i32), i32[:, 0], b[:, 0], b[:, 0]),
+                 "select_scan": lambda: N.select_scan(
+                     d(torch.zeros((256, 8))), 0.0, 1.0),
+                 "regex_dfa": lambda: N.regex_dfa(
+                     torch.zeros((2, 256), dtype=torch.int32),
+                     torch.zeros(2, dtype=torch.bool),
+                     d(torch.zeros((4, 8), dtype=torch.uint8))),
+                 "hash_probe": lambda: N.hash_probe(
+                     i32[0], i32[0], i32[0], d(i32[0]), 4),
+                 "flash_attention": lambda: MK.flash_attention(f, d(f), f),
+                 "rglru_scan": lambda: MK.rglru_scan(
+                     d(torch.zeros((2, 16, 8))), torch.zeros((2, 16, 8)))}
+        for name, call in calls.items():
+            with pytest.raises(TypeError, match=f"{name}: a DTensor"):
+                call()
+        assert isinstance(d(b), DTensor)
+    finally:
+        close()
+
+
 def test_default_counters_raise_without_cuda(no_cuda):
     from repro_torch.traffic.counters import make_counters
     with pytest.raises(RuntimeError, match="no CUDA device"):

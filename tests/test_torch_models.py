@@ -355,22 +355,45 @@ def test_decode_state_round_trip(arch):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("what", ["encdec_without_frames",
-                                  "moe_block_local", "set_ep_spec"])
+@pytest.mark.parametrize("what", ["encdec_without_frames"])
 def test_unported_paths_raise(what):
     """Every config runs; what is refused: an encoder-decoder forward
-    without frames (the reference asserts), and the mesh paths of the MoE
-    block (item 17)."""
-    if what == "encdec_without_frames":
-        cfg = tconfigs.get_config("whisper-small", smoke=True)
-        p = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
-                          device="cpu")
-        with pytest.raises(ValueError, match="frames"):
-            T.forward(p, cfg, torch.zeros((1, 2), dtype=torch.long))
-        return
-    call = getattr(tmoe, what)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        call(None) if what == "set_ep_spec" else call({}, None, None)
+    without frames (the reference asserts)."""
+    cfg = tconfigs.get_config("whisper-small", smoke=True)
+    p = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    with pytest.raises(ValueError, match="frames"):
+        T.forward(p, cfg, torch.zeros((1, 2), dtype=torch.long))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m"])
+def test_activation_and_ep_specs_leave_plain_tensors(arch):
+    """The mesh builders' activation and expert layouts change nothing on
+    plain tensors: forward and decode equal those with no layout set (the
+    reference's constraints with no mesh context)."""
+    import types
+
+    from repro_torch.launch.sharding import NamedSharding, P
+    cfg = tconfigs.get_config(arch, smoke=True)
+    p = T.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                      device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 6),
+                         generator=torch.Generator().manual_seed(4))
+    want = T.forward(p, cfg, toks)
+    st = T.init_decode_state(cfg, 2, 8, "cpu")
+    want_d, _ = T.decode_step(p, cfg, toks[:, 0], 0, st)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(2, 2))
+    T.set_activation_spec(NamedSharding(mesh, P("data", None, None)))
+    tmoe.set_ep_spec(NamedSharding(mesh, P("model", None, None)))
+    try:
+        got = T.forward(p, cfg, toks)
+        got_d, _ = T.decode_step(p, cfg, toks[:, 0], 0,
+                                 T.init_decode_state(cfg, 2, 8, "cpu"))
+    finally:
+        T.set_activation_spec(None)
+        tmoe.set_ep_spec(None)
+    assert torch.equal(got, want) and torch.equal(got_d, want_d)
 
 
 def test_quantized_mm_equals_reference():

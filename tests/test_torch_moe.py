@@ -238,11 +238,46 @@ def test_moe_params_layout():
                    tcfg.moe.expert_d_ff ** 0.5 - 1) < 0.1
 
 
-def test_mesh_paths_raise_naming_item_17():
-    for call in (lambda: tmoe.moe_block_local({}, None, None, None, None),
-                 lambda: tmoe.set_ep_spec(None)):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            call()
+@pytest.fixture
+def mesh1():
+    """A mesh of one CPU rank (a world of one, ended afterwards)."""
+    from repro_torch.launch.mesh import close, make_local_mesh
+    yield make_local_mesh(("data", "model"), device="cpu")
+    close()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_block_local_one_shard_equals_reference(arch, mesh1):
+    """``moe_block_local`` on a mesh of one rank: one DP shard routes
+    every token, so it is the reference's ``moe_block``, its output a
+    DTensor with the batch over ``data``; ``moe_block_global`` on a group
+    of one is ``moe_block`` itself."""
+    from torch.distributed.tensor import DTensor
+    jcfg, tcfg, p, x = _block(arch)
+    jy, jaux = jmoe.moe_block(p, jcfg, jnp.asarray(x))
+    y, aux = tmoe.moe_block_local(_t(p), tcfg, torch.from_numpy(x), mesh1,
+                                  ("data",))
+    assert isinstance(y, DTensor) and tuple(y.shape) == x.shape
+    _close(y.full_tensor(), jy)
+    _close(aux, jaux)
+    gy, gaux = tmoe.moe_block_global(_t(p), tcfg, torch.from_numpy(x),
+                                     mesh1.get_group("data"))
+    assert torch.equal(gy, y.full_tensor()) and torch.equal(gaux, aux)
+
+
+def test_ep_spec_leaves_plain_tensors(mesh1):
+    """With the expert layout set, a block on plain tensors computes what
+    it computes without one (the reference's constraint outside a mesh
+    context)."""
+    from repro_torch.launch.sharding import NamedSharding, P
+    _, tcfg, p, x = _block(ARCHS[0])
+    want = tmoe.moe_block(_t(p), tcfg, torch.from_numpy(x))
+    tmoe.set_ep_spec(NamedSharding(mesh1, P("model", None, None)))
+    try:
+        got = tmoe.moe_block(_t(p), tcfg, torch.from_numpy(x))
+    finally:
+        tmoe.set_ep_spec(None)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -241,13 +241,55 @@ def test_prefix_of_tensors_hashes_as_ints():
     assert tt.lookup(tuple(int(t) for t in toks)) == "s"
 
 
-def test_mesh_paths_raise_naming_item_17():
-    _, tcfg, _, _ = _model("smollm-360m")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ServeEngine(tcfg, {}, mesh=object(), device="cpu")
-    for call in (decode_state_specs, make_serve_step):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            call(tcfg, None, None)
+def test_serve_engine_accepts_and_ignores_mesh():
+    """``ServeEngine(mesh=...)`` serves locally, as the reference's does:
+    it clears the activation layout and generates the same tokens as with
+    no mesh."""
+    from repro_torch.launch.sharding import NamedSharding, P
+    from repro_torch.models import transformer as T
+    want, _, _, prompts = _generated("smollm-360m", False)
+    _, tcfg, jp, _ = _model("smollm-360m")
+    tp = convert.model_params_to_torch(_np(jp), tcfg, "cpu")
+    T.set_activation_spec(NamedSharding(object(), P("data", None, None)))
+    engine = ServeEngine(tcfg, tp, max_seq=MAX_SEQ, mesh=object(),
+                         device="cpu")
+    assert T._ACT_SPEC is None
+    got, _ = engine.generate(torch.as_tensor(prompts), NEW)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B_", [2, 3])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m"])
+def test_make_serve_step_on_one_rank_equals_decode_step(arch, B_):
+    """``make_serve_step`` on a mesh of one CPU rank: logits and state of
+    ``decode_step`` bit for bit, token by token; the logits a DTensor,
+    the state's leaves DTensors under ``decode_state_specs``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import close, make_local_mesh
+    from repro_torch.models import transformer as T
+    _, tcfg, jp, _ = _model(arch)
+    tp = convert.model_params_to_torch(_np(jp), tcfg, "cpu")
+    mesh = make_local_mesh(("pod", "data", "model"), device="cpu")
+    try:
+        s1 = T.init_decode_state(tcfg, B_, 8, "cpu")
+        s2 = T.init_decode_state(tcfg, B_, 8, "cpu")
+        step = make_serve_step(tcfg, mesh, s2, tp, global_batch=B_)
+        specs = decode_state_specs(tcfg, mesh, s2)
+        tok = torch.arange(B_, dtype=torch.int32)
+        for i in range(4):
+            l1, s1 = T.decode_step(tp, tcfg, tok, i, s1)
+            l2, s2 = step(tp, tok, i, s2)
+            assert isinstance(l2, DTensor)
+            assert torch.equal(l2.full_tensor(), l1)
+            tok = l1.argmax(-1).to(torch.int32)
+        for (a, b), spec in zip(zip(s1, s2), specs):
+            for k in a:
+                assert isinstance(b[k], DTensor)
+                assert spec[k][0] == ("pod", "data")
+                assert torch.equal(b[k].full_tensor(), a[k])
+    finally:
+        close()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

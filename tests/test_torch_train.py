@@ -260,19 +260,89 @@ def test_micro_grads_accumulate_in_fp32():
     assert torch.isfinite(m["loss"])
 
 
-def test_make_train_step_and_mesh_paths_raise_naming_17b():
-    _, tcfg, _, tp, _ = _setup("smollm-360m")
-    calls = [lambda: make_train_step(tcfg, adamw.OptimConfig(), object(),
-                                         tp),
-             lambda: SyntheticPipeline(DataConfig(10, 4, 2), object(),
-                                       device="cpu"),
-             lambda: Trainer(tcfg, adamw.OptimConfig(), TrainerConfig(),
-                             object(), tp, DataConfig(10, 4, 2),
-                             device="cpu"),
-             lambda: compression.compressed_psum({}, {}, "x")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 17b"):
-            call()
+@pytest.fixture
+def mesh1():
+    """A (1, 1, 1) mesh of one CPU rank (a world of one, ended
+    afterwards)."""
+    from repro_torch.launch.mesh import close, make_local_mesh
+    yield make_local_mesh(("pod", "data", "model"), device="cpu")
+    close()
+
+
+@pytest.mark.parametrize("mode,micro", [("2d", 1), ("fsdp", 2)])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m"])
+def test_make_train_step_on_one_rank_equals_train_step(arch, mode, micro,
+                                                       mesh1):
+    """On a mesh of one rank every collective is a copy: two steps of
+    ``make_train_step`` equal ``train_step``'s bit for bit (loss, lr,
+    grad norm, every leaf), the state's leaves DTensors."""
+    from torch.distributed.tensor import DTensor
+    _, tcfg, _, tp, mb = _setup(arch, batch=4)
+    ocfg = adamw.OptimConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(tcfg, ocfg, mesh1, tp, micro, sharding_mode=mode)
+    a, b = init_state(tp), init_state(tp)
+    for _ in range(2):
+        a, ma = train_step(tcfg, ocfg, micro, a, _t(mb))
+        b, mb_ = step(b, _t(mb))
+        for k in ("loss", "lr", "grad_norm"):
+            assert torch.equal(ma[k], mb_[k]), k
+    assert all(isinstance(x, DTensor) for x in leaves(b))
+    for x, y in zip(leaves(a), leaves(b)):
+        assert x.dtype == y.dtype and torch.equal(x, y.full_tensor())
+
+
+def test_compressed_psum_on_one_rank(mesh1):
+    """Over an axis of one rank the mean is this rank's dequantized
+    gradient and the residual ``compress_tree``'s, with the axis named on
+    the mesh or given as its process group."""
+    rng = np.random.default_rng(9)
+    g = {"a": torch.from_numpy(rng.standard_normal((3, 7)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(5).astype(
+            np.float32))}
+    err = compression.init_error(g)
+    q, sc, want_err = compression.compress_tree(g, err)
+    for where in (mesh1, mesh1.get_group("pod")):
+        mean, new_err = compression.compressed_psum(g, err, "pod", where)
+        for k in g:
+            assert torch.equal(mean[k], compression.dequantize(q[k], sc[k]))
+            assert torch.equal(new_err[k], want_err[k])
+
+
+def test_pipeline_and_trainer_on_one_rank(mesh1, tmp_path):
+    """``SyntheticPipeline(mesh=...)`` gives DTensors whose blocks are the
+    whole batch; ``Trainer(mesh=...)`` on one rank ends where the
+    unsharded ``Trainer`` does, bit for bit, and its checkpoint loads in
+    ``repro`` bit for bit."""
+    from repro.checkpoint import checkpoint as jck
+    from torch.distributed.tensor import DTensor
+    cfg = tconfigs.get_config("smollm-360m", smoke=True)
+    dcfg = DataConfig(cfg.vocab, 8, 4)
+    got = SyntheticPipeline(dcfg, mesh1).batch(3)
+    want = SyntheticPipeline(dcfg, device="cpu").batch(3)
+    for k in want:
+        assert isinstance(got[k], DTensor)
+        assert torch.equal(got[k].to_local(), want[k])
+    runs = []
+    for name, mesh in (("plain", None), ("mesh", mesh1)):
+        params = T.init_params(cfg, generator=torch.Generator().manual_seed(
+            0), device="cpu")
+        tr = Trainer(cfg, adamw.OptimConfig(peak_lr=1e-3, warmup_steps=2,
+                                            total_steps=10),
+                     TrainerConfig(steps=4, ckpt_every=2,
+                                   ckpt_dir=str(tmp_path / name)),
+                     mesh, params, dcfg, device="cpu")
+        tr.run()
+        runs.append(tr)
+    for x, y in zip(leaves(runs[0].state), leaves(runs[1].state)):
+        assert torch.equal(x, y.full_tensor())
+    like = convert.train_state_to_numpy(runs[0].state, cfg)
+    back, meta = jck.load(str(tmp_path / "mesh" / "step_4.ckpt"),
+                          j_init_state(like.params))
+    assert meta["step"] == 4
+    for x, y in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(like)):
+        np.testing.assert_array_equal(np.asarray(x, np.float32),
+                                      np.asarray(y, np.float32))
 
 
 # -- optimizer -----------------------------------------------------------------
