@@ -184,6 +184,17 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    ``TrainState`` checkpoint; ``python -m repro_torch.launch.train`` and
    ``launch.serve`` (smoke) as subprocesses, exit 0; the process group is
    destroyed at the phase's end.
+14. the roofline (``repro_torch.roofline``), no kernel: the analytic
+   roofline at the H100's rates of all 80 (arch x shape x mesh) records,
+   single pod (16, 16) and multi-pod (2, 16, 16), as a table; the
+   analytic bound on one device (``MeshDesc(1, 1)``) beside this run's
+   own measured steps: phase 12's smollm-360m train step (16 x 4096) and
+   phase 3's recurrentgemma-9b prefill (B=4, S=2048), t_compute,
+   t_memory and the measured time; one production-mesh dry-run cell,
+   ``python -m repro_torch.launch.dryrun`` on a fake 256-rank world, run
+   as a subprocess with no CUDA device visible (started before phase 12,
+   so that it overlaps phases 12 and 13), its record ``ok`` with 256
+   chips, its wall time beside ``DRYRUN_BUDGET_S``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -332,6 +343,11 @@ TRAIN_EXACT_LAYERS, TRAIN_EXACT_B, TRAIN_EXACT_S = 2, 2, 512
 MESH_ARCH, MESH_B, MESH_S, MESH_STEPS, MESH_TOKENS = (
     "smollm-360m", 4, 1024, 2, 32)
 MESH_ROWS, MESH_SEL, MESH_RESUME_LAYERS, MESH_BUDGET_S = 1 << 20, 0.1, 2, 60
+#: phase 14, the roofline: one production cell through the dry run's
+#: CLI on a fake 256-rank world (35-45 s of one CPU core, PERF.md
+#: section 5); ``DRYRUN_BUDGET_S`` is printed beside its wall time.
+DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_MESH, DRYRUN_BUDGET_S = (
+    "smollm-360m", "decode_32k", "single", 90)
 #: the cases of ``tests/test_kernels.py``: (B, Hq, Hkv, Sq, Sk, D, causal,
 #: window, softcap) and (B, S, D), with its tolerances per dtype.
 ATTN_CASES = ((2, 4, 2, 64, 64, 32, True, None, None),
@@ -1774,7 +1790,7 @@ def model_smoke_configs(dev, archs=SMOKE_ARCHS[:6], extra=()):
                  f"non-causal)" if cfg.encoder is not None else ""))
 
 
-def model_path(dev, rows):
+def model_path(dev, rows, measured=None):
     """The slice at full width and depth: recurrentgemma-9b in bf16,
     parameters drawn on the card.  Prefill ``forward(last_only=True)`` at
     B=4, S=2048 (warm-up, then the best of 3) with its device time split
@@ -1782,7 +1798,8 @@ def model_path(dev, rows):
     128-token prompts fed through ``decode_step``, the last logits held
     against ``forward(last_only=True)`` over the same prompts, and 32
     tokens decoded greedily.  Every launch count is set to 0 just before
-    the path and read just after."""
+    the path and read just after.  The best prefill's seconds go to
+    ``measured["prefill_s"]`` (phase 14)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import models as MK
@@ -1831,6 +1848,8 @@ def model_path(dev, rows):
     if lg.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
             not bool(lg[..., :cfg.vocab].isfinite().all()):
         fail(f"model path: prefill logits {tuple(lg.shape)} not finite")
+    if measured is not None:
+        measured["prefill_s"] = best
     ntok = PREFILL_B * PREFILL_S
     print(f"model path prefill: B={PREFILL_B} S={PREFILL_S} "
           f"forward(last_only=True) best of 3 {best * 1e3:.3f} ms "
@@ -1961,7 +1980,7 @@ def model_exact(dev):
     torch.cuda.empty_cache()
 
 
-def phase_model(dev, rows):
+def phase_model(dev, rows, measured=None):
     """Phase 3: the model substrate — the two kernels against their plain
     versions, the smoke configs card against CPU, recurrentgemma-9b at
     full width (the slice's path) and its fp32 exactness check."""
@@ -1972,7 +1991,7 @@ def phase_model(dev, rows):
     try:
         model_kernels(dev, rows)
         model_smoke_configs(dev)
-        model_path(dev, rows)
+        model_path(dev, rows, measured)
         model_exact(dev)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
@@ -2673,12 +2692,13 @@ def train_resume(dev) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def train_path(dev) -> None:
+def train_path(dev, measured=None) -> None:
     """smollm-360m whole in bf16 with full remat: a warm-up step and
     ``TRAIN_STEPS`` timed steps of ``train_step`` on ``SyntheticPipeline``
     batches (no kernel launched: the training path is the plain one);
     then the whole ``TrainState`` saved, verified and loaded back on the
-    card, bit for bit."""
+    card, bit for bit.  The best step's seconds go to
+    ``measured["train_step_s"]`` (phase 14)."""
     import shutil
     import tempfile
 
@@ -2741,6 +2761,8 @@ def train_path(dev) -> None:
              f"{dict(MK.launches)}; it takes use_kernel=False")
     tokens = TRAIN_BATCH * TRAIN_S
     best = min(times)
+    if measured is not None:
+        measured["train_step_s"] = best
     print(f"train: {TRAIN_STEPS} steps in {sum(times):.3f} s (budget "
           f"{TRAIN_BUDGET_S} s), {sum(times) / len(times):.3f} s a step "
           f"(best {best:.3f}), {tokens / best:,.1f} tokens/s at the best, "
@@ -2795,7 +2817,7 @@ def train_path(dev) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_train(dev, rows) -> None:
+def phase_train(dev, rows, measured=None) -> None:
     """Phase 12: training on one device — (a) the kernel guard; (b) card
     against CPU: loss and gradients of the ten smoke configs and of
     smollm-360m at full width with 2 layers, one AdamW update, the int8
@@ -2816,7 +2838,7 @@ def phase_train(dev, rows) -> None:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     t1 = time.perf_counter()
-    train_path(dev)
+    train_path(dev, measured)
     print(f"train path {time.perf_counter() - t1:.1f} s")
     print(f"training phase {time.perf_counter() - t0:.1f} s (budget "
           f"{TRAIN_BUDGET_S} s for the {TRAIN_STEPS} timed steps)")
@@ -3102,6 +3124,163 @@ def phase_mesh(dev, rows) -> None:
     print(f"mesh drivers {time.perf_counter() - t1:.1f} s")
     print(f"mesh phase {time.perf_counter() - t0:.1f} s (budget "
           f"{MESH_BUDGET_S} s)")
+
+
+def roofline_table() -> int:
+    """The analytic roofline at the H100's rates of every (arch x shape x
+    mesh) record, single pod and multi-pod, one line per (arch, shape);
+    returns the number of records."""
+    from repro_torch.configs import ARCHS, SHAPES, cell_applicable
+    from repro_torch.roofline.analysis import analytic_roofline
+    from repro_torch.roofline.analytic import MeshDesc
+    meshes = (("single", MeshDesc(16, 16)), ("multi", MeshDesc(16, 16, 2)))
+    n = 0
+    print("roofline (analytic; NVIDIA H100 SXM data sheet: 989 TFLOP/s "
+          "bf16, 3.35 TB/s HBM, 50 GB/s a device between nodes): arch, "
+          "shape, then per mesh bottleneck, t_compute / t_memory / "
+          "t_collective in ms, roofline fraction")
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch]
+        for cell in SHAPES:
+            cols = []
+            for name, md in meshes:
+                n += 1
+                if cell_applicable(cfg, cell):
+                    cols.append(f"{name} skipped")
+                    continue
+                r = analytic_roofline(cfg, cell, md)
+                for k in ("t_compute", "t_memory", "t_collective",
+                          "roofline_fraction"):
+                    if not r[k] >= 0 or r[k] == float("inf"):
+                        fail(f"roofline: {arch} {cell.name} {name} {k} "
+                             f"{r[k]}")
+                cols.append(f"{name} {r['bottleneck'][:4]} "
+                            f"{r['t_compute'] * 1e3:.4g}/"
+                            f"{r['t_memory'] * 1e3:.4g}/"
+                            f"{r['t_collective'] * 1e3:.4g} "
+                            f"{r['roofline_fraction']:.3f}")
+            print(f"roofline {arch:<20} {cell.name:<11} " + " | ".join(cols))
+    return n
+
+
+def roofline_measured(measured) -> None:
+    """The analytic bound on one device beside this run's own steps:
+    phase 12's smollm-360m train step and phase 3's recurrentgemma-9b
+    prefill, at their shapes as ``ShapeCell``s on ``MeshDesc(1, 1)``."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.roofline.analysis import analytic_roofline
+    from repro_torch.roofline.analytic import MeshDesc
+    for label, arch, cell, key in (
+            ("phase 12 train step", TRAIN_ARCH,
+             ShapeCell("train_4k", TRAIN_S, TRAIN_BATCH, "train"),
+             "train_step_s"),
+            ("phase 3 prefill", MODEL,
+             ShapeCell("prefill_32k", PREFILL_S, PREFILL_B, "prefill"),
+             "prefill_s")):
+        r = analytic_roofline(get_config(arch), cell, MeshDesc(1, 1))
+        bound = max(r["t_compute"], r["t_memory"])
+        got = measured.get(key)
+        seen = "not measured (its phase did not run)" if got is None else (
+            f"measured {got * 1e3:.3f} ms, the bound {100 * bound / got:.1f}% "
+            f"of it")
+        print(f"roofline vs measured: {label}, {arch} B={cell.global_batch} "
+              f"S={cell.seq_len} on MeshDesc(1, 1): t_compute "
+              f"{r['t_compute'] * 1e3:.3f} ms ({r['flops_global']:.4g} "
+              f"flops), t_memory {r['t_memory'] * 1e3:.3f} ms "
+              f"({r['mem_bytes_dev']:.4g} bytes), bottleneck "
+              f"{r['bottleneck']}; {seen}")
+
+
+def dryrun_start():
+    """Start ``python -m repro_torch.launch.dryrun`` on one production
+    cell, with no CUDA device visible (the dry run touches none), its
+    output to files; (process, directory, start time, a thread that
+    waits for the process and keeps its end time in ``ended``)."""
+    import tempfile
+    import threading
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="dryrun_", dir=os.path.join(HERE, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(os.path.join(root, "log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--mesh", DRYRUN_MESH,
+             "--out", root], env=env, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+
+    def wait():
+        proc.wait()
+        waiter.ended = time.perf_counter()
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return proc, root, t0, waiter
+
+
+def dryrun_finish(started) -> None:
+    """Wait for the dry run, print its record; the record must be ``ok``
+    on 256 chips with finite counted numbers."""
+    import shutil
+    proc, root, t0, waiter = started
+    try:
+        waiter.join(timeout=600)
+        if waiter.is_alive():
+            fail("dry run: no end within 600 s")
+        code, wall = proc.returncode, waiter.ended - t0
+        with open(os.path.join(root, "log")) as f:
+            log = f.read()
+        cid = f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__{DRYRUN_MESH}"
+        path = os.path.join(root, cid + ".json")
+        if code != 0 or not os.path.exists(path):
+            fail(f"dry run: exit {code}: {log[-2000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+    finally:
+        proc.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    r, a = rec.get("roofline", {}), rec.get("roofline_analytic", {})
+    if rec["status"] != "ok" or r.get("chips") != 256:
+        fail(f"dry run {cid}: {rec['status']} {rec.get('error', '')}")
+    for k in ("flops_per_device", "bytes_per_device",
+              "coll_bytes_per_device", "t_compute", "t_memory",
+              "t_collective"):
+        if not 0 < r[k] < float("inf"):
+            fail(f"dry run {cid}: {k} {r[k]}")
+    mem = rec["memory_analysis"]
+    print(f"dry run {cid} on a fake world of {r['chips']} ranks: "
+          f"{rec['status']}, built in {rec['t_build_s']:.3f} s, traced in "
+          f"{rec['t_trace_s']:.3f} s, {wall:.1f} s wall (budget "
+          f"{DRYRUN_BUDGET_S} s), no CUDA device visible; rank 0 counted "
+          f"{r['flops_per_device']:.4g} flops (analytic "
+          f"{a['flops_global'] / a['chips']:.4g} a device), "
+          f"{r['bytes_per_device']:.4g} bytes accessed, collectives "
+          f"{json.dumps({k: v for k, v in r['coll_breakdown'].items() if v})}"
+          f" bytes in {json.dumps(rec['n_collectives'])} calls, peak "
+          f"{mem['peak_size_in_bytes']:,} bytes (arguments "
+          f"{mem['argument_size_in_bytes']:,}); counted: bottleneck "
+          f"{r['bottleneck']}, useful flops {r['useful_flops_fraction']:.4f};"
+          f" analytic: bottleneck {a['bottleneck']}, useful flops "
+          f"{a['useful_flops_fraction']:.4f}, t_memory "
+          f"{a['t_memory'] * 1e3:.4f} ms")
+    if wall > DRYRUN_BUDGET_S:
+        print(f"dry run: {wall:.1f} s, over its {DRYRUN_BUDGET_S} s budget")
+
+
+def phase_roofline(measured, started=None) -> None:
+    """Phase 14: the roofline — the analytic table of every record, the
+    bound beside this run's measured steps, and one production dry-run
+    cell (``started`` by ``dryrun_start``, else started here)."""
+    t0 = time.perf_counter()
+    if started is None:
+        started = dryrun_start()
+    n = roofline_table()
+    if n != 80:
+        fail(f"roofline: {n} records, expected 80")
+    roofline_measured(measured)
+    dryrun_finish(started)
+    print(f"roofline phase {time.perf_counter() - t0:.1f} s (the dry run "
+          f"overlapped phases 12 and 13; budget {DRYRUN_BUDGET_S} s)")
 
 
 def check_no_host_sync(eng, ops: int, width: int, label: str,
@@ -4083,7 +4262,8 @@ def main() -> int:
           f"mbarriers)")
 
     rows = phase_kernels(dev)
-    phase_model(dev, rows)
+    measured = {}        # seconds of the steps phase 14 sets its bounds by
+    phase_model(dev, rows, measured)
     phase_nmp(dev, rows)
     phase_main_path(dev, rows)
     phase_small_stream(dev)
@@ -4092,8 +4272,13 @@ def main() -> int:
     phase_fleet(dev, rows)
     phase_store_serve(dev, rows)
     phase_families(dev, rows)
-    phase_train(dev, rows)
-    phase_mesh(dev, rows)
+    started = dryrun_start()     # on the CPU, beside phases 12 and 13
+    try:
+        phase_train(dev, rows, measured)
+        phase_mesh(dev, rows)
+        phase_roofline(measured, started)
+    finally:
+        started[0].kill()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values())}))

@@ -13,7 +13,10 @@ When no process group exists, ``make_local_mesh`` starts a world of one
 in this process (an in-memory ``HashStore``: no launcher, no
 ``MASTER_ADDR``); under ``torchrun`` (whose ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT`` are set) it joins the launcher's
-world, one rank per process.  The caller ends a group that a mesh
+world, one rank per process.  A dry run's world
+(``start_fake_world``) holds ranks in name only: this process is rank 0
+of torch's fake process group, whose collectives move nothing, and a
+mesh of any size builds on it.  The caller ends a group that a mesh
 function started with ``close()``.  Importing this module touches no
 device and starts no group.
 """
@@ -31,6 +34,8 @@ from ..device import resolve_device
 
 #: the backend of each device type's mesh.
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+#: the backend of a dry run's world, which stands in for either.
+FAKE = "fake"
 
 
 def _backend(dev: torch.device) -> str:
@@ -67,9 +72,22 @@ def _join(dev: torch.device) -> None:
                                     rank=0, world_size=1, **kw)
         return
     have = str(dist.get_backend())
-    if backend not in have:
+    if backend not in have and have != FAKE:
         raise RuntimeError(f"repro_torch: a {dev.type} mesh needs {backend}, "
                            f"the process group speaks {have}")
+
+
+def start_fake_world(world: int) -> None:
+    """This process as rank 0 of a world of ``world`` ranks that exist
+    in name only (torch's fake process group: every collective returns
+    at once and moves nothing), for a dry run that traces rank 0's
+    program on a mesh of ``world`` devices.  ``close()`` ends it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("repro_torch: a fake world needs a process "
+                           "without a process group")
+    dist.init_process_group(FAKE, store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def make_mesh(shape: Sequence[int], axes: Tuple[str, ...],
