@@ -171,8 +171,10 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    within ``TRAIN_BUDGET_S``), then the whole ``TrainState`` saved, verified
    and loaded back on the card bit for bit (bytes and seconds);
 13. meshes, on a one-device NCCL world (``make_local_mesh``, shapes
-   (1, 1) and (1, 1, 1); every collective of a world of one is a copy, so
-   each sharded path equals its unsharded twin bit for bit):
+   (1, 1) and (1, 1, 1); every collective of a world of one is a copy,
+   and the tensor-parallel model code on a group of one runs the
+   unsharded code, so each sharded path equals its unsharded twin bit
+   for bit):
    smollm-360m whole in bf16, ``make_train_step`` in ``"2d"`` and
    ``"fsdp"`` against ``train_step`` from the same state over two steps of
    B=4, S=1024 (loss, grad norm and every leaf; the step times printed);
@@ -2947,7 +2949,7 @@ def mesh_serve(dev, mesh) -> None:
           f"{MESH_TOKENS} "
           f"greedy tokens: make_serve_step logits == decode_step's bit for "
           f"bit; {t_mesh / MESH_TOKENS * 1e3:.3f} ms a token sharded "
-          f"(the 'serve' weights gathered every token) against "
+          f"(the weights' and caches' shards, no gather) against "
           f"{t_plain / MESH_TOKENS * 1e3:.3f} ms")
 
 
@@ -3253,8 +3255,11 @@ def dryrun_finish(started) -> None:
           f"{rec['t_trace_s']:.3f} s, {wall:.1f} s wall (budget "
           f"{DRYRUN_BUDGET_S} s), no CUDA device visible; rank 0 counted "
           f"{r['flops_per_device']:.4g} flops (analytic "
-          f"{a['flops_global'] / a['chips']:.4g} a device), "
+          f"{a['flops_global'] / a['chips']:.4g} a device, "
+          f"{r['flops_per_device'] * a['chips'] / a['flops_global']:.3f}x), "
           f"{r['bytes_per_device']:.4g} bytes accessed, collectives "
+          f"{r['coll_bytes_per_device']:,.0f} bytes a device (analytic "
+          f"{a['coll_bytes_dev']:,.0f}): "
           f"{json.dumps({k: v for k, v in r['coll_breakdown'].items() if v})}"
           f" bytes in {json.dumps(rec['n_collectives'])} calls, peak "
           f"{mem['peak_size_in_bytes']:,} bytes (arguments "

@@ -6,7 +6,7 @@ The port of ``repro.launch.dryrun``.  For each cell this driver:
      (``mesh.start_fake_world``: torch's fake process group, whose
      collectives move nothing);
   2. builds the step function the cell calls for (``make_train_step``, a
-     prefill forward on this rank's rows with the weights gathered, or
+     prefill forward on this rank's rows and shards, or
      ``make_serve_step``) with the production layouts;
   3. traces one call under ``FakeTensorMode`` on stand-ins of rank 0's
      shards of ``specs.input_specs`` (shape and dtype only: nothing is
@@ -20,10 +20,11 @@ the sharded step cannot issue, a host read on the traced path) are
 recorded as ``FAILED`` with their traceback and make the run exit 1: the
 check that the mesh paths would run on the big meshes.
 
-The numbers are rank 0's eager work: the port's sharded steps gather the
-weights and compute on the data-parallel rows, so the counted flops are
-those of one data-parallel rank's rows, repeated on every rank of the
-``model`` axis (``useful_flops_fraction`` near 1/tp for a dense model).
+The numbers are rank 0's eager work: the port's sharded steps compute on
+this rank's rows and on its ``model`` shard of the heads, columns,
+channels, experts and vocab (``sharding.TPContext``), gathering each
+layer's FSDP shards when the layer runs, so a dense model's counted
+flops are about its share of the global step's.
 
 Device: the dry run allocates nothing and launches nothing, and it is the
 one entry point with no ``device=``.  Its world is typed ``"cpu"``, so the
@@ -116,16 +117,19 @@ def lower_cell(cfg: ModelConfig, cell: ShapeCell, mesh
         pspecs = sh.param_specs(spec["params"])
         moe_group = sh.axes_group(mesh, dp) if cfg.moe is not None and \
             sh.axes_size(mesh, dp) > 1 else None
+        tp = sh.TPContext(mesh, "2d")
 
         def prefill(params, batch):
-            """``forward(..., last_only=True)`` on this rank's rows, the
-            weights gathered; a MoE routes every rank's tokens as one
-            batch."""
-            full = tree_map(sh.full, params)
-            x, _ = tr.forward_body(full, serve_cfg, sh.local(batch["tokens"]),
+            """``forward(..., last_only=True)`` on this rank's rows and
+            shards, each layer's FSDP shards gathered as it runs; the
+            logits of this rank's block of the vocab.  A MoE routes every
+            rank's tokens as one batch."""
+            local = tree_map(sh.local, params)
+            x, _ = tr.forward_body(local, serve_cfg,
+                                   sh.local(batch["tokens"]),
                                    frames=sh.local(batch.get("frames")),
-                                   moe_group=moe_group)
-            return L.logits(full["embed"], serve_cfg, x[:, -1:])
+                                   moe_group=moe_group, tp=tp)
+            return L.logits(local["embed"], serve_cfg, x[:, -1:], tp)
 
         def args():
             return (tree_map(lambda t, s: _shard(t, mesh, s),
@@ -267,10 +271,16 @@ def main() -> None:
                 if st == "ok":
                     r = rec["roofline"]
                     peak = rec["memory_analysis"]["peak_size_in_bytes"]
+                    a = rec["roofline_analytic"]
+                    share = a["flops_global"] / a["chips"]
                     extra = (f" bottleneck={r['bottleneck']}"
                              f" frac={r['roofline_fraction']:.3f}"
                              f" useful={r['useful_flops_fraction']:.3f}"
-                             f" peak/dev={peak / 2 ** 30:.2f}GiB")
+                             f" peak/dev={peak / 2 ** 30:.2f}GiB"
+                             f" flops/share="
+                             f"{r['flops_per_device'] / share:.3f}"
+                             f" coll/dev={r['coll_bytes_per_device']:.4g}B"
+                             f" (analytic {a['coll_bytes_dev']:.4g}B)")
                 elif st == "FAILED":
                     n_fail += 1
                     extra = " " + rec["error"][:160]

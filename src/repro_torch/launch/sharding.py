@@ -24,6 +24,9 @@ in the mesh's own order (checked; the rules keep it).  DTensor would
 shard a dim that does not divide (``torch.chunk``); the reference does
 not, so neither does the port: ``placements`` raises.
 ``distribute_tree`` and ``full_tree`` carry a tree onto a mesh and back.
+``TPContext`` is a rank's view of a mesh for the model functions: the
+``model`` group its heads, columns, channels, experts and vocab split
+over, and each layer's FSDP gather (the sharded steps' partitioning).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
                                       distribute_tensor)
 
+from ..models.layers import TP
 from ..tree import tree_map
 
 
@@ -297,3 +301,78 @@ def axes_group(mesh, axes: Sequence[str]):
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     return mesh[axes]._flatten().get_group()
+
+
+def fsdp_axes(mesh, mode: str = "2d") -> Tuple[str, ...]:
+    """The axes a parameter's FSDP dim is sharded over: ``data`` in
+    ``"2d"``, ``("data", "model")`` in ``"fsdp"``, none in ``"serve"``."""
+    want = {"2d": ("data",), "fsdp": ("data", "model"), "serve": ()}[mode]
+    return tuple(a for a in want if a in mesh.mesh_dim_names)
+
+
+def tp_axes(mesh, mode: str = "2d") -> Tuple[str, ...]:
+    """The tensor-parallel axis: ``model``, except in ``"fsdp"`` (which
+    retires it into FSDP)."""
+    return () if mode == "fsdp" or "model" not in mesh.mesh_dim_names \
+        else ("model",)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every axis ``spec`` shards a dim over."""
+    return tuple(a for e in spec for a in _axes(e))
+
+
+class TPContext(TP):
+    """This rank's place on a mesh, for the model functions: the
+    ``model`` group (``size`` ranks, this one ``rank``) over which the
+    heads, FFN columns, channels, experts and vocab are split, and the
+    FSDP group over which ``layer`` gathers a layer's parameters when it
+    runs.  A ``models.layers.TP`` with collectives (``launch.
+    collectives``).  Built once by a mesh builder, outside any fake mode
+    (a group of several axes is made here); every rank builds it."""
+
+    def __init__(self, mesh, mode: str = "2d"):
+        from . import collectives as C
+        self._C = C
+        tp = tp_axes(mesh, mode)
+        self.group = axes_group(mesh, tp)
+        self.size, self.rank = axes_size(mesh, tp), axes_index(mesh, tp)
+        fs = fsdp_axes(mesh, mode)
+        self.fsdp_group = axes_group(mesh, fs)
+        self.fsdp_size = axes_size(mesh, fs)
+        self._remap = {"2d": None, "fsdp": _remap_fsdp,
+                       "serve": _remap_serve}[mode]
+
+    def copy(self, x):
+        return self._C.copy_to(x, self.group)
+
+    def reduce(self, x):
+        return self._C.reduce_from(x, self.group)
+
+    def gather_cols(self, x):
+        return self._C.gather_cols(x, self.group)
+
+    def gather_rs(self, x, dim: int = -1):
+        return self._C.gather_dim(x, dim, self.group)
+
+    def pmax(self, x):
+        return self._C.pmax(x, self.group)
+
+    def layer(self, p):
+        """``p`` (a layer's parameters, this rank's shards) with each
+        leaf's FSDP dim gathered over the FSDP group, differentiably (the
+        backward reduce-scatters the gradient onto the shards); ``p``
+        itself when nothing is sharded over it."""
+        if self.fsdp_size == 1:
+            return p
+
+        def gather(path, t):
+            spec = param_spec(path, t)
+            if self._remap is not None:
+                spec = self._remap(spec)
+            for d, e in enumerate(spec):
+                if "data" in _axes(e):
+                    return self._C.gather_dim(t, d, self.fsdp_group)
+            return t
+
+        return tree_map(gather, p, with_path=True)

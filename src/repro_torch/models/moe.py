@@ -24,6 +24,9 @@ them, the reference's sharded step); ``moe_block_local`` routes each
 rank's own tokens (the reference's shard-local dispatch, per-shard
 capacity).  ``set_ep_spec`` names the expert buffers' layout, which a
 DTensor buffer is redistributed to; a plain tensor passes unchanged.
+With ``tp`` (expert parallelism over ``model``, the reference's
+``P("model", None, None)``) each rank of ``model`` runs only its own
+experts' rows of the buffer, and the combine sums over ``model``.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from .config import ModelConfig
-from .layers import Params, dense_init, qeinsum, rms_norm
+from .layers import Params, as_tp, dense_init, qeinsum, rms_norm
 
 #: the (E, C, d) expert buffers' layout (a ``launch.sharding.
 #: NamedSharding``; None: no constraint), set by the mesh builders.
@@ -205,10 +208,14 @@ def _combine_q8(out_buf, flat_e, safe_pos, keep):
     return _CombineQ8.apply(out_buf, flat_e, safe_pos, keep)
 
 
-def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor
+def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (x + MoE FFN of x, the router's aux loss, fp32
-    scalar)."""
+    scalar).  ``tp`` (expert parallelism over ``model``): every rank
+    routes all the tokens, builds only its own ``E / tp.size`` experts'
+    rows of the buffer, runs them with its local expert weights, and the
+    combine sums over ``model``."""
+    tp = as_tp(tp)
     m = cfg.moe
     B, S, d = x.shape
     n_tok, E, k = B * S, m.n_experts, m.top_k
@@ -229,11 +236,17 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor
 
     cap = capacity(n_tok, cfg)
     pos, keep, safe_pos = dispatch_positions(flat_e, E, cap)
-    src = xn[:, None].expand(n_tok, k, d).reshape(n_tok * k, d)
+    slot_e = flat_e                 # each slot's expert among this rank's
+    if tp.size > 1:
+        E //= tp.size
+        lo = tp.rank * E
+        keep = keep & (flat_e >= lo) & (flat_e < lo + E)
+        slot_e = torch.where(keep, flat_e - lo, 0)
+    src = tp.copy(xn)[:, None].expand(n_tok, k, d).reshape(n_tok * k, d)
     if m.dispatch_int8:
-        buf = _dispatch_q8(src, flat_e, pos, keep, E, cap)
+        buf = _dispatch_q8(src, slot_e, pos, keep, E, cap)
     else:
-        buf = _scatter_kept(src, flat_e, pos, keep, E, cap)
+        buf = _scatter_kept(src, slot_e, pos, keep, E, cap)
     buf = _constrain_ep(buf)
 
     # the experts' swiglu FFN over [E, C, d]
@@ -243,29 +256,30 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor
     out_buf = qeinsum("ecf,efd->ecd", h, p["w2"])              # [E, C, d]
 
     if m.dispatch_int8:
-        slot_out = _combine_q8(out_buf, flat_e, safe_pos, keep)
+        slot_out = _combine_q8(out_buf, slot_e, safe_pos, keep)
     else:
         slot_out = torch.where(keep[:, None],
-                               _gather(out_buf, flat_e, safe_pos), 0)
-    slot_w = gate_w.reshape(-1).to(x.dtype)
-    y = (slot_out * slot_w[:, None]).view(n_tok, k, d).sum(dim=1)
+                               _gather(out_buf, slot_e, safe_pos), 0)
+    slot_w = tp.copy(gate_w).reshape(-1).to(x.dtype)
+    y = tp.reduce((slot_out * slot_w[:, None]).view(n_tok, k, d).sum(dim=1))
     return x + y.reshape(B, S, d), aux
 
 
-def moe_block_global(p: Params, cfg: ModelConfig, x: torch.Tensor, group
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_block_global(p: Params, cfg: ModelConfig, x: torch.Tensor, group,
+                     tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``moe_block`` over the rows of ``x`` [b, S, d] of every rank of
     ``group`` (a process group over the data-parallel axes), as one
     batch: (this rank's rows of the output, the aux loss of the whole
     batch).  The gather is differentiable: each rank's cotangents reach
-    the rows' owner.  On a group of one it is ``moe_block``."""
+    the rows' owner.  On a group of one it is ``moe_block``.  ``tp``: see
+    ``moe_block``."""
     from ..launch.collectives import gather_rows, group_size
     if group_size(group) == 1:
-        return moe_block(p, cfg, x)
+        return moe_block(p, cfg, x, tp)
     import torch.distributed as dist
     b = x.shape[0]
     r = dist.get_rank(group)
-    y, aux = moe_block(p, cfg, gather_rows(x, group))
+    y, aux = moe_block(p, cfg, gather_rows(x, group), tp)
     return y[r * b:(r + 1) * b], aux
 
 

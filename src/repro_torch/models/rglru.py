@@ -13,6 +13,12 @@ Prefill runs the whole sequence through ``kernels.ops.rglru`` (the CUDA
 scan on the card, or its plain version with ``use_kernel=False``, which
 training takes); decode updates the O(1) state inline, in plain
 PyTorch, as the reference does outside Pallas.
+
+With ``tp`` the recurrence's channels split over ``model``: ``w_x``,
+``w_gate`` and ``conv_w`` give this rank's channels, the gates' products
+take the conv's output with its channels gathered, the scan runs on this
+rank's channels, and ``w_out`` is row-parallel; the decode state stays
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from .config import ModelConfig
-from .layers import Params, dense_init, mm, rms_norm
+from .layers import Params, as_tp, dense_init, mm, rms_norm
 
 C_FACTOR = 8.0
 
@@ -42,12 +48,13 @@ def rglru_params(gen, cfg: ModelConfig, dtype, device) -> Params:
     }
 
 
-def _gates(p: Params, xr: torch.Tensor
+def _gates(p: Params, xr: torch.Tensor, lam: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 recurrence gate ``a`` (in (0, 1)) and input gate ``i`` for the
-    pre-activation xr [..., dr]."""
+    pre-activation xr [..., dr]; ``lam``: the channels' Lambda (default
+    ``p["lam"]``)."""
     ra = torch.sigmoid(mm(xr, p["w_a"]).float())
-    lam = F.softplus(p["lam"])
+    lam = F.softplus(p["lam"] if lam is None else lam)
     a = torch.exp(-C_FACTOR * lam * ra)
     i = torch.sigmoid(mm(xr, p["w_i"]).float())
     return a, i
@@ -68,19 +75,21 @@ def _causal_conv4(xr: torch.Tensor, w: torch.Tensor,
 
 def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                 state: Optional[Dict[str, torch.Tensor]] = None,
-                use_kernel: bool = True
+                use_kernel: bool = True, tp=None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: [B, S, d] -> (y, new_state).  ``state`` (decode, S = 1):
     {"h": [B, dr] fp32, "conv": [B, 3, dr]}; None in prefill, where the
     new state is None too.  ``use_kernel=False`` scans with the plain
-    version (training: the kernel has no backward)."""
-    xn = rms_norm(x, p["ln"])
+    version (training: the kernel has no backward).  ``tp``: this rank's
+    channels (the module's docstring)."""
+    tp = as_tp(tp)
+    xn = tp.copy(rms_norm(x, p["ln"]))
     gate = F.gelu(mm(xn, p["w_gate"]).float(),
                   approximate="tanh").to(x.dtype)
     xr = mm(xn, p["w_x"])
     xr, conv_state = _causal_conv4(
-        xr, p["conv_w"], None if state is None else state["conv"])
-    a, i = _gates(p, xr)
+        xr, p["conv_w"], None if state is None else tp.cols(state["conv"]))
+    a, i = _gates(p, tp.gather_rs(xr), tp.cols(tp.copy(p["lam"])))
     gx = (i * xr.float()).to(x.dtype)
 
     if state is None:
@@ -89,11 +98,12 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         new_state = None
     else:
         beta = torch.sqrt(torch.clamp(1.0 - a[:, 0] ** 2, min=0.0))
-        h1 = a[:, 0] * state["h"].float() + beta * gx[:, 0].float()
+        h1 = a[:, 0] * tp.cols(state["h"]).float() + beta * gx[:, 0].float()
         h = h1[:, None].to(x.dtype)
-        new_state = {"h": h1, "conv": conv_state}
+        new_state = {"h": tp.gather_cols(h1),
+                     "conv": tp.gather_cols(conv_state)}
 
-    return x + mm(h * gate, p["w_out"]), new_state
+    return x + tp.reduce(mm(h * gate, p["w_out"])), new_state
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int,

@@ -18,10 +18,10 @@ tier hands out any number of times stays as it was published.
 in the serving layout (replicated over ``data``, TP over ``model``), the
 batch and the decode state over the data-parallel axes, the KV caches'
 heads (or sequence) over ``model`` (``decode_state_specs``).  Each step
-gathers the ``model``-sharded weights and the caches' other blocks and
-runs ``decode_step`` on this rank's rows: what the unsharded step
-computes, at the cost of a weight gather every token (a real
-tensor-parallel decode would not gather).
+runs ``decode_step`` on this rank's rows, shards and cache blocks
+(``launch.sharding.TPContext``): no weight and no cache is gathered; the
+activations are summed over ``model`` after each row-parallel product,
+and only the logits' vocab blocks are gathered at the end.
 """
 from __future__ import annotations
 
@@ -67,11 +67,13 @@ def make_serve_step(cfg: ModelConfig, mesh, state_like, params_like,
     whole tensors (distributed on entry); ``token`` [B]; ``index`` the
     cache occupancy.  The logits come out as a DTensor [B, V_padded]
     with the batch over the data-parallel axes (replicated when
-    ``global_batch`` does not divide over them), the state as DTensors
-    under ``decode_state_specs``.  A MoE layer routes the tokens of every
-    rank as one batch.  ``donate`` is accepted and ignored; as
-    ``decode_step`` does, the step writes the caches of its state in
-    place."""
+    ``global_batch`` does not divide over them; the reference's ``P(dp,
+    None)``), the state as DTensors under ``decode_state_specs``.  A MoE
+    layer routes the tokens of every rank as one batch, each rank of
+    ``model`` running its own experts.  ``donate`` is accepted and
+    ignored; as ``decode_step`` does, the step writes the caches of its
+    state in place (this rank's blocks)."""
+    from ..launch.collectives import gather_cols
     from ..launch.mesh import mesh_device
     from ..models import moe as moe_mod
     from ..models import transformer as tr
@@ -85,42 +87,34 @@ def make_serve_step(cfg: ModelConfig, mesh, state_like, params_like,
     sh.param_shardings(mesh, params_like, "serve")     # every dim divides
     sspecs = decode_state_specs(cfg, mesh, state_like, shard_batch)
     group = sh.axes_group(mesh, dp) if shard_batch else None
-    r_dp = sh.axes_index(mesh, dp) if shard_batch else 0
     moe_group = group if cfg.moe is not None and shard_batch and \
         n_dp > 1 else None
+    tp = sh.TPContext(mesh, "serve")
+    tok_pl = sh.placements(mesh, sh.P(bdp))
+    logit_pl = sh.placements(mesh, sh.P(bdp, None))
     dev = mesh_device(mesh)
 
     def put(t, spec):
         return t if isinstance(t, DTensor) else \
             sh.distribute(t.to(dev), mesh, spec)
 
-    def rows(spec):
-        """The spec with only its batch entry: this rank's rows, whole."""
-        return sh.P(spec[0], *([None] * (len(spec) - 1)))
-
-    def to_rows(t, spec):
-        return t.redistribute(mesh, sh.placements(mesh, rows(spec),
-                                                  t.shape)).to_local()
-
-    def from_rows(t, like, spec):
-        d = DTensor.from_local(t, mesh, sh.placements(mesh, rows(spec)),
-                               run_check=False, shape=like.shape,
-                               stride=like.stride())
-        return d.redistribute(mesh, sh.placements(mesh, spec, like.shape))
+    def like(t, d):
+        return DTensor.from_local(t, mesh, d.placements, run_check=False,
+                                  shape=d.shape, stride=d.stride())
 
     def step(params, token, index, state):
-        full = tree_map(lambda t, s: sh.full(put(t, s)), params, pspecs)
+        local = tree_map(lambda t, s: sh.local(put(t, s)), params, pspecs)
         st = tree_map(put, state, sspecs)
-        tok = sh.full(token).to(dev)
-        B = tok.shape[0]
-        b = B // n_dp if shard_batch else B
-        lg, new = decode_step(full, cfg, tok[r_dp * b:r_dp * b + b], index,
-                              tree_map(to_rows, st, sspecs),
-                              moe_group=moe_group)
+        tok = put(token, sh.P(bdp)).redistribute(mesh, tok_pl).to_local()
+        lg, new = decode_step(local, cfg, tok, index,
+                              tree_map(sh.local, st), moe_group=moe_group,
+                              tp=tp)
+        lg = gather_cols(lg, tp.group)
         logits = DTensor.from_local(
-            lg, mesh, sh.placements(mesh, sh.P(bdp, None)), run_check=False,
-            shape=torch.Size((B, lg.shape[1])), stride=(lg.shape[1], 1))
-        return logits, tree_map(from_rows, new, st, sspecs)
+            lg, mesh, logit_pl, run_check=False,
+            shape=torch.Size((token.shape[0], lg.shape[1])),
+            stride=(lg.shape[1], 1))
+        return logits, tree_map(like, new, st)
 
     return step
 

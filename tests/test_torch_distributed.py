@@ -8,14 +8,20 @@ devices (``--xla_force_host_platform_device_count=8``, the pattern of
 ``tests/test_multidevice.py::run_sub``) and leaves them in an ``.npz``;
 this process runs the reference's unsharded steps meanwhile.  Held:
 
-* ``make_train_step`` on ``(2, 2, 2)`` ("pod", "data", "model"), 3 steps,
-  smollm-360m and granite-moe-1b-a400m at smoke size in fp32, ``"2d"``
-  and ``"fsdp"``, one and two micro-batches: loss (1e-5), grad norm, the
-  first step's moments ``m = 0.1 g`` (the gradients), and the params and
-  moments after 3 steps against ``repro``'s unsharded ``train_step`` on
-  the global batch (atol 1e-5, rtol 1e-4).  A MoE routed per rank, a
-  rank's own rows split into micro-batches, or a replicated shard counted
-  twice in the norm would each fail here;
+* ``make_train_step`` on ``(2, 4)`` ("data", "model") and ``(2, 2, 2)``
+  ("pod", "data", "model"), 3 steps, at smoke size in fp32, ``"2d"``
+  (tensor parallelism over ``model``, 4 and 2 ranks) and ``"fsdp"``:
+  smollm-360m, granite-moe-1b-a400m and ``NONDIV`` (chameleon-34b's
+  smoke config with 6 query and 2 kv heads, qk-norm: its query heads
+  do not divide over 4 ranks) with one and two micro-batches,
+  recurrentgemma-9b, rwkv6-3b and whisper-small (with encoder frames)
+  with one: loss (1e-5), grad norm, the first step's moments ``m = 0.1
+  g`` (the gradients), and the params and moments after 3 steps against
+  ``repro``'s unsharded ``train_step`` on the global batch (atol 1e-5,
+  rtol 1e-4).  A MoE routed per rank, a rank's own rows split into
+  micro-batches, a replicated shard counted twice in the norm, or a
+  leaf that ``model`` replicates given a partial gradient would each
+  fail here;
 * ``Trainer(mesh=...)`` checkpointing on ``(2, 2, 2)``, resumed with
   ``resume_on_mesh`` onto ``(4, 2)``: bit for bit, and ``repro``'s
   ``checkpoint.load`` reads the same file bit for bit;
@@ -27,10 +33,12 @@ this process runs the reference's unsharded steps meanwhile.  Held:
   reference's results on 8 devices;
 * ``filtered_batch`` over 4 ranks bit for bit against ``pushdown_select``
   over 4 CPU shards;
-* ``make_serve_step`` on ``(2, 2, 2)``, gemma2-9b smoke, B=8 (batch
-  sharded) and B=3 (replicated): logits against ``repro``'s
-  ``decode_step`` at 2e-5.
+* ``make_serve_step``, gemma2-9b smoke on ``(2, 2, 2)`` (its 2 kv heads
+  over ``model``) and ``(2, 4)`` (the caches' sequence over ``model``),
+  recurrentgemma-9b (1 kv head) on ``(2, 4)``, B=8 (batch sharded) and
+  B=3 (replicated): logits against ``repro``'s ``decode_step`` at 2e-5.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -43,15 +51,47 @@ torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 8
-TRAIN_ARCHS = ("smollm-360m", "granite-moe-1b-a400m")
-TRAIN_CASES = [(a, mode, k) for a in TRAIN_ARCHS for mode in ("2d", "fsdp")
-               for k in (1, 2)]
+#: a config whose query heads ``model`` does not divide on (2, 4): the
+#: same replacement of the smoke config in both packages.
+NONDIV = "chameleon-34b/heads6"
+NONDIV_FIELDS = dict(n_heads=6, n_kv_heads=2, head_dim=8)
+#: archs trained with one and two micro-batches, and with one.
+TRAIN_MICRO = ("smollm-360m", "granite-moe-1b-a400m", NONDIV)
+TRAIN_ONE = ("recurrentgemma-9b", "rwkv6-3b", "whisper-small")
+TRAIN_ARCHS = TRAIN_MICRO + TRAIN_ONE
+MESHES = {"2x4": ((2, 4), ("data", "model")),
+          "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+TRAIN_CASES = [(a, m, mode, k) for a in TRAIN_ARCHS for m in MESHES
+               for mode in ("2d", "fsdp")
+               for k in ((1, 2) if a in TRAIN_MICRO else (1,))]
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 3, 16, 16
 OPTIM = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10, eps=1e-4)
-SERVE_ARCH, SERVE_BATCHES, SERVE_STEPS, SERVE_SEQ = "gemma2-9b", (8, 3), 3, 8
+SERVE_CASES = (("gemma2-9b", "2x2x2"), ("gemma2-9b", "2x4"),
+               ("recurrentgemma-9b", "2x4"))
+SERVE_ARCHS = ("gemma2-9b", "recurrentgemma-9b")
+SERVE_BATCHES, SERVE_STEPS, SERVE_SEQ = (8, 3), 3, 8
 LOSS_TOL = 1e-5
 ATOL, RTOL = 1e-5, 1e-4
 TIMEOUT = 400
+
+
+def get_config(configs, arch):
+    """``configs.get_config(arch, smoke=True)`` of either package, and
+    ``NONDIV``'s replacement of it."""
+    if arch == NONDIV:
+        return dataclasses.replace(configs.get_config(
+            arch.split("/")[0], smoke=True), **NONDIV_FIELDS)
+    return configs.get_config(arch, smoke=True)
+
+
+def _frames(cfg, i):
+    """Step ``i``'s encoder frames [B, T, d] for an encoder-decoder
+    (numpy, the same for both packages), else None."""
+    if cfg.encoder is None:
+        return None
+    rng = np.random.default_rng(100 + i)
+    return rng.standard_normal((TRAIN_B, cfg.encoder.n_frames,
+                                cfg.d_model)).astype(np.float32)
 
 
 # -- the world's ranks --------------------------------------------------------
@@ -62,23 +102,27 @@ def _train(rank, inputs, out):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import OptimConfig
     from repro_torch.train import init_state, make_train_step
-    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
-    for arch, mode, k in TRAIN_CASES:
+    meshes = {k: make_mesh(*v, "cpu") for k, v in MESHES.items()}
+    for arch, mname, mode, k in TRAIN_CASES:
         cfg, params = inputs[arch]
+        mesh = meshes[mname]
         step = make_train_step(cfg, OptimConfig(**OPTIM), mesh, params, k,
                                sharding_mode=mode)
         pipe = SyntheticPipeline(DataConfig(cfg.vocab, TRAIN_S, TRAIN_B),
                                  mesh)
         state, rec = init_state(params), {"loss": [], "grad_norm": []}
         for i in range(TRAIN_STEPS):
-            state, m = step(state, pipe.batch(i))
+            batch = pipe.batch(i)
+            if cfg.encoder is not None:
+                batch["frames"] = torch.from_numpy(_frames(cfg, i))
+            state, m = step(state, batch)
             rec["loss"].append(float(m["loss"]))
             rec["grad_norm"].append(float(m["grad_norm"]))
             full = sh.full_tree(state)
             if i == 0:
                 rec["m1"] = full.opt.m
         rec["state"] = full
-        out[f"train/{arch}/{mode}/{k}"] = rec
+        out[f"train/{arch}/{mname}/{mode}/{k}"] = rec
 
 
 def _checkpoint(rank, inputs, root, out):
@@ -141,17 +185,22 @@ def _serve(rank, inputs, out):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as T
     from repro_torch.serve import make_serve_step
-    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
-    cfg, params = inputs[SERVE_ARCH]
-    for B in SERVE_BATCHES:
-        state = T.init_decode_state(cfg, B, SERVE_SEQ, "cpu")
-        step = make_serve_step(cfg, mesh, state, params, global_batch=B)
-        logits = []
-        for i, tok in enumerate(inputs[f"serve_tokens/{B}"]):
-            lg, state = step(params, tok, i, state)
-            logits.append(lg.full_tensor())
-        out[f"serve/{B}"] = {"logits": torch.stack(logits),
-                             "placements": [str(p) for p in lg.placements]}
+    meshes = {k: make_mesh(*v, "cpu") for k, v in MESHES.items()}
+    for arch, mname in SERVE_CASES:
+        cfg, params = inputs[arch]
+        for B in SERVE_BATCHES:
+            state = T.init_decode_state(cfg, B, SERVE_SEQ, "cpu")
+            step = make_serve_step(cfg, meshes[mname], state, params,
+                                   global_batch=B)
+            logits = []
+            for i, tok in enumerate(inputs[f"serve_tokens/{arch}/{B}"]):
+                lg, state = step(params, tok, i, state)
+                logits.append(lg.full_tensor())
+            out[f"serve/{arch}/{mname}/{B}"] = {
+                "logits": torch.stack(logits),
+                "placements": [str(p) for p in lg.placements],
+                "cache": [str(p) for p in next(
+                    st for st in state if "k" in st)["k"].placements]}
 
 
 def _worker(rank: int, root: str) -> None:
@@ -243,8 +292,8 @@ def _reference_inputs():
     from repro.models import init_params
     from repro.models.moe import moe_params
     params = {}
-    for arch in TRAIN_ARCHS + (SERVE_ARCH,):
-        jcfg = jconfigs.get_config(arch, smoke=True)
+    for arch in TRAIN_ARCHS + SERVE_ARCHS:
+        jcfg = get_config(jconfigs, arch)
         params[arch] = (jcfg, jax.tree_util.tree_map(
             np.asarray, init_params(jax.random.key(3), jcfg)))
     rng = np.random.default_rng(11)
@@ -267,9 +316,9 @@ def world(tmp_path_factory):
     from repro_torch.nmp.select import make_table
     root = str(tmp_path_factory.mktemp("world"))
     params, moe_p, moe_x, grads = _reference_inputs()
-    inputs = {arch: (tconfigs.get_config(arch, smoke=True),
-                     convert.model_params_to_torch(p, tconfigs.get_config(
-                         arch, smoke=True), "cpu"))
+    inputs = {arch: (get_config(tconfigs, arch),
+                     convert.model_params_to_torch(p, get_config(
+                         tconfigs, arch), "cpu"))
               for arch, (_, p) in params.items()}
     tmoe = tconfigs.get_config("granite-moe-1b-a400m", smoke=True)
     inputs["moe_local"] = (tmoe, {k: torch.from_numpy(v)
@@ -278,11 +327,12 @@ def world(tmp_path_factory):
     inputs["psum_grads"] = {k: torch.from_numpy(v) for k, v in grads.items()}
     inputs["table"] = make_table(13, 1024, 8, 0.2, device="cpu")
     rng = np.random.default_rng(17)
-    vocab = inputs[SERVE_ARCH][0].vocab
-    for B in SERVE_BATCHES:
-        inputs[f"serve_tokens/{B}"] = [
-            torch.from_numpy(rng.integers(0, vocab, (B,)).astype(np.int32))
-            for _ in range(SERVE_STEPS)]
+    for arch in SERVE_ARCHS:
+        vocab = inputs[arch][0].vocab
+        for B in SERVE_BATCHES:
+            inputs[f"serve_tokens/{arch}/{B}"] = [
+                torch.from_numpy(rng.integers(0, vocab, (B,)).astype(
+                    np.int32)) for _ in range(SERVE_STEPS)]
     torch.save(inputs, os.path.join(root, "inputs.pt"))
     np.savez(os.path.join(root, "ref_inputs.npz"), psum_a=grads["a"],
              psum_b=grads["b"], moe_x=moe_x,
@@ -339,14 +389,17 @@ def _unsharded_references(params, inputs):
     for arch in TRAIN_ARCHS:
         jcfg, p = params[arch]
         pipe = SyntheticPipeline(DataConfig(jcfg.vocab, TRAIN_S, TRAIN_B))
-        for k in (1, 2):
+        for k in (1, 2) if arch in TRAIN_MICRO else (1,):
             fn = jax.jit(functools.partial(
                 train_step, jcfg, adamw.OptimConfig(**OPTIM), k))
             state = init_state(jax.tree_util.tree_map(jnp.asarray, p))
             rec = {"loss": [], "grad_norm": []}
             for i in range(TRAIN_STEPS):
+                batch = dict(pipe.batch(i))
+                if jcfg.encoder is not None:
+                    batch["frames"] = _frames(jcfg, i)
                 state, m = fn(state, {kk: jnp.asarray(v)
-                                      for kk, v in pipe.batch(i).items()})
+                                      for kk, v in batch.items()})
                 rec["loss"].append(float(m["loss"]))
                 rec["grad_norm"].append(float(m["grad_norm"]))
                 if i == 0:
@@ -354,17 +407,18 @@ def _unsharded_references(params, inputs):
                                                        state.opt.m)
             rec["state"] = jax.tree_util.tree_map(np.asarray, state)
             out[f"train/{arch}/{k}"] = rec
-    jcfg, p = params[SERVE_ARCH]
-    jp = jax.tree_util.tree_map(jnp.asarray, p)
     step = jax.jit(decode_step, static_argnums=(1,))
-    for B in SERVE_BATCHES:
-        state = init_decode_state(jcfg, B, SERVE_SEQ)
-        logits = []
-        for i, tok in enumerate(inputs[f"serve_tokens/{B}"]):
-            lg, state = step(jp, jcfg, jnp.asarray(tok.numpy()),
-                             jnp.asarray(i, jnp.int32), state)
-            logits.append(np.asarray(lg))
-        out[f"serve/{B}"] = np.stack(logits)
+    for arch in SERVE_ARCHS:
+        jcfg, p = params[arch]
+        jp = jax.tree_util.tree_map(jnp.asarray, p)
+        for B in SERVE_BATCHES:
+            state = init_decode_state(jcfg, B, SERVE_SEQ)
+            logits = []
+            for i, tok in enumerate(inputs[f"serve_tokens/{arch}/{B}"]):
+                lg, state = step(jp, jcfg, jnp.asarray(tok.numpy()),
+                                 jnp.asarray(i, jnp.int32), state)
+                logits.append(np.asarray(lg))
+            out[f"serve/{arch}/{B}"] = np.stack(logits)
     return out
 
 
@@ -385,17 +439,19 @@ def _close(got, want, atol=ATOL, rtol=RTOL):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("arch,mode,k", TRAIN_CASES)
-def test_make_train_step_equals_unsharded_reference(world, arch, mode, k):
+@pytest.mark.parametrize("arch,mesh,mode,k", TRAIN_CASES)
+def test_make_train_step_equals_unsharded_reference(world, arch, mesh, mode,
+                                                    k):
     from repro_torch import convert
     outs, _, refs, params, _ = world
-    got, want = outs[0][f"train/{arch}/{mode}/{k}"], refs[f"train/{arch}/{k}"]
+    key = f"train/{arch}/{mesh}/{mode}/{k}"
+    got, want = outs[0][key], refs[f"train/{arch}/{k}"]
     np.testing.assert_allclose(got["loss"], want["loss"], atol=LOSS_TOL,
                                rtol=0)
     np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
                                atol=LOSS_TOL, rtol=1e-5)
     from repro_torch import configs as tconfigs
-    tcfg = tconfigs.get_config(arch, smoke=True)
+    tcfg = get_config(tconfigs, arch)
     m1 = convert.model_params_to_numpy(got["m1"], tcfg)
     _close(m1, want["m1"])                          # 0.1 x the gradients
     st = convert.train_state_to_numpy(got["state"], tcfg)
@@ -405,7 +461,7 @@ def test_make_train_step_equals_unsharded_reference(world, arch, mode, k):
     assert int(st.data_step) == int(want["state"].data_step) == TRAIN_STEPS
     # every rank ends with the same state.
     for r in range(1, WORLD):
-        other = outs[r][f"train/{arch}/{mode}/{k}"]
+        other = outs[r][key]
         assert other["loss"] == got["loss"]
         for a, b in zip(_leaves(other["state"]), _leaves(got["state"])):
             assert torch.equal(a, b)
@@ -500,14 +556,23 @@ def test_filtered_batch_equals_pushdown_select(world):
     assert int(want.moved_rows) > 0
 
 
+@pytest.mark.parametrize("arch,mesh", SERVE_CASES)
 @pytest.mark.parametrize("B", SERVE_BATCHES)
-def test_make_serve_step_equals_reference_decode(world, B):
+def test_make_serve_step_equals_reference_decode(world, arch, mesh, B):
     outs, _, refs, _, _ = world
-    got = outs[0][f"serve/{B}"]
-    np.testing.assert_allclose(got["logits"].numpy(), refs[f"serve/{B}"],
-                               atol=2e-5, rtol=2e-5)
-    sharded = B % 4 == 0
-    assert got["placements"] == (["S(0)", "S(0)", "R"] if sharded
-                                 else ["R", "R", "R"])
+    key = f"serve/{arch}/{mesh}/{B}"
+    got = outs[0][key]
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               refs[f"serve/{arch}/{B}"], atol=2e-5,
+                               rtol=2e-5)
+    shape, axes = MESHES[mesh]
+    n_dp = shape[0] * (shape[1] if len(shape) == 3 else 1)
+    dp = ["S(0)"] * (len(shape) - 1) if B % n_dp == 0 else \
+        ["R"] * (len(shape) - 1)
+    assert got["placements"] == dp + ["R"]
+    # the cache: kv heads over model where they divide, else the sequence.
+    from repro_torch import configs as tconfigs
+    kv = get_config(tconfigs, arch).n_kv_heads
+    assert got["cache"] == dp + ["S(1)" if kv % shape[-1] == 0 else "S(2)"]
     for r in range(1, WORLD):
-        assert torch.equal(outs[r][f"serve/{B}"]["logits"], got["logits"])
+        assert torch.equal(outs[r][key]["logits"], got["logits"])

@@ -592,3 +592,51 @@ def test_loss_decreases(tmp_path):
     first = np.mean([m["loss"] for m in t.metrics_log[:5]])
     last = np.mean([m["loss"] for m in t.metrics_log[-5:]])
     assert last < first - 0.5, (first, last)
+
+
+@pytest.mark.parametrize("mode", ["2d", "fsdp"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m",
+                                  "recurrentgemma-9b", "rwkv6-3b",
+                                  "whisper-small"])
+def test_make_train_step_on_one_rank_equals_train_step(arch, mode):
+    """``make_train_step`` on a mesh of one CPU rank: the tensor-parallel
+    model code on a group of one runs the unsharded code, and every
+    collective is a copy, so two steps equal ``train_step``'s bit for
+    bit (loss, lr, grad norm and every leaf), as phase 13 of
+    ``chip_smoke.py`` holds them on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import close, make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_state, make_train_step, train_step
+    from repro_torch.tree import leaves
+    cfg = get_config(arch, smoke=True)
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batches = []
+    for _ in range(2):
+        b = {k: torch.randint(0, cfg.vocab, (4, 16), generator=g,
+                              dtype=torch.int32)
+             for k in ("tokens", "targets")}
+        if cfg.encoder is not None:
+            b["frames"] = torch.randn((4, cfg.encoder.n_frames, cfg.d_model),
+                                      generator=g)
+        batches.append(b)
+    ocfg = OptimConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    axes = ("data", "model") if mode == "2d" else ("pod", "data", "model")
+    mesh = make_local_mesh(axes, device="cpu")
+    try:
+        step = make_train_step(cfg, ocfg, mesh, params, 1,
+                               sharding_mode=mode)
+        want, got = init_state(params), init_state(params)
+        for b in batches:
+            want, wm = train_step(cfg, ocfg, 1, want, b)
+            got, gm = step(got, b)
+            for k in wm:
+                assert torch.equal(wm[k], gm[k]), k
+        for a, b in zip(leaves(want), leaves(got)):
+            assert torch.equal(a, sh.local(b))
+    finally:
+        close()
