@@ -142,7 +142,7 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    2e-4; one ``flash_attention`` per attention block, the encoder's and
    the cross blocks among them: whisper 6, 4 of them non-causal, rwkv6
    none); granite-moe-1b-a400m (24 layers, B=4, S=2048), rwkv6-3b (32
-   layers, B=4, S=512) and whisper-small (12 + 12 layers, B=4, 1500
+   layers, B=4, S=2048) and whisper-small (12 + 12 layers, B=4, 1500
    frames, 256 tokens) at their published widths in bf16, one at a time
    with parameters drawn on the card: prefill tokens/s (best of 3), with
    exactly 24, 0 and 12 tensor-core ``flash_attention`` launches a
@@ -297,11 +297,11 @@ SMOKE_ARCHS = ("smollm-360m", "gemma2-9b", "granite-34b", "nemotron-4-340b",
 FAMILY_ARCHS = SMOKE_ARCHS[6:]
 #: phase 11, the model families at their published widths in bf16, one
 #: at a time: (config, prefill batch, prefill tokens).  granite-moe at all
-#: 24 layers and S=2048; rwkv6-3b at all 32 layers but S=512, since its
-#: time mix is a loop over the tokens (PERF.md section 4); whisper-small's
+#: 24 layers and rwkv6-3b at all 32 (its time mix a chunked scan,
+#: ``models/rwkv6.py::wkv_chunked``), both at S=2048; whisper-small's
 #: 12 + 12 layers over its 1500 frames and 256 tokens.  Each then serves
 #: ``PREFILL_B`` requests of ``PROMPT`` tokens and ``NEW_TOKENS`` more.
-FAMILY_PATHS = (("granite-moe-1b-a400m", 4, 2048), ("rwkv6-3b", 4, 512),
+FAMILY_PATHS = (("granite-moe-1b-a400m", 4, 2048), ("rwkv6-3b", 4, 2048),
                 ("whisper-small", 4, 256))
 #: phase 11's fp32 exactness check: full width, 2 layers (whisper 2
 #: encoder and 2 decoder layers), decode against prefill over
@@ -2230,10 +2230,11 @@ def family_path(dev, arch: str, B: int, S: int, rows) -> None:
                   f"{total - moe_ms - attn_ms:.3f} ms; longest: "
                   + "; ".join(f"{k[:40]} {ms:.3f} ms x{n}"
                               for k, (ms, n) in top))
-    if "rwkv" in cfg.block_pattern:  # the WKV loop's share of a prefill
+    if "rwkv" in cfg.block_pattern:  # the time mix's share of a prefill
         wall, inside = wall_share(prefill, trw, "_time_mix")
         print(f"family {arch} prefill: the time mix (its projections and "
-              f"the loop over {S} tokens) {inside * 1e3:.3f} ms of "
+              f"the chunked WKV scan, {-(-S // trw.WKV_CHUNK)} carry steps "
+              f"a layer) {inside * 1e3:.3f} ms of "
               f"{wall * 1e3:.3f} ms wall ({100 * inside / wall:.1f}%, each "
               f"call between device syncs)")
     where_the_time_goes(f"family {arch} decode_step", lambda: T.decode_step(

@@ -12,9 +12,14 @@ with r, k, v projections of the token-shifted input and the decay
 channel statically with the previous token, as the reference simplifies
 Finch's low-rank interpolation.
 
-The recurrence is a loop over the sequence of the reference's scan step,
-in fp32, in plain PyTorch (the reference computes it outside Pallas);
-decode is one step from the carried state.
+The reference runs the recurrence as one ``lax.scan`` over the tokens,
+outside Pallas.  Here it is plain PyTorch in fp32, exact, in chunks
+(``wkv_chunked``): the recurrence is linear in the state, so inside a
+chunk of C tokens each output is a sum over the chunk's earlier tokens
+with pairwise decays, and only the state is carried from chunk to chunk
+-- S / C steps of one operation where a loop over the tokens would
+dispatch a dozen device operations a token.  A decode of one token keeps
+the scan's step.
 
 With ``tp`` the channels split over ``model``: the receptance, key,
 value and decay products and the channel mix's key are column-parallel,
@@ -71,6 +76,70 @@ def _token_shift(x: torch.Tensor, mix: torch.Tensor,
     return (mix * x.float() + (1 - mix) * prev.float()).to(x.dtype)
 
 
+#: tokens a chunk of ``wkv_chunked``: its pairwise decays take
+#: ``WKV_CHUNK`` times the memory of r, its carry S / ``WKV_CHUNK`` steps.
+WKV_CHUNK = 16
+
+
+def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The WKV recurrence of the module's docstring over r, k, v and the
+    log-decay ``logw`` [B, S, H, hd] fp32 with the bonus ``u`` [H, hd],
+    from the state ``s0`` [B, H, hd, hd]: (out [B, S, H, hd], the final
+    state), the function of the reference's ``lax.scan``, in chunks.
+
+    With L and L' the inclusive and exclusive cumulative sums of ``logw``
+    inside a chunk of C = ``WKV_CHUNK`` tokens, and S0 the state the
+    chunk starts from:
+
+        o_t = (r_t * e^{L'_t}) S0 + (r_t . (u * k_t)) v_t
+              + sum_{j<t} [sum_k r_t[k] k_j[k] e^{L'_t[k] - L_j[k]}] v_j
+        S_C = e^{L_C} * S0 + sum_j (k_j * e^{L_C - L_j}) v_j^T
+
+    Every exponent is a sum of only the log-decays it spans, so it is
+    <= 0 and as exact as the scan's own products: the decay between two
+    tokens, L'_t - L_j = sum_{j<i<t} logw_i, is a cumulative sum of the
+    terms masked to the pair, formed for every pair with j < t and set
+    to -inf elsewhere before the exponential.  It is never e^{L'_t}
+    e^{-L_j}, which overflows once a chunk's decays sum below about -80,
+    nor a difference of two cumulative sums, which loses the small
+    decays beside a large one.  The sequence is padded to whole chunks
+    with k = 0 and logw = 0, which leave the state as it is.  The terms
+    inside the chunks are batched over all of them; only the carry
+    loops, one ``addcmul`` a chunk."""
+    B, S, H, hd = r.shape
+    C = WKV_CHUNK
+    N = -(-S // C)
+
+    def chunks(z):                      # [B, S, H, hd] -> [B, H, N, C, hd]
+        z = F.pad(z, (0, 0, 0, 0, 0, N * C - S))
+        return z.reshape(B, N, C, H, hd).permute(0, 3, 1, 2, 4)
+
+    r, k, v, logw = chunks(r), chunks(k), chunks(v), chunks(logw)
+    prev = F.pad(logw, (0, 0, 1, 0))[..., :-1, :]         # logw_{t-1}
+    tri = torch.ones((C, C), dtype=torch.bool, device=r.device)
+    pair = (prev[..., :, None, :].masked_fill(~tri.tril(-2)[:, :, None], 0)
+            .cumsum_(-3)                                  # [.., t, j, hd]
+            .masked_fill_(~tri.tril(-1)[:, :, None], float("-inf"))
+            .exp_())
+    att = torch.einsum("bhntjk,bhntk->bhntj", pair * k[..., None, :, :], r)
+    # the carry: each chunk's own k v^T decayed to its end, then S / C steps
+    nxt = F.pad(logw, (0, 0, 0, 1))[..., 1:, :]           # logw_{j+1}
+    to_end = nxt.flip(3).cumsum(3).flip(3)                # L_C - L_j
+    own = torch.einsum("bhnjk,bhnjv->bhnkv", k * torch.exp(to_end), v)
+    s, starts = s0, []
+    for dec, kv in zip(torch.exp(logw.sum(3)).unsqueeze(-1).unbind(2),
+                       own.unbind(2)):
+        starts.append(s)
+        s = torch.addcmul(kv, dec, s)
+    out = (torch.einsum("bhntk,bhnkv->bhntv", r * torch.exp(prev.cumsum(3)),
+                        torch.stack(starts, 2))
+           + torch.einsum("bhntj,bhnjv->bhntv", att, v)
+           + (r * u[:, None, None] * k).sum(-1, keepdim=True) * v)
+    return out.permute(0, 2, 3, 1, 4).reshape(B, N * C, H, hd)[:, :S], s
+
+
 def _time_mix(p: Params, cfg: ModelConfig, xn: torch.Tensor,
               state_s: torch.Tensor, last: Optional[torch.Tensor], tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -91,21 +160,23 @@ def _time_mix(p: Params, cfg: ModelConfig, xn: torch.Tensor,
     else:
         r, k, v, wx = (tp.gather_cols(z) for z in (r, k, v, wx))
         wlog, u_p = p["wlog"], p["u"]
-    # data-dependent decay in (0, 1)
-    w = torch.exp(-torch.exp(wlog + torch.tanh(wx.float())))
+    # data-dependent decay w = exp(logw) in (0, 1); its log is taken from
+    # the expression, never from an underflowed w
+    logw = -torch.exp(wlog + torch.tanh(wx.float()))
 
     def heads(z):
         return z.reshape(B, S, H, hd).float()
 
-    r, k, v, w = heads(r), heads(k), heads(v), heads(w)
-    u = u_p.reshape(H, hd)[None, :, :, None]
-    s = state_s
-    outs = []
-    for t in range(S):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]     # [B, H, dk, dv]
-        outs.append(torch.einsum("bhkv,bhk->bhv", s + u * kv, r[:, t]))
-        s = w[:, t, :, :, None] * s + kv
-    out = torch.stack(outs, dim=1).reshape(B, S, H * hd).to(xn.dtype)
+    r, k, v, logw = heads(r), heads(k), heads(v), heads(logw)
+    u = u_p.reshape(H, hd)
+    if S == 1:                                   # decode: the scan's step
+        kv = k[:, 0, :, :, None] * v[:, 0, :, None, :]     # [B, H, dk, dv]
+        out = torch.einsum("bhkv,bhk->bhv", state_s + u[..., None] * kv,
+                           r[:, 0])
+        s = torch.exp(logw[:, 0, :, :, None]) * state_s + kv
+    else:
+        out, s = wkv_chunked(r, k, v, logw, u, state_s)
+    out = out.reshape(B, S, H * hd).to(xn.dtype)
     if not local:
         out = tp.cols(tp.copy(out))
     return tp.reduce(mm(out, p["w_o"])), s, xn[:, -1]
