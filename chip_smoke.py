@@ -47,8 +47,11 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    one and exactly 26 ``rglru_scan`` entries), four requests served as
    ``ServeEngine`` serves them (128-token prompts through
    ``decode_step``, held against the prefill's logits,
-   then 32 greedy tokens); and fp32 decode against prefill at 2e-4 at
-   full width with depth cut to 5 layers;
+   then 32 greedy tokens); a prefill over a prompt that does not tile
+   (B=4, S=2000: the plain chunked RG-LRU scan and the dense attention,
+   no kernel launched), timed beside the S=2048 one with its device
+   operations; and fp32 decode against prefill at 2e-4 at full width
+   with depth cut to 5 layers;
 4. the near-memory operators at the paper's §5 sizes, through
    ``core.pushdown`` on one shard: SELECT over 4 Mi 128-byte rows and
    regex over 4 Mi rows with a 62-byte string field, each at 1%, 10% and
@@ -69,7 +72,7 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    step from the profiler (``step_profile``); ``run_stream`` on zipfian
    traffic at R=64 remotes,
    L=4096 lines of B=32 fp32 words (128-byte lines), MOESI, issue width
-   W=1 at 24 ops per remote (``W1_OPS``) and W=4 at 16 (``W4_OPS``),
+   W=1 at 16 ops per remote (``W1_OPS``) and W=4 at 16 (``W4_OPS``),
    each with the default step budget for its ops and validated by the
    port's own ``validate_run`` against its own ``MultiNodeRef``, with the
    launch count of every kernel in that run;
@@ -168,8 +171,13 @@ or of the ``repro`` package.  Phases, each of which fails the script:
    ``SyntheticPipeline`` batches of 16 x 4096 tokens as two
    micro-batches: a warm-up and three steps of ``train_step`` (loss, grad
    norm, lr, s a step, tokens/s, the device's idle share, peak memory;
-   within ``TRAIN_BUDGET_S``), then the whole ``TrainState`` saved, verified
-   and loaded back on the card bit for bit (bytes and seconds);
+   within ``TRAIN_BUDGET_S``; the peak below ``TRAIN_PEAK_BEFORE``,
+   that of a backward keeping every attention tile), then the whole
+   ``TrainState`` saved, verified and loaded back on the card bit for
+   bit (bytes and seconds); recurrentgemma-9b at its published widths,
+   one superlayer (rg, rg, la), bf16, B=1 x 4096: a warm-up and one
+   timed ``train_step`` (s, tokens/s, peak, the aten operations of one
+   RG-LRU scan call, no kernel launched);
 13. meshes, on a one-device NCCL world (``make_local_mesh``, shapes
    (1, 1) and (1, 1, 1); every collective of a world of one is a copy,
    and the tensor-parallel model code on a group of one runs the
@@ -230,8 +238,9 @@ R, L, B, P = 64, 4096, 32, 65
 #: the script keeps a margin under its 1200 s limit on a slow host (see
 #: PERF.md, section 4; the packed run cut again from 64 when phase 10
 #: came in; when phase 13 came in, W=1 from 64 and W=4 and the packed
-#: run from 32, after whole runs took 1220.1 and 1207.6 s on slow hosts).
-W1_OPS = 24
+#: run from 32, after whole runs took 1220.1 and 1207.6 s on slow hosts;
+#: W=1 from 24 when phase 12 (e) and phase 3's ragged prefill came in).
+W1_OPS = 16
 W4_OPS = 16
 PACKED_OPS = 16
 
@@ -284,6 +293,9 @@ NMP_REPS, NMP_ITERS = 3, 20
 MODEL, PREFILL_B, PREFILL_S, WINDOW, WIDTH = ("recurrentgemma-9b", 4, 2048,
                                               2048, 4096)
 PROMPT, NEW_TOKENS, EXACT_S = 128, 32, 128
+#: a prompt length that does not tile (not a multiple of 128): the
+#: prefill takes the plain RG-LRU scan and the dense attention.
+RAGGED_S = 2000
 #: the bf16 gap between decode and prefill logits over 38 layers is a
 #: measured quantity: 0.2734 on an H100 (PERF.md, section 6), bounded at
 #: twice that.  The top-1 agreement is printed, not held: with random
@@ -328,6 +340,16 @@ FAMILY_BUDGET_S = 120
 TRAIN_ARCH, TRAIN_S, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = (
     "smollm-360m", 4096, 16, 2, 3)
 TRAIN_BUDGET_S = 90
+#: phase 12's step before each query block of the plain attention was
+#: recomputed in the backward (PERF.md section 5): its peak in
+#: bytes, held as a ceiling, and its step seconds, printed beside.
+TRAIN_PEAK_BEFORE, TRAIN_STEP_BEFORE = 34_966_835_712, (16.113, 17.407)
+#: phase 12 (e), a hybrid model trains: recurrentgemma-9b at its
+#: published widths, depth cut to one superlayer (rg, rg, la; 3 of 38
+#: layers, the tail dropped; PERF.md section 4), bf16, its config's
+#: remat, one micro-batch of B x S: a warm-up step and one timed step;
+#: ``HYBRID_BUDGET_S`` is printed beside its wall time.
+HYBRID_B, HYBRID_S, HYBRID_BUDGET_S = 1, 4096, 30
 #: phase 12's card-against-CPU tolerances, fp32 with TF32 off: the CPU
 #: tests' own (``tests/test_torch_train.py``): the loss within 1e-5,
 #: every gradient leaf at atol 1e-5 and rtol 1e-4; one AdamW update's
@@ -1945,10 +1967,50 @@ def model_path(dev, rows, measured=None):
     if calls["rglru_scan"] != want_scans:
         fail(f"model path: the bf16 prefill ran {calls['rglru_scan']} "
              f"rglru_scan entries; expected {want_scans}")
+    ragged_prefill(params, cfg, toks, best)
     where_the_time_goes("model path decode_step", lambda: T.decode_step(
         params, cfg, tok, PROMPT + NEW_TOKENS - 1, state), t_dec / NEW_TOKENS)
     del params, state, lg, pre, dec, lg_d
     torch.cuda.empty_cache()
+
+
+def ragged_prefill(params, cfg, toks, best_tiled: float) -> None:
+    """recurrentgemma-9b's prefill over a prompt that does not tile (B=4,
+    ``RAGGED_S`` tokens of ``toks``): the RG-LRU scan takes its plain,
+    chunked version and attention the dense fall-through, as the
+    reference routes them; no kernel launches.  A warm-up call, one
+    timed, one profiled for its device operations."""
+    import torch
+    from repro_torch.kernels import models as MK
+    from repro_torch.models import transformer as T
+    ragged = toks[:, :RAGGED_S]
+    before = dict(MK.launches)
+
+    def prefill():
+        return T.forward(params, cfg, ragged, last_only=True)
+
+    prefill()
+    lg, wall = _timed(prefill)
+    _, p_wall, busy, n_ops, split = profiled(prefill)
+    if dict(MK.launches) != before:
+        fail(f"model path ragged prefill: launches went from {before} to "
+             f"{dict(MK.launches)}; S={RAGGED_S} takes no kernel")
+    if lg.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
+            not bool(lg[..., :cfg.vocab].isfinite().all()):
+        fail(f"model path ragged prefill: logits {tuple(lg.shape)} not "
+             f"finite")
+    ntok = PREFILL_B * RAGGED_S
+    dev_txt = ("device time not measured (the profiler recorded none)"
+               if busy is None else
+               f"profiled: device {busy:.3f} ms in {n_ops} operations of "
+               f"{p_wall:.3f} ms wall (idle {100 * (1 - busy / p_wall):.1f}"
+               f"%); longest: " + "; ".join(
+                   f"{k[:40]} {ms:.3f} ms" for k, ms in split[:4]))
+    print(f"model path ragged prefill: B={PREFILL_B} S={RAGGED_S} (the "
+          f"plain chunked RG-LRU scan, dense attention; 0 rglru_scan and "
+          f"0 flash_attention launches) {wall * 1e3:.3f} ms "
+          f"({ntok / wall:.1f} tokens/s) beside S={PREFILL_S}'s "
+          f"{best_tiled * 1e3:.3f} ms through the kernels; {dev_txt}")
 
 
 def model_exact(dev):
@@ -2770,6 +2832,14 @@ def train_path(dev, measured=None) -> None:
           f"{TRAIN_BUDGET_S} s), {sum(times) / len(times):.3f} s a step "
           f"(best {best:.3f}), {tokens / best:,.1f} tokens/s at the best, "
           f"peak memory {peak:,} bytes, no kernel launched")
+    print(f"train: with each attention query block recomputed in the "
+          f"backward, peak {peak:,} bytes against {TRAIN_PEAK_BEFORE:,} "
+          f"before ({peak / TRAIN_PEAK_BEFORE:.3f}x); step {min(times):.3f}"
+          f"-{max(times):.3f} s against {TRAIN_STEP_BEFORE[0]:.3f}-"
+          f"{TRAIN_STEP_BEFORE[1]:.3f} s before")
+    if peak >= TRAIN_PEAK_BEFORE:
+        fail(f"train: peak {peak:,} bytes, not below the "
+             f"{TRAIN_PEAK_BEFORE:,} of a backward that kept every tile")
     if sum(times) > TRAIN_BUDGET_S:
         fail(f"train: {TRAIN_STEPS} steps took {sum(times):.1f} s, over "
              f"{TRAIN_BUDGET_S} s")
@@ -2820,12 +2890,111 @@ def train_path(dev, measured=None) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def scan_ops(x, a) -> int:
+    """The aten operations one call of the plain RG-LRU scan dispatches
+    on x, a."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import ref
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        ref.rglru_scan_ref(x, a)
+    return Count.n
+
+
+def train_hybrid(dev) -> None:
+    """recurrentgemma-9b trains on the card: its published widths, one
+    superlayer (rg, rg, la), bf16, its config's remat, ``train_step`` on
+    one micro-batch of ``HYBRID_B`` x ``HYBRID_S`` — a warm-up step and
+    one timed.  The training path is the plain one (the chunked RG-LRU
+    scan, ``chunked_attention`` recomputed a query block at a time): no
+    kernel launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import models as MK
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_state, train_step
+    from repro_torch.tree import leaves
+    t_all = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MODEL), n_layers=3,
+                              tail_pattern=())
+    if T.layer_kinds(cfg) != ["rg", "rg", "la"]:
+        fail(f"train hybrid: layer kinds {T.layer_kinds(cfg)}")
+    torch.cuda.empty_cache()
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    width = params["layers"][0]["mixer"]["w_x"].shape[-1]
+    state = init_state(params)
+    del params
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    pipe = SyntheticPipeline(DataConfig(cfg.vocab, HYBRID_S, HYBRID_B),
+                             device=dev)
+    print(f"train hybrid: {cfg.name} {cfg.dtype} at its published widths "
+          f"(d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+          f"{cfg.window}, RG-LRU width {width}), depth cut to "
+          f"{T.layer_kinds(cfg)} (3 of 38 layers), remat "
+          f"{cfg.remat_policy if cfg.remat else 'off'}: {n_params:,} "
+          f"parameters; B={HYBRID_B} x S={HYBRID_S}")
+
+    def step(st):
+        return train_step(cfg, ocfg, 1, st, pipe.batch(int(st.data_step)))
+
+    torch.cuda.synchronize()
+    MK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), warm = _timed(lambda: step(state))
+    (state, m), wall = _timed(lambda: step(state))
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(MK.launches)
+    loss = float(m["loss"])
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((HYBRID_B, HYBRID_S, width), generator=g,
+                    device=dev).to(torch.bfloat16)
+    a = torch.rand((HYBRID_B, HYBRID_S, width), generator=g,
+                   device=dev).to(torch.bfloat16)
+    n_scan = scan_ops(x, a)
+    del state, x, a
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_all
+    print(f"train hybrid: warm-up step {warm:.3f} s, step {wall:.3f} s "
+          f"(loss {loss:.6f}), {HYBRID_B * HYBRID_S / wall:,.1f} tokens/s, "
+          f"peak memory {peak:,} bytes; one RG-LRU scan call "
+          f"[{HYBRID_B}, {HYBRID_S}, {width}] bf16 dispatches {n_scan} aten "
+          f"operations; launches {json.dumps(counts)} (no kernel: the "
+          f"plain training path); {total:.1f} s of wall (budget "
+          f"{HYBRID_BUDGET_S} s)")
+    if loss != loss or not bool(torch.isfinite(m["grad_norm"])):
+        fail(f"train hybrid: loss {loss}, grad_norm {float(m['grad_norm'])}")
+    if sum(counts.values()):
+        fail(f"train hybrid: the training path launched kernels {counts}; "
+             f"it takes use_kernel=False")
+    if n_scan > HYBRID_S // 4:
+        fail(f"train hybrid: one RG-LRU scan call dispatched {n_scan} aten "
+             f"operations at S={HYBRID_S}; the chunked scan takes at most "
+             f"S/4")
+
+
 def phase_train(dev, rows, measured=None) -> None:
     """Phase 12: training on one device — (a) the kernel guard; (b) card
     against CPU: loss and gradients of the ten smoke configs and of
     smollm-360m at full width with 2 layers, one AdamW update, the int8
     MoE wire; (c) ``Trainer``'s bitwise resume on the card; (d)
-    smollm-360m whole in bf16 at S=4096 (``train_path``).  No kernel is
+    smollm-360m whole in bf16 at S=4096 (``train_path``); (e)
+    recurrentgemma-9b at full width, one superlayer, S=4096
+    (``train_hybrid``).  No kernel is
     on this path (the reference's ``loss_fn`` takes ``use_kernel=False``),
     so ``rows`` is not touched."""
     import torch
@@ -2843,6 +3012,7 @@ def phase_train(dev, rows, measured=None) -> None:
     t1 = time.perf_counter()
     train_path(dev, measured)
     print(f"train path {time.perf_counter() - t1:.1f} s")
+    train_hybrid(dev)
     print(f"training phase {time.perf_counter() - t0:.1f} s (budget "
           f"{TRAIN_BUDGET_S} s for the {TRAIN_STEPS} timed steps)")
 

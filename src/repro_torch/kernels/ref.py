@@ -24,6 +24,8 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..nmp.kvstore import walk_chains
 from ..nmp.select import scalar
@@ -261,7 +263,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``repro.kernels.ref.chunked_attention``): one (chunk_q x chunk_k)
     logit tile per (batch, head) at a time, an online softmax over the key
     chunks, GQA folded into the queries so KV is never repeated.  Ragged
-    shapes fall through to ``flash_attention_ref``.  Returns q's dtype."""
+    shapes fall through to ``flash_attention_ref``.  Returns q's dtype.
+
+    Under autograd each query block is recomputed in the backward pass
+    (the reference's ``jax.checkpoint(q_block)``), so the backward keeps
+    each block's queries and no tile; without grad the blocks run
+    directly, the same operations in the same order."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     rep = Hq // Hkv
@@ -273,10 +280,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid = Sk if kv_length is None else kv_length
     q5 = q.reshape(B, Hkv, rep, Sq, D).float()
     kf, vf = k.float(), v.float()
-    outs = []
-    for i in range(Sq // cq):
-        qb = q5[:, :, :, i * cq:(i + 1) * cq]
-        q_pos = i * cq + torch.arange(cq, device=q.device) + (valid - Sq)
+
+    def q_block(qb, q_pos):
         m = torch.full((B, Hkv, rep, cq), NEG_INF, device=q.device)
         l = torch.zeros((B, Hkv, rep, cq), device=q.device)
         acc = torch.zeros((B, Hkv, rep, cq, D), device=q.device)
@@ -303,19 +308,60 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "bhrqk,bhkd->bhrqd", p, vb)
             m = m2
         out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
-        outs.append(out.to(q.dtype))
+        return out.to(q.dtype)
+
+    remat = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    outs = []
+    for i in range(Sq // cq):
+        qb = q5[:, :, :, i * cq:(i + 1) * cq]
+        q_pos = i * cq + torch.arange(cq, device=q.device) + (valid - Sq)
+        if remat:
+            outs.append(checkpoint(q_block, qb, q_pos, use_reentrant=False,
+                                   preserve_rng_state=False))
+        else:
+            outs.append(q_block(qb, q_pos))
     return torch.cat(outs, dim=3).reshape(B, Hq, Sq, D)
+
+
+#: tokens a chunk of the plain RG-LRU scan (``rglru_scan_ref``).
+RGLRU_CHUNK = 64
 
 
 def rglru_scan_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` per channel
     (``repro.kernels.ref.rglru_scan_ref``): x, a [B, S, D] -> h [B, S, D]
-    in x's dtype, the carry in fp32 from zeros."""
+    in x's dtype, the carry in fp32 from zeros.
+
+    In chunks of C = ``min(RGLRU_CHUNK, S)`` tokens, S padded to whole
+    chunks with a = 1 and x = 0: the recurrence runs over a chunk's C
+    positions from a zero carry, for all chunks at once, beside the
+    decays ``P_t = a_1 ... a_t`` from the chunk's start (``cumprod``);
+    then one ``addcmul`` a chunk carries the state across chunks,
+    ``c_{n+1} = P_C c_n + h_C``, and ``h_t = h_local_t + P_t c_n``.  A
+    decay is only ever a product along the chunk, never an exponential
+    of summed logs nor a quotient of two products: a may be exactly 0.
+    Autograd differentiates the whole scan; no loop runs over the
+    tokens."""
+    B, S, D = x.shape
+    C = min(RGLRU_CHUNK, S)
+    N = -(-S // C)
     af = a.float()
     gx = torch.sqrt(torch.clamp(1.0 - af ** 2, min=0.0)) * x.float()
-    h = torch.zeros_like(gx[:, 0])
-    hs = []
-    for t in range(x.shape[1]):
-        h = af[:, t] * h + gx[:, t]
-        hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype)
+    af = F.pad(af, (0, 0, 0, N * C - S), value=1.0).view(B, N, C, D)
+    gx = F.pad(gx, (0, 0, 0, N * C - S)).view(B, N, C, D)
+    h = gx[:, :, 0]
+    local = [h]
+    for at, gt in zip(af.unbind(2)[1:], gx.unbind(2)[1:]):
+        h = torch.addcmul(gt, at, h)
+        local.append(h)
+    local = torch.stack(local, 2)                       # [B, N, C, D]
+    decay = torch.cumprod(af, dim=2)
+    carry = torch.zeros_like(h[:, 0])
+    starts = [carry]
+    for dec, end in zip(decay[:, :-1, -1].unbind(1),
+                        local[:, :-1, -1].unbind(1)):
+        carry = torch.addcmul(end, dec, carry)
+        starts.append(carry)
+    h = torch.addcmul(local, decay, torch.stack(starts, 1)[:, :, None])
+    return h.reshape(B, N * C, D)[:, :S].to(x.dtype)

@@ -8,7 +8,13 @@ version: ``flash_attention_ref``, ``chunked_attention`` (with and without
 ``kv_length``) and ``rglru_scan_ref``, then ``ops.attention`` and
 ``ops.rglru`` with the reference's routing.  Tolerances are those of
 ``tests/test_kernels.py``: 2e-5 (attention) and 3e-5 (RG-LRU) in fp32,
-2e-2 and 3e-2 in bf16.  The CUDA kernels themselves are held against
+2e-2 and 3e-2 in bf16.  The training path's side of the two twins:
+``chunked_attention`` recomputes each query block in the backward (the
+bytes it saves, its output under grad bit for bit, its gradients
+against ``jax.grad``), and ``rglru_scan_ref`` scans in chunks with no
+loop over the tokens (across chunk edges, with gates at and near 0 and
+near 1, its gradients, its aten operations a call), gradients at 1e-5
+abs / 1e-4 rel.  The CUDA kernels themselves are held against
 their plain versions on the card in ``tests/test_torch_gpu.py``.
 """
 import ast
@@ -117,6 +123,155 @@ def test_rglru_scan_ref_equals_reference(B, S, D, dtype):
     got = tref.rglru_scan_ref(tx, torch.as_tensor(a).to(td))
     assert got.dtype == td
     _close(got, want, RGLRU_TOL[dtype])
+
+
+# -- the training path: each query block recomputed, the scan in chunks -----
+
+#: gradients against ``jax.grad`` (``tests/test_torch_train.py``'s).
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
+#: the bytes one ``chunked_attention`` call may keep for its backward at
+#: B=1, 4 query heads over 2 kv heads, S=4096, D=64, fp32: its inputs
+#: (8.4 MB) and a few blocks' worth; a call that kept every tile saved
+#: 895.3 MB.
+SAVED_BOUND = 32e6
+
+
+def test_chunked_attention_saves_no_tile():
+    """The bytes of the tensors autograd saves for the backward."""
+    rng = np.random.default_rng(SEED)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+               .requires_grad_(True)
+               for s in ((1, 4, 4096, 64), (1, 2, 4096, 64), (1, 2, 4096, 64)))
+    seen = []
+
+    def pack(t):
+        seen.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = tref.chunked_attention(q, k, v)
+    assert 0 < sum(seen) <= SAVED_BOUND, sum(seen)
+    out.sum().backward()
+    assert all(bool(t.grad.isfinite().all()) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kv_length", [None, 70])
+def test_chunked_attention_under_grad_is_bit_identical(dtype, kv_length):
+    """The recomputed blocks run the operations of the direct ones: the
+    output under grad equals the ``no_grad`` output bit for bit."""
+    (_, tq), (_, tk), (_, tv) = _qkv((1, 4, 2, 64, 128, 16), dtype)
+    kw = dict(window=48, softcap=20.0, kv_length=kv_length, chunk_q=16,
+              chunk_k=32)
+    with torch.no_grad():
+        want = tref.chunked_attention(tq, tk, tv, **kw)
+    q = tq.clone().requires_grad_(True)
+    got = tref.chunked_attention(q, tk, tv, **kw)
+    assert got.requires_grad
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kv_length", [None, 37, 96])
+@pytest.mark.parametrize("case", [
+    (1, 4, 2, 64, 128, 16, True, None, None),    # causal, GQA
+    (2, 2, 1, 32, 128, 32, True, 48, 50.0),      # window, softcap, MQA
+    (1, 2, 2, 64, 64, 16, False, None, None),    # bidirectional
+    (1, 4, 1, 1, 96, 32, True, None, None),      # decode over a cache
+])
+def test_chunked_attention_grads_equal_reference(case, kv_length):
+    """Gradients of q, k and v through several query and key blocks
+    against ``jax.grad`` of the reference, on one random cotangent."""
+    import jax
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(case, "float32")
+    causal, window, cap = case[6:]
+    kw = dict(causal=causal, window=window, softcap=cap, chunk_q=16,
+              chunk_k=32)
+    rng = np.random.default_rng(SEED + 1)
+    ct = rng.standard_normal(tuple(jq.shape)).astype(np.float32)
+    jkv = None if kv_length is None else jnp.asarray(kv_length, jnp.int32)
+    want = jax.grad(lambda q, k, v: jnp.sum(jref.chunked_attention(
+        q, k, v, kv_length=jkv, **kw) * ct), argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (t.clone().requires_grad_(True) for t in (tq, tk, tv))
+    out = tref.chunked_attention(tq, tk, tv, kv_length=kv_length, **kw)
+    (out * torch.as_tensor(ct)).sum().backward()
+    for got, w in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w),
+                                   atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def _decays(rng, shape, kind):
+    """RG-LRU gates: uniform in (0, 1), near 0 with some exactly 0, near
+    1, or all three across the channels."""
+    u = rng.random(shape).astype(np.float32)
+    if kind == "near zero":
+        return np.where(u < 0.25, 0.0, 1e-2 * u).astype(np.float32)
+    if kind == "near one":
+        return (1 - 1e-3 * u).astype(np.float32)
+    a = rng.random(shape).astype(np.float32)
+    third = shape[-1] // 3
+    a[..., :third] = np.where(u[..., :third] < 0.25, 0.0,
+                              1e-2 * u[..., :third])
+    a[..., third:2 * third] = 1 - 1e-3 * u[..., third:2 * third]
+    return a
+
+
+RGLRU_SEQS = [1, tref.RGLRU_CHUNK - 1, tref.RGLRU_CHUNK,
+              tref.RGLRU_CHUNK + 1, 1000, 4096]
+
+
+@pytest.mark.parametrize("S", RGLRU_SEQS)
+@pytest.mark.parametrize("decay", ["near zero", "near one", "mixed"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rglru_scan_ref_chunks_equal_reference(S, decay, dtype):
+    """The chunked scan against the reference's ``lax.scan`` across the
+    chunk edges, with gates that wipe the state (a = 0) and that keep it
+    for thousands of tokens."""
+    rng = np.random.default_rng(SEED + S)
+    jx, tx = _pair(rng, (2, S, 24), dtype)
+    a = _decays(rng, (2, S, 24), decay)
+    jd, td = DTYPES[dtype]
+    want = jref.rglru_scan_ref(jx, jnp.asarray(a, jd))
+    got = tref.rglru_scan_ref(tx, torch.as_tensor(a).to(td))
+    assert got.dtype == td and got.shape == tx.shape
+    _close(got, want, RGLRU_TOL[dtype])
+
+
+@pytest.mark.parametrize("S", [1, tref.RGLRU_CHUNK + 1, 300])
+def test_rglru_scan_ref_grads_equal_reference(S):
+    """Gradients of x and a against ``jax.grad`` of the reference, a in
+    (0, 0.9999): d/da sqrt(1 - a^2) is infinite at a = 1 in both."""
+    import jax
+    rng = np.random.default_rng(SEED + S)
+    x = rng.standard_normal((2, S, 16)).astype(np.float32)
+    a = (1e-4 + (0.9999 - 2e-4) * rng.random((2, S, 16))).astype(np.float32)
+    ct = rng.standard_normal((2, S, 16)).astype(np.float32)
+    want = jax.grad(lambda x, a: jnp.sum(jref.rglru_scan_ref(x, a) * ct),
+                    argnums=(0, 1))(jnp.asarray(x), jnp.asarray(a))
+    tx, ta = (torch.as_tensor(t).requires_grad_(True) for t in (x, a))
+    (tref.rglru_scan_ref(tx, ta) * torch.as_tensor(ct)).sum().backward()
+    for got, w in zip((tx, ta), want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w),
+                                   atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("S", [4096, 32768])
+def test_rglru_scan_ref_has_no_token_loop(S):
+    """At most S / 4 aten operations a call (a loop over the tokens
+    dispatched about 4 a token)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    x = torch.randn((1, S, 8))
+    a = torch.rand((1, S, 8))
+    with Count():
+        tref.rglru_scan_ref(x, a)
+    assert 0 < Count.n <= S // 4, Count.n
 
 
 # -- ops against the Pallas kernels (interpret mode) ------------------------

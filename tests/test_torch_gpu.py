@@ -1169,6 +1169,79 @@ def test_rglru_scan_kernel_unaligned(cuda, dtype):
         rtol=tol)
 
 
+#: the training path's plain twins, card against CPU in fp32: values at
+#: the kernels' fp32 tolerances, gradients at the CPU tests'
+#: (``tests/test_torch_train.py``).
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
+
+
+def _grads_on(device, fn, inputs, ct):
+    """(fn's output on ``device``, the gradients of <out, ct> in the
+    inputs), both back on the CPU."""
+    xs = [t.detach().to(device).requires_grad_(True) for t in inputs]
+    out = fn(*xs)
+    (out * ct.to(device)).sum().backward()
+    return out.detach().cpu(), [t.grad.cpu() for t in xs]
+
+
+@pytest.mark.parametrize("S", [1000, 4096])
+def test_chunked_rglru_twin_on_card_equals_cpu(cuda, S):
+    rng = np.random.default_rng(SEED + S)
+    x = _normal(rng, (2, S, 64), torch.float32)
+    a = torch.as_tensor((1e-4 + 0.9998 * rng.random((2, S, 64))).astype(
+        np.float32))
+    a[:, ::7, :8] = 0.0                       # the state wiped
+    ct = _normal(rng, (2, S, 64), torch.float32)
+    want, gw = _grads_on("cpu", ref.rglru_scan_ref, (x, a), ct)
+    got, gg = _grads_on(cuda, ref.rglru_scan_ref, (x, a), ct)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+    for g, w in zip(gg, gw):
+        torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("kv_length", [None, 100])
+def test_chunked_attention_grads_on_card_equal_cpu(cuda, kv_length):
+    """Each query block recomputed in the backward, on the card as on the
+    CPU (TF32 off, as the training checks run)."""
+    rng = np.random.default_rng(SEED)
+    q, k, v, ct = (_normal(rng, s, torch.float32) for s in (
+        (2, 4, 128, 32), (2, 2, 128, 32), (2, 2, 128, 32), (2, 4, 128, 32)))
+    kw = dict(window=48, softcap=30.0, kv_length=kv_length, chunk_q=32,
+              chunk_k=64)
+
+    def attn(q, k, v):
+        return ref.chunked_attention(q, k, v, **kw)
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, gw = _grads_on("cpu", attn, (q, k, v), ct)
+        got, gg = _grads_on(cuda, attn, (q, k, v), ct)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    for g, w in zip(gg, gw):
+        torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def test_chunked_attention_saves_no_tile_on_card(cuda):
+    """At B=1, 4 query heads over 2 kv heads, S=4096, D=64, fp32 the
+    backward keeps at most 32 MB (every tile kept: 895.3 MB)."""
+    q, k, v = (torch.randn(s, device=cuda, requires_grad=True) for s in (
+        (1, 4, 4096, 64), (1, 2, 4096, 64), (1, 2, 4096, 64)))
+    seen = []
+
+    def pack(t):
+        seen.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = ref.chunked_attention(q, k, v)
+    assert 0 < sum(seen) <= 32e6, sum(seen)
+    out.sum().backward()
+    assert all(bool(t.grad.isfinite().all()) for t in (q, k, v))
+
+
 def test_model_kernels_refuse_wrong_inputs(cuda):
     q = torch.zeros((1, 2, 64, 32), device=cuda)
     with pytest.raises(TypeError):

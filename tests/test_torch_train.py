@@ -191,6 +191,22 @@ def test_remat_gives_the_same_gradients(arch, policy):
         torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
 
 
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-9b"])
+def test_remat_over_query_blocks_equals_reference(arch, policy):
+    """Remat of each superlayer around ``chunked_attention``'s own remat of
+    each query block: at S=1024 attention runs two query blocks (and
+    recurrentgemma's scan 16 chunks); the loss and every gradient leaf
+    against the reference's with the same remat policy."""
+    jcfg, tcfg, jp, tp, mb = _setup(arch, batch=1, seq=1024)
+    jcfg = dataclasses.replace(jcfg, remat=True, remat_policy=policy)
+    tcfg = dataclasses.replace(tcfg, remat=True, remat_policy=policy)
+    (jl, _), jg = _j_value_and_grad(jcfg, jp, _j(mb))
+    tl, _, tg = _value_and_grad(tcfg, tp, _t(mb))
+    assert abs(float(tl) - float(jl)) <= LOSS_TOL
+    _assert_trees_close(convert.model_params_to_numpy(tg, tcfg), _np(jg))
+
+
 def test_remat_unknown_policy_raises():
     _, tcfg, _, tp, mb = _setup("smollm-360m")
     bad = dataclasses.replace(tcfg, remat=True, remat_policy="offload")
