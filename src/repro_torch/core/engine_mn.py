@@ -64,6 +64,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import coherency_step as K
+from ..spans import span
 from . import agent as ag
 from . import directory_mn as dmn
 from . import transport as tp
@@ -513,269 +514,275 @@ def step_folded(tables: TorchTables, st: EngineMNState, op: torch.Tensor,
     vc4 = c.vc4 if emul is None or emul.vc4 is None else emul.vc4
     dly_req, dly_resp, dly_hreq, dly_hresp = delays[vc4]
 
-    # accumulate new home-side wants.
-    want_read = st.want_read | want_read
-    want_write = st.want_write | want_write
-    wv = torch.where((want_write & ~st.want_write)[..., None], wval,
-                     st.want_wval)
+    with span("engine.deliver"):
+        # accumulate new home-side wants.
+        want_read = st.want_read | want_read
+        want_write = st.want_write | want_write
+        wv = torch.where((want_write & ~st.want_write)[..., None], wval,
+                         st.want_wval)
 
-    # ---- 1. time advances on all channels --------------------------------
-    ch_req, ch_resp = tp.tick(st.ch_req), tp.tick(st.ch_resp)
-    ch_hreq, ch_hresp = tp.tick(st.ch_hreq), tp.tick(st.ch_hresp)
+        # ---- 1. time advances on all channels ----------------------------
+        ch_req, ch_resp = tp.tick(st.ch_req), tp.tick(st.ch_resp)
+        ch_hreq, ch_hresp = tp.tick(st.ch_hreq), tp.tick(st.ch_hresp)
 
-    # ---- 2. downgrade replies arrive at the home -------------------------
-    ch_hresp_in = ch_hresp
-    ch_hresp, hr_arr = tp.deliver(ch_hresp, tp.CLASS_REMOTE_RESP, delays,
-                                  delay_l=dly_hresp)
-    if packed:
-        # plane 0 of the packed MSHR mask is "HOME_DOWNGRADE_S pending";
-        # a reply arrives only for a sent (= pending) downgrade, so the
-        # bit IS the reply's kind wherever absorb reads it.
-        rep_kind = torch.where(
-            dmn.unpack_mask(st.hreq_pending[..., 0, :, :], R), c.reply_s,
-            c.reply_i)
-    else:
-        rep_kind = torch.where(
-            st.hreq_pending == int(MsgType.HOME_DOWNGRADE_S), c.reply_s,
-            c.reply_i)
-    dstate = dmn.absorb(tables, st.dir, hr_arr, rep_kind, ch_hresp_in.dirty,
-                        ch_hresp_in.payload)
-    if packed:
-        hreq_pending = st.hreq_pending & \
-            ~dmn.pack_mask(hr_arr)[..., None, :, :]
-    else:
-        hreq_pending = st.hreq_pending.masked_fill(hr_arr, _NOP)
-    msg_count, payload_msgs = _count(msg_count, payload_msgs, hr_arr,
-                                     ch_hresp_in.msg, ch_hresp_in.dirty)
+        # ---- 2. downgrade replies arrive at the home ---------------------
+        ch_hresp_in = ch_hresp
+        ch_hresp, hr_arr = tp.deliver(ch_hresp, tp.CLASS_REMOTE_RESP, delays,
+                                      delay_l=dly_hresp)
+        if packed:
+            # plane 0 of the packed MSHR mask is "HOME_DOWNGRADE_S pending";
+            # a reply arrives only for a sent (= pending) downgrade, so the
+            # bit IS the reply's kind wherever absorb reads it.
+            rep_kind = torch.where(
+                dmn.unpack_mask(st.hreq_pending[..., 0, :, :], R), c.reply_s,
+                c.reply_i)
+        else:
+            rep_kind = torch.where(
+                st.hreq_pending == int(MsgType.HOME_DOWNGRADE_S), c.reply_s,
+                c.reply_i)
+        dstate = dmn.absorb(tables, st.dir, hr_arr, rep_kind,
+                            ch_hresp_in.dirty, ch_hresp_in.payload)
+        if packed:
+            hreq_pending = st.hreq_pending & \
+                ~dmn.pack_mask(hr_arr)[..., None, :, :]
+        else:
+            hreq_pending = st.hreq_pending.masked_fill(hr_arr, _NOP)
+        msg_count, payload_msgs = _count(msg_count, payload_msgs, hr_arr,
+                                         ch_hresp_in.msg, ch_hresp_in.dirty)
 
-    # ---- 3. voluntary downgrades arrive at the home ----------------------
-    ready_req = _ready(ch_req, dly_req)
-    is_vol = (ch_req.msg == _VOL_I) | (ch_req.msg == _VOL_S)
-    pop_vol = ready_req & is_vol
-    dstate = dmn.absorb(tables, dstate, pop_vol, c.vol_kind, ch_req.dirty,
-                        ch_req.payload)
-    msg_count, payload_msgs = _count(msg_count, payload_msgs, pop_vol,
-                                     ch_req.msg, ch_req.dirty)
-    # observability site 2: voluntary downgrades as absorbed (pre-pop).
-    vol_msg, vol_dirty = ch_req.msg, ch_req.dirty
+        # ---- 3. voluntary downgrades arrive at the home ------------------
+        ready_req = _ready(ch_req, dly_req)
+        is_vol = (ch_req.msg == _VOL_I) | (ch_req.msg == _VOL_S)
+        pop_vol = ready_req & is_vol
+        dstate = dmn.absorb(tables, dstate, pop_vol, c.vol_kind, ch_req.dirty,
+                            ch_req.payload)
+        msg_count, payload_msgs = _count(msg_count, payload_msgs, pop_vol,
+                                         ch_req.msg, ch_req.dirty)
+        # observability site 2: voluntary downgrades as absorbed (pre-pop).
+        vol_msg, vol_dirty = ch_req.msg, ch_req.dirty
 
-    # ---- 4. arbitration: remotes AND the home compete per free line ------
-    req_ready = ready_req & ~is_vol
-    # a line is free for a new transaction only when no downgrade round
-    # trip is outstanding AND no grant response is still in flight.
-    resp_in_flight = tp.any_in_flight(ch_resp)
-    if packed:
-        # the pending words before phase 5's update: phases 4 and 5 read
-        # them, so they are ORed once.
-        pend_w = _pend_or(hreq_pending)
-        pend_any = dmn.any_bits(pend_w)
-    else:
-        pend_any = (hreq_pending != _NOP).any(dim=-2)
-    line_free = (st.txn_msg == _NOP) & ~pend_any & ~resp_in_flight
-    home_ready = want_read | want_write
-    any_req = req_ready.any(dim=-2) | home_ready
-    # rotating priority: participant p ranks (p - arb_rr) mod (R+1); the
-    # pointer advances past each winner, a bounded wait for every
-    # participant (the home is participant R).
-    ready_all = torch.cat([req_ready, home_ready[..., None, :]], dim=-2)
-    winner = K.arb_winner(ready_all, st.arb_rr)
-    accept_line = any_req & line_free
-    if emul is not None and emul.cap is not None:
-        # the emulated homes' acceptance cap: each home keeps its first
-        # ``home_bw_t`` accepted lines in the folded plane's rotating
-        # order (``_emul_rank``).
-        accept_line = accept_line & \
-            (_emul_rank(emul, accept_line, st.step_no) < emul.cap)
-    elif home_bw:
-        # each home parks at most ``home_bw`` NEW transactions per step
-        # (in-flight ones proceed); the priority order's origin line
-        # rotates every step, so a saturated low range cannot starve the
-        # tail.  Rank = accepted lines before this one in rotated order.
-        off = st.step_no % L
-        rolled = accept_line.index_select(-1, (c.lines + off) % L) \
-            .to(torch.int32)
-        rank = (torch.cumsum(rolled, -1, dtype=torch.int32) - rolled) \
-            .index_select(-1, (c.lines - off) % L)
-        accept_line = accept_line & (rank < home_bw)
-    home_win = accept_line & (winner == R)
-    arb_rr = torch.where(accept_line, (winner + 1) % (R + 1), st.arb_rr)
-    win_node = torch.clamp(winner, max=R - 1)
-    win_msg = dmn._take_remote(ch_req.msg, win_node).masked_fill(home_win,
-                                                                  HOME_TXN)
-    pop_req = (accept_line & ~home_win)[..., None, :] & \
-        (rids[:, None] == winner[..., None, :])
-    ch_req = _pop(ch_req, pop_vol | (pop_req & req_ready))
-    txn_msg = torch.where(accept_line, win_msg, st.txn_msg)
-    txn_node = torch.where(accept_line, winner, st.txn_node)
-    msg_count, payload_msgs = _count(msg_count, payload_msgs,
-                                     accept_line & ~home_win, win_msg,
-                                     c.zero_l)
+    with span("engine.arbitrate"):
+        # ---- 4. arbitration: remotes AND the home compete per free line --
+        req_ready = ready_req & ~is_vol
+        # a line is free for a new transaction only when no downgrade round
+        # trip is outstanding AND no grant response is still in flight.
+        resp_in_flight = tp.any_in_flight(ch_resp)
+        if packed:
+            # the pending words before phase 5's update: phases 4 and 5 read
+            # them, so they are ORed once.
+            pend_w = _pend_or(hreq_pending)
+            pend_any = dmn.any_bits(pend_w)
+        else:
+            pend_any = (hreq_pending != _NOP).any(dim=-2)
+        line_free = (st.txn_msg == _NOP) & ~pend_any & ~resp_in_flight
+        home_ready = want_read | want_write
+        any_req = req_ready.any(dim=-2) | home_ready
+        # rotating priority: participant p ranks (p - arb_rr) mod (R+1); the
+        # pointer advances past each winner, a bounded wait for every
+        # participant (the home is participant R).
+        ready_all = torch.cat([req_ready, home_ready[..., None, :]], dim=-2)
+        winner = K.arb_winner(ready_all, st.arb_rr)
+        accept_line = any_req & line_free
+        if emul is not None and emul.cap is not None:
+            # the emulated homes' acceptance cap: each home keeps its first
+            # ``home_bw_t`` accepted lines in the folded plane's rotating
+            # order (``_emul_rank``).
+            accept_line = accept_line & \
+                (_emul_rank(emul, accept_line, st.step_no) < emul.cap)
+        elif home_bw:
+            # each home parks at most ``home_bw`` NEW transactions per step
+            # (in-flight ones proceed); the priority order's origin line
+            # rotates every step, so a saturated low range cannot starve the
+            # tail.  Rank = accepted lines before this one in rotated order.
+            off = st.step_no % L
+            rolled = accept_line.index_select(-1, (c.lines + off) % L) \
+                .to(torch.int32)
+            rank = (torch.cumsum(rolled, -1, dtype=torch.int32) - rolled) \
+                .index_select(-1, (c.lines - off) % L)
+            accept_line = accept_line & (rank < home_bw)
+        home_win = accept_line & (winner == R)
+        arb_rr = torch.where(accept_line, (winner + 1) % (R + 1), st.arb_rr)
+        win_node = torch.clamp(winner, max=R - 1)
+        win_msg = dmn._take_remote(ch_req.msg, win_node).masked_fill(home_win,
+                                                                      HOME_TXN)
+        pop_req = (accept_line & ~home_win)[..., None, :] & \
+            (rids[:, None] == winner[..., None, :])
+        ch_req = _pop(ch_req, pop_vol | (pop_req & req_ready))
+        txn_msg = torch.where(accept_line, win_msg, st.txn_msg)
+        txn_node = torch.where(accept_line, winner, st.txn_node)
+        msg_count, payload_msgs = _count(msg_count, payload_msgs,
+                                         accept_line & ~home_win, win_msg,
+                                         c.zero_l)
 
-    # ---- 5. fan-out: emit one HOME_DOWNGRADE_* per conflicting sharer ----
-    active_txn = txn_msg != _NOP
-    is_home_txn = txn_msg == HOME_TXN
-    node_c = torch.clamp(txn_node, max=R - 1)
-    # an UPGRADE whose requester was concurrently invalidated is doomed to
-    # a NACK — suppress its fan-out so the new owner keeps the line.
-    req_view_now = dmn.view_of(dstate, node_c)
-    doomed = active_txn & (txn_msg == int(MsgType.REQ_UPGRADE)) & \
-        (req_view_now != int(RemoteView.S))
-    if packed:
-        # recall (HD_S) / invalidate (HD_I) targets as word planes, then
-        # widened to the dense [R, L] lane mask the transport submit
-        # takes.  One launch gives the remote requests' planes and, on a
-        # parked HOME transaction's lines (left out of the active mask),
-        # the home side's.  The planes are disjoint per line, so the
-        # HD_S-first combine matches the dense expression.
-        need_s_w, need_i_w = dmn.needed_words(
-            dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c,
-            home_read=want_read & is_home_txn,
-            home_write=want_write & is_home_txn)
-        needed = (dmn.unpack_mask(need_i_w, R).to(torch.int8)
-                  * int(MsgType.HOME_DOWNGRADE_I)).masked_fill(
-            dmn.unpack_mask(need_s_w, R), int(MsgType.HOME_DOWNGRADE_S))
-        send_h = (needed != _NOP) & ~dmn.unpack_mask(pend_w, R)
-    else:
-        needed_r = dmn.needed_downgrades(
-            dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c,
-            rids)
-        # a parked HOME transaction fans out through the SAME machinery.
-        needed_h = dmn.home_needed_downgrades(
-            dstate, want_read & is_home_txn, want_write & is_home_txn)
-        needed = torch.where(is_home_txn[..., None, :], needed_h, needed_r)
-        send_h = (needed != _NOP) & (hreq_pending == _NOP)
-    # home downgrades carry no data: a zero payload, broadcast (a 0-dim
-    # tensor takes the channel's dtype under type promotion).
-    ch_hreq, acc_h = tp.submit(ch_hreq, tp.CLASS_HOME_REQ, send_h, needed,
-                               c.zero_rl, c.zero_f, credits,
-                               shared=hreq_shared)
-    if packed:
-        # acc_h lies inside send_h, so on pending-free lanes, and each
-        # accepted lane sits in exactly one plane: OR-in is the store.
-        acc_w = dmn.pack_mask(acc_h)
-        hreq_pending = torch.stack(
-            [hreq_pending[..., 0, :, :] | (acc_w & need_s_w),
-             hreq_pending[..., 1, :, :] | (acc_w & need_i_w)], dim=-3)
-    else:
-        hreq_pending = torch.where(acc_h, needed, hreq_pending)
+    with span("engine.fanout"):
+        # ---- 5. fan-out: emit one HOME_DOWNGRADE_* per conflicting sharer
+        active_txn = txn_msg != _NOP
+        is_home_txn = txn_msg == HOME_TXN
+        node_c = torch.clamp(txn_node, max=R - 1)
+        # an UPGRADE whose requester was concurrently invalidated is doomed to
+        # a NACK — suppress its fan-out so the new owner keeps the line.
+        req_view_now = dmn.view_of(dstate, node_c)
+        doomed = active_txn & (txn_msg == int(MsgType.REQ_UPGRADE)) & \
+            (req_view_now != int(RemoteView.S))
+        if packed:
+            # recall (HD_S) / invalidate (HD_I) targets as word planes, then
+            # widened to the dense [R, L] lane mask the transport submit
+            # takes.  One launch gives the remote requests' planes and, on a
+            # parked HOME transaction's lines (left out of the active mask),
+            # the home side's.  The planes are disjoint per line, so the
+            # HD_S-first combine matches the dense expression.
+            need_s_w, need_i_w = dmn.needed_words(
+                dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c,
+                home_read=want_read & is_home_txn,
+                home_write=want_write & is_home_txn)
+            needed = (dmn.unpack_mask(need_i_w, R).to(torch.int8)
+                      * int(MsgType.HOME_DOWNGRADE_I)).masked_fill(
+                dmn.unpack_mask(need_s_w, R), int(MsgType.HOME_DOWNGRADE_S))
+            send_h = (needed != _NOP) & ~dmn.unpack_mask(pend_w, R)
+        else:
+            needed_r = dmn.needed_downgrades(
+                dstate, active_txn & ~doomed & ~is_home_txn, txn_msg, node_c,
+                rids)
+            # a parked HOME transaction fans out through the SAME machinery.
+            needed_h = dmn.home_needed_downgrades(
+                dstate, want_read & is_home_txn, want_write & is_home_txn)
+            needed = torch.where(is_home_txn[..., None, :], needed_h, needed_r)
+            send_h = (needed != _NOP) & (hreq_pending == _NOP)
+        # home downgrades carry no data: a zero payload, broadcast (a 0-dim
+        # tensor takes the channel's dtype under type promotion).
+        ch_hreq, acc_h = tp.submit(ch_hreq, tp.CLASS_HOME_REQ, send_h, needed,
+                                   c.zero_rl, c.zero_f, credits,
+                                   shared=hreq_shared)
+        if packed:
+            # acc_h lies inside send_h, so on pending-free lanes, and each
+            # accepted lane sits in exactly one plane: OR-in is the store.
+            acc_w = dmn.pack_mask(acc_h)
+            hreq_pending = torch.stack(
+                [hreq_pending[..., 0, :, :] | (acc_w & need_s_w),
+                 hreq_pending[..., 1, :, :] | (acc_w & need_i_w)], dim=-3)
+        else:
+            hreq_pending = torch.where(acc_h, needed, hreq_pending)
 
-    # ---- 6. grant parked requests whose preconditions now hold -----------
-    in_flight_vol = ((ch_req.msg == _VOL_I) | (ch_req.msg == _VOL_S)
-                     ).any(dim=-2)
-    in_flight_h = tp.any_in_flight(ch_hreq) | tp.any_in_flight(ch_hresp)
-    # `needed` must be EMPTY, not merely pending-free: a fan-out refused
-    # for credit leaves the sharer's view intact.
-    if packed:
-        # one launch over the fan-out planes and the updated pending
-        # planes, read where they lie: any(x) | any(y) == any(x | y).
-        complete = active_txn & ~dmn.any_bits(
-            need_s_w, need_i_w, hreq_pending[..., 0, :, :],
-            hreq_pending[..., 1, :, :]) & ~in_flight_vol & ~in_flight_h
-    else:
-        complete = active_txn & ~(needed != _NOP).any(dim=-2) & \
-            ~(hreq_pending != _NOP).any(dim=-2) & ~in_flight_vol & \
-            ~in_flight_h
-    complete_r = complete & ~is_home_txn
-    dstate, resp, resp_pay = dmn.grant(tables, dstate, complete_r, txn_msg,
-                                       node_c, rids)
-    # a completed HOME transaction services the access in place.
-    complete_h = complete & is_home_txn
-    hread_done = complete_h & want_read
-    hread_val = dmn.home_value(dstate).masked_fill(
-        ~hread_done[..., None], 0)
-    dstate = dmn.home_apply_write(dstate, complete_h & want_write, wv)
-    want_read2 = want_read & ~complete_h
-    want_write2 = want_write & ~complete_h
-    txn_msg = txn_msg.masked_fill(complete, _NOP)
-    send_resp = (rids[:, None] == txn_node[..., None, :]) & \
-        (resp != _NOP)[..., None, :]
-    ch_resp, _ = tp.submit(ch_resp, tp.CLASS_HOME_RESP, send_resp,
-                           resp[..., None, :], c.zero_rl,
-                           resp_pay[..., None, :, :], credits,
-                           unbounded=True)
-    carries = (resp == int(MsgType.RESP_DATA)) | \
-        (resp == int(MsgType.RESP_DATA_DIRTY))
-    msg_count, payload_msgs = _count(msg_count, payload_msgs, resp != _NOP,
-                                     resp, carries)
+    with span("engine.grant"):
+        # ---- 6. grant parked requests whose preconditions now hold -------
+        in_flight_vol = ((ch_req.msg == _VOL_I) | (ch_req.msg == _VOL_S)
+                         ).any(dim=-2)
+        in_flight_h = tp.any_in_flight(ch_hreq) | tp.any_in_flight(ch_hresp)
+        # `needed` must be EMPTY, not merely pending-free: a fan-out refused
+        # for credit leaves the sharer's view intact.
+        if packed:
+            # one launch over the fan-out planes and the updated pending
+            # planes, read where they lie: any(x) | any(y) == any(x | y).
+            complete = active_txn & ~dmn.any_bits(
+                need_s_w, need_i_w, hreq_pending[..., 0, :, :],
+                hreq_pending[..., 1, :, :]) & ~in_flight_vol & ~in_flight_h
+        else:
+            complete = active_txn & ~(needed != _NOP).any(dim=-2) & \
+                ~(hreq_pending != _NOP).any(dim=-2) & ~in_flight_vol & \
+                ~in_flight_h
+        complete_r = complete & ~is_home_txn
+        dstate, resp, resp_pay = dmn.grant(tables, dstate, complete_r, txn_msg,
+                                           node_c, rids)
+        # a completed HOME transaction services the access in place.
+        complete_h = complete & is_home_txn
+        hread_done = complete_h & want_read
+        hread_val = dmn.home_value(dstate).masked_fill(
+            ~hread_done[..., None], 0)
+        dstate = dmn.home_apply_write(dstate, complete_h & want_write, wv)
+        want_read2 = want_read & ~complete_h
+        want_write2 = want_write & ~complete_h
+        txn_msg = txn_msg.masked_fill(complete, _NOP)
+        send_resp = (rids[:, None] == txn_node[..., None, :]) & \
+            (resp != _NOP)[..., None, :]
+        ch_resp, _ = tp.submit(ch_resp, tp.CLASS_HOME_RESP, send_resp,
+                               resp[..., None, :], c.zero_rl,
+                               resp_pay[..., None, :, :], credits,
+                               unbounded=True)
+        carries = (resp == int(MsgType.RESP_DATA)) | \
+            (resp == int(MsgType.RESP_DATA_DIRTY))
+        msg_count, payload_msgs = _count(msg_count, payload_msgs, resp != _NOP,
+                                         resp, carries)
 
-    # ---- 7. grant responses arrive at the remotes ------------------------
-    ch_resp_in = ch_resp
-    ch_resp, r_arr = tp.deliver(ch_resp, tp.CLASS_HOME_RESP, delays,
-                                delay_l=dly_resp)
-    was_load = st.agents.pending_op == int(LocalOp.LOAD)
-    agents, nack = ag.on_response(tables, st.agents, r_arr, ch_resp_in.msg,
-                                  ch_resp_in.payload, nack_holds=True)
-    load_done = r_arr & was_load & ~nack
-    load_val = agents.cache.masked_fill(~load_done[..., None], 0)
+    with span("engine.respond"):
+        # ---- 7. grant responses arrive at the remotes --------------------
+        ch_resp_in = ch_resp
+        ch_resp, r_arr = tp.deliver(ch_resp, tp.CLASS_HOME_RESP, delays,
+                                    delay_l=dly_resp)
+        was_load = st.agents.pending_op == int(LocalOp.LOAD)
+        agents, nack = ag.on_response(tables, st.agents, r_arr, ch_resp_in.msg,
+                                      ch_resp_in.payload, nack_holds=True)
+        load_done = r_arr & was_load & ~nack
+        load_val = agents.cache.masked_fill(~load_done[..., None], 0)
 
-    # ---- 8. home-initiated downgrades arrive at the remotes --------------
-    ch_hreq_in = ch_hreq
-    ch_hreq, h_arr = tp.deliver(ch_hreq, tp.CLASS_HOME_REQ, delays,
-                                delay_l=dly_hreq)
-    agents, hresp, hresp_dirty, hresp_pay = ag.on_home_msg(
-        tables, agents, h_arr, ch_hreq_in.msg)
-    msg_count, payload_msgs = _count(msg_count, payload_msgs, h_arr,
-                                     ch_hreq_in.msg, c.zero_rl)
-    ch_hresp, _ = tp.submit(ch_hresp, tp.CLASS_REMOTE_RESP, hresp != _NOP,
-                            hresp, hresp_dirty, hresp_pay, credits,
-                            unbounded=True)
+        # ---- 8. home-initiated downgrades arrive at the remotes ----------
+        ch_hreq_in = ch_hreq
+        ch_hreq, h_arr = tp.deliver(ch_hreq, tp.CLASS_HOME_REQ, delays,
+                                    delay_l=dly_hreq)
+        agents, hresp, hresp_dirty, hresp_pay = ag.on_home_msg(
+            tables, agents, h_arr, ch_hreq_in.msg)
+        msg_count, payload_msgs = _count(msg_count, payload_msgs, h_arr,
+                                         ch_hreq_in.msg, c.zero_rl)
+        ch_hresp, _ = tp.submit(ch_hresp, tp.CLASS_REMOTE_RESP, hresp != _NOP,
+                                hresp, hresp_dirty, hresp_pay, credits,
+                                unbounded=True)
 
-    # ---- 9. remotes submit local ops (fresh + parked retries) ------------
-    if packed:
-        locked = dmn.unpack_mask(_pend_or(hreq_pending), R) | \
-            (ch_hreq.msg != _NOP)
-    else:
-        locked = (hreq_pending != _NOP) | (ch_hreq.msg != _NOP)
-    parked = (agents.pending_op != int(LocalOp.NOP)) & \
-        (agents.pending_req == _NOP)
-    eff_op = torch.where(parked, agents.pending_op, op)
-    # lanes locked by a home downgrade, and ops outside the subset's MN
-    # envelope, issue nothing.
-    eff_op = eff_op.masked_fill(locked | ~tables.op_ok[eff_op.long()],
-                                int(LocalOp.NOP))
-    # An op that would emit a message stalls until the transport CAN take
-    # it (slot + credit); the credit rank is computed ONCE, and this
-    # dry-run verdict is the final acceptance (the emission set below can
-    # only shrink on unchanged occupancy).
-    rs = agents.remote_state.long()
-    req_of = tables.loc_request[eff_op.long(), rs]
-    would_emit = req_of != _NOP
-    acc_pre = tp.credit_accept(ch_req, tp.CLASS_REMOTE_REQ,
-                               would_emit & (ch_req.msg == _NOP), credits)
-    eff_op = eff_op.masked_fill(would_emit & ~acc_pre, int(LocalOp.NOP))
-    eff_val = torch.where(parked[..., None], agents.pending_val, op_val)
-    agents2, accepted, emit, req_dirty, req_pay = ag.submit(
-        tables, agents, eff_op, eff_val)
-    ch_req = tp.place(ch_req, emit != _NOP, emit, req_dirty, req_pay)
-    # load hits retire immediately.
-    o = eff_op.long()
-    hit = tables.loc_hit[o, rs]
-    load_hit = accepted & hit & (o == int(LocalOp.LOAD))
-    load_done = load_done | load_hit
-    load_val = torch.where(load_hit[..., None], agents2.cache, load_val)
+    with span("engine.submit"):
+        # ---- 9. remotes submit local ops (fresh + parked retries) --------
+        if packed:
+            locked = dmn.unpack_mask(_pend_or(hreq_pending), R) | \
+                (ch_hreq.msg != _NOP)
+        else:
+            locked = (hreq_pending != _NOP) | (ch_hreq.msg != _NOP)
+        parked = (agents.pending_op != int(LocalOp.NOP)) & \
+            (agents.pending_req == _NOP)
+        eff_op = torch.where(parked, agents.pending_op, op)
+        # lanes locked by a home downgrade, and ops outside the subset's MN
+        # envelope, issue nothing.
+        eff_op = eff_op.masked_fill(locked | ~tables.op_ok[eff_op.long()],
+                                    int(LocalOp.NOP))
+        # An op that would emit a message stalls until the transport CAN take
+        # it (slot + credit); the credit rank is computed ONCE, and this
+        # dry-run verdict is the final acceptance (the emission set below can
+        # only shrink on unchanged occupancy).
+        rs = agents.remote_state.long()
+        req_of = tables.loc_request[eff_op.long(), rs]
+        would_emit = req_of != _NOP
+        acc_pre = tp.credit_accept(ch_req, tp.CLASS_REMOTE_REQ,
+                                   would_emit & (ch_req.msg == _NOP), credits)
+        eff_op = eff_op.masked_fill(would_emit & ~acc_pre, int(LocalOp.NOP))
+        eff_val = torch.where(parked[..., None], agents.pending_val, op_val)
+        agents2, accepted, emit, req_dirty, req_pay = ag.submit(
+            tables, agents, eff_op, eff_val)
+        ch_req = tp.place(ch_req, emit != _NOP, emit, req_dirty, req_pay)
+        # load hits retire immediately.
+        o = eff_op.long()
+        hit = tables.loc_hit[o, rs]
+        load_hit = accepted & hit & (o == int(LocalOp.LOAD))
+        load_done = load_done | load_hit
+        load_val = torch.where(load_hit[..., None], agents2.cache, load_val)
 
-    new = EngineMNState(
-        dir=dstate, agents=agents2,
-        ch_req=ch_req, ch_resp=ch_resp, ch_hreq=ch_hreq, ch_hresp=ch_hresp,
-        hreq_pending=hreq_pending, txn_msg=txn_msg, txn_node=txn_node,
-        arb_rr=arb_rr,
-        want_read=want_read2, want_write=want_write2, want_wval=wv,
-        msg_count=msg_count, payload_msgs=payload_msgs,
-        step_no=st.step_no + 1,
-    )
-    out = StepMNOutput(load_done, load_val, hread_done, hread_val,
-                       accepted & ~parked)
-    if not emit_events:
-        return new, out
-    return new, out, StepEvents(
-        hresp_arr=hr_arr, hresp_msg=ch_hresp_in.msg,
-        hresp_dirty=ch_hresp_in.dirty,
-        vol_arr=pop_vol, vol_msg=vol_msg, vol_dirty=vol_dirty,
-        req_acc=accept_line & ~home_win, req_msg=win_msg,
-        req_node=win_node,
-        grant=resp != _NOP, grant_msg=resp, grant_node=node_c,
-        grant_pay=carries,
-        hd_arr=h_arr, hd_msg=ch_hreq_in.msg)
+        new = EngineMNState(
+            dir=dstate, agents=agents2,
+            ch_req=ch_req, ch_resp=ch_resp, ch_hreq=ch_hreq, ch_hresp=ch_hresp,
+            hreq_pending=hreq_pending, txn_msg=txn_msg, txn_node=txn_node,
+            arb_rr=arb_rr,
+            want_read=want_read2, want_write=want_write2, want_wval=wv,
+            msg_count=msg_count, payload_msgs=payload_msgs,
+            step_no=st.step_no + 1,
+        )
+        out = StepMNOutput(load_done, load_val, hread_done, hread_val,
+                           accepted & ~parked)
+        if not emit_events:
+            return new, out
+        return new, out, StepEvents(
+            hresp_arr=hr_arr, hresp_msg=ch_hresp_in.msg,
+            hresp_dirty=ch_hresp_in.dirty,
+            vol_arr=pop_vol, vol_msg=vol_msg, vol_dirty=vol_dirty,
+            req_acc=accept_line & ~home_win, req_msg=win_msg,
+            req_node=win_node,
+            grant=resp != _NOP, grant_msg=resp, grant_node=node_c,
+            grant_pay=carries,
+            hd_arr=h_arr, hd_msg=ch_hreq_in.msg)
 
 
 def busy_flag_mn(st: EngineMNState) -> torch.Tensor:

@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+from ..spans import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: build outputs live in the checkout (``build/`` is git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -126,7 +128,8 @@ class Library:
         library at the first call; the entry point's error code."""
         import torch
         if not self._fns:
-            lib = load(self.name)
+            with span("kernels.load"):
+                lib = load(self.name)
             for s, argtypes in self.sigs.items():
                 fn = getattr(lib, s)
                 fn.argtypes = tuple(argtypes) + (ctypes.c_void_p,)

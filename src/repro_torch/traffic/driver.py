@@ -58,6 +58,7 @@ from ..core.engine_mn import (EngineMN, EngineMNState, _f_l, _f_rl,
                               busy_flag_mn, step_folded, unfold_events)
 from ..core.messages import MsgType
 from ..core.protocol import LocalOp
+from ..spans import span
 from .arrivals import check_schedule
 from .config import (AdmissionConfig, ArrivalSpec, StreamConfig,
                      WorkloadSpec)
@@ -334,116 +335,125 @@ def _stream_loop(engine: EngineMN, st0: EngineMNState, wl_op: torch.Tensor,
         return p.scatter_(-1, tgt, src.to(dtype))[..., :L]
 
     for t in range(steps):
-        # ---- fetch each remote's issue window ---------------------------
-        idx = cursor[..., None] + wr                        # [R, W]
-        active = idx < T
-        if width_cap is not None:
-            # slots past the member's own width never activate.
-            active = active & (wr < w_lim)
-        idxc = torch.clamp(idx, max=T - 1)
-        s_op = wl_op_t.gather(-1, idxc)                     # [R, W]
-        s_line = wl_line_t.gather(-1, idxc)
-        s_val = wl_value_t.gather(-1, idxc)
-        is_nop = s_op == int(LocalOp.NOP)
-        pending = active & ~issued
-        real = pending & ~is_nop
-        # one MSHR per (remote, line): a slot waits behind an EARLIER
-        # un-issued slot on its line, and while its line is in flight.
-        can = real & ~outstanding.gather(-1, s_line)
-        if W > 1:
-            same = s_line[..., :, None] == s_line[..., None, :]
-            can = can & ~(real[..., None, :] & same & earlier).any(-1)
-        if open_loop:
-            # ---- continuous-batching admission --------------------------
-            # a slot is a candidate only once its stamp has ARRIVED (the
-            # conflict mask above keeps every queued real slot, arrived or
-            # not, so per-line program order survives any schedule); with
-            # a cap, the FIFO-by-stamp earliest candidates fill what the
-            # reserve watermark leaves open.
-            s_arr = wl_arr[idxc, ar]                        # [R, W]
-            arrived = s_arr <= t
-            can = can & arrived
-            if adm.max_inflight:
-                budget = torch.clamp(adm.max_inflight - adm.reserve
-                                     - outstanding.sum(), min=0)
-                # stable argsort: FIFO by stamp, program order on ties;
-                # non-candidates sort to the back.
-                order = torch.argsort(
-                    torch.where(can, s_arr, int_max).reshape(-1),
-                    stable=True)
-                rank = torch.empty_like(order).scatter_(0, order, lanes)
-                can = can & (rank.view(R, W) < budget)
-        # scatter the issuable slots into dense [R, L] planes: at most one
-        # issuable slot per (remote, line); the rest go to scratch column L.
-        tgt = torch.where(can, s_line, L)
-        opd = plane(tgt, s_op, torch.int8)
-        vald = plane(tgt, s_val, dt)[..., None]
-        born_d = plane(tgt, slot_born, torch.int32)
+        with span("driver.window"):
+            # ---- fetch each remote's issue window -----------------------
+            idx = cursor[..., None] + wr                    # [R, W]
+            active = idx < T
+            if width_cap is not None:
+                # slots past the member's own width never activate.
+                active = active & (wr < w_lim)
+            idxc = torch.clamp(idx, max=T - 1)
+            s_op = wl_op_t.gather(-1, idxc)                 # [R, W]
+            s_line = wl_line_t.gather(-1, idxc)
+            s_val = wl_value_t.gather(-1, idxc)
+            is_nop = s_op == int(LocalOp.NOP)
+            pending = active & ~issued
+            real = pending & ~is_nop
+            # one MSHR per (remote, line): a slot waits behind an EARLIER
+            # un-issued slot on its line, and while its line is in flight.
+            can = real & ~outstanding.gather(-1, s_line)
+            if W > 1:
+                same = s_line[..., :, None] == s_line[..., None, :]
+                can = can & ~(real[..., None, :] & same & earlier).any(-1)
+            if open_loop:
+                # ---- continuous-batching admission ----------------------
+                # a slot is a candidate only once its stamp has ARRIVED
+                # (the conflict mask above keeps every queued real slot,
+                # arrived or not, so per-line program order survives any
+                # schedule); with a cap, the FIFO-by-stamp earliest
+                # candidates fill what the reserve watermark leaves open.
+                s_arr = wl_arr[idxc, ar]                    # [R, W]
+                arrived = s_arr <= t
+                can = can & arrived
+                if adm.max_inflight:
+                    budget = torch.clamp(adm.max_inflight - adm.reserve
+                                         - outstanding.sum(), min=0)
+                    # stable argsort: FIFO by stamp, program order on
+                    # ties; non-candidates sort to the back.
+                    order = torch.argsort(
+                        torch.where(can, s_arr, int_max).reshape(-1),
+                        stable=True)
+                    rank = torch.empty_like(order).scatter_(0, order, lanes)
+                    can = can & (rank.view(R, W) < budget)
+            # scatter the issuable slots into dense [R, L] planes: at most
+            # one issuable slot per (remote, line); the rest go to scratch
+            # column L.
+            tgt = torch.where(can, s_line, L)
+            opd = plane(tgt, s_op, torch.int8)
+            vald = plane(tgt, s_val, dt)[..., None]
+            born_d = plane(tgt, slot_born, torch.int32)
 
         # ---- one engine step under sustained traffic --------------------
-        res = step_folded(engine.tables, stt, fold(opd), fold(vald), zb,
-                          zb, zwv, engine.delays, engine.credits,
-                          hreq_shared=shared_credits, home_bw=home_bw,
-                          emit_events=obs is not None,
-                          home_group=home_group, home_bw_t=home_bw_t)
+        with span("engine.step"):
+            res = step_folded(engine.tables, stt, fold(opd), fold(vald), zb,
+                              zb, zwv, engine.delays, engine.credits,
+                              hreq_shared=shared_credits, home_bw=home_bw,
+                              emit_events=obs is not None,
+                              home_group=home_group, home_bw_t=home_bw_t)
         st2, out = res[:2]
 
-        # ---- adopt newly accepted ops, detect retirements ---------------
-        newly = unfold(out.accepted)
-        outstanding = outstanding | newly
-        born = torch.where(newly, born_d, born)
-        mshr_free = unfold((st2.agents.pending_op == int(LocalOp.NOP))
-                           & (st2.agents.pending_req == int(MsgType.NOP)))
-        retired = outstanding & mshr_free
-        outstanding = outstanding & ~retired
+        with span("driver.retire"):
+            # ---- adopt newly accepted ops, detect retirements -----------
+            newly = unfold(out.accepted)
+            outstanding = outstanding | newly
+            born = torch.where(newly, born_d, born)
+            mshr_free = unfold((st2.agents.pending_op == int(LocalOp.NOP))
+                               & (st2.agents.pending_req
+                                  == int(MsgType.NOP)))
+            retired = outstanding & mshr_free
+            outstanding = outstanding & ~retired
 
-        if collect_trace:
-            idx_d = plane(tgt, idxc, torch.int64)
-            out_idx = torch.where(newly, idx_d, out_idx)
-            col = torch.where(retired, out_idx, T)
-            retire.scatter_(-1, col, t)
+            if collect_trace:
+                idx_d = plane(tgt, idxc, torch.int64)
+                out_idx = torch.where(newly, idx_d, out_idx)
+                col = torch.where(retired, out_idx, T)
+                retire.scatter_(-1, col, t)
 
-        # ---- sojourn + admission-wait histograms (open loop) ------------
-        slot_acc = can & newly.gather(-1, s_line)
-        nop_skip = pending & is_nop
-        if open_loop:
-            soj_born = torch.where(newly, plane(tgt, s_arr, torch.int32),
-                                   soj_born)
-            soj_hist = _hist_count(
-                soj_hist, torch.bucketize(t - soj_born, soj_edges,
-                                          right=True), retired, soj_ids)
-            admit_hist = _hist_count(
-                admit_hist, torch.bucketize(t - s_arr, soj_edges,
-                                            right=True), slot_acc, soj_ids)
-            # a NOP slot is consumed at its arrival, not before.
-            nop_skip = nop_skip & arrived
+            # ---- sojourn + admission-wait histograms (open loop) --------
+            slot_acc = can & newly.gather(-1, s_line)
+            nop_skip = pending & is_nop
+            if open_loop:
+                soj_born = torch.where(
+                    newly, plane(tgt, s_arr, torch.int32), soj_born)
+                soj_hist = _hist_count(
+                    soj_hist, torch.bucketize(t - soj_born, soj_edges,
+                                              right=True), retired, soj_ids)
+                admit_hist = _hist_count(
+                    admit_hist, torch.bucketize(t - s_arr, soj_edges,
+                                                right=True), slot_acc,
+                    soj_ids)
+                # a NOP slot is consumed at its arrival, not before.
+                nop_skip = nop_skip & arrived
 
-        # ---- observability plane ----------------------------------------
-        if obs is not None:
-            ev = unfold_events(res[2]) if H > 1 else res[2]
-            oc = fold_obs(obs, tables, oc, ev, t, lf, tf, newly=newly,
-                          born_d=born_d, retired=retired)
+            # ---- observability plane ------------------------------------
+            if obs is not None:
+                ev = unfold_events(res[2]) if H > 1 else res[2]
+                oc = fold_obs(obs, tables, oc, ev, t, lf, tf, newly=newly,
+                              born_d=born_d, retired=retired)
 
-        # ---- slide each window past its issued prefix -------------------
-        issued = issued | slot_acc | nop_skip
-        shift = torch.cumprod(issued.to(torch.int32), dim=-1).sum(-1)
-        k2 = wr + shift[..., None]
-        # a slot sliding in from past the member's window is fresh (born
-        # now): the boundary is the member's own width.
-        in_w = k2 < w_lim
-        k2c = torch.clamp(k2, max=W - 1)
-        issued2 = torch.gather(issued, -1, k2c) & in_w
-        slot_born2 = torch.where(in_w, torch.gather(slot_born, -1, k2c),
-                                 t + 1)
+        with span("driver.slide"):
+            # ---- slide each window past its issued prefix ---------------
+            issued = issued | slot_acc | nop_skip
+            shift = torch.cumprod(issued.to(torch.int32), dim=-1).sum(-1)
+            k2 = wr + shift[..., None]
+            # a slot sliding in from past the member's window is fresh
+            # (born now): the boundary is the member's own width.
+            in_w = k2 < w_lim
+            k2c = torch.clamp(k2, max=W - 1)
+            issued2 = torch.gather(issued, -1, k2c) & in_w
+            slot_born2 = torch.where(in_w, torch.gather(slot_born, -1, k2c),
+                                     t + 1)
 
-        # ---- hardware-style counters ------------------------------------
-        lat = t - born
-        waiting = active & ~issued
-        head_wait = (t - slot_born).masked_fill(~waiting, 0).amax(dim=-1)
-        step_active = active.flatten(-2).any(-1) | busy_flag_mn(st2)
-        ctr = update_counters(ctr, st2, retired=retired, lat=lat,
-                              outstanding=outstanding, head_wait=head_wait,
-                              step_active=step_active)
+        with span("driver.counters"):
+            # ---- hardware-style counters --------------------------------
+            lat = t - born
+            waiting = active & ~issued
+            head_wait = (t - slot_born).masked_fill(~waiting, 0).amax(dim=-1)
+            step_active = active.flatten(-2).any(-1) | busy_flag_mn(st2)
+            ctr = update_counters(ctr, st2, retired=retired, lat=lat,
+                                  outstanding=outstanding,
+                                  head_wait=head_wait,
+                                  step_active=step_active)
 
         stt, cursor = st2, cursor + shift
         issued, slot_born = issued2, slot_born2

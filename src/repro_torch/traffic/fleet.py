@@ -38,6 +38,7 @@ import torch
 
 from ..core.engine_mn import EngineMNState, make_engine_mn_state
 from ..device import resolve_device
+from ..spans import span
 from .config import FleetConfig
 from .counters import Counters, RetirementTrace
 from .driver import StreamRun, _stream_loop, default_steps
@@ -70,8 +71,9 @@ def run_fleet(fleet: FleetConfig, device=None) -> List[StreamRun]:
         if mesh_n > avail:
             raise ValueError(f"mesh_devices={mesh_n} but only {avail} "
                              f"CUDA device(s) are visible")
-    wls = [s.workload.materialize(e.remotes, e.lines)
-           for e, s in fleet.members]
+    with span("fleet.prepare"):
+        wls = [s.workload.materialize(e.remotes, e.lines)
+               for e, s in fleet.members]
     if not mesh_n:
         return _run_members(fleet.members, wls, fleet_steps(fleet), dev)
     slices = [ix for ix in np.array_split(np.arange(len(wls)), mesh_n)
@@ -112,74 +114,80 @@ def _run_members(members, wls: Sequence[Workload], steps: int,
     """The fleet on one device, fed each member's ``[T, R_m]`` workload
     arrays (``wls``).  Members' workloads are checked against their
     subsets, padded to R-max with NOP columns and stepped together."""
-    engines = [e.build(dev) for e, _ in members]
-    for eng, (e, _), wl in zip(engines, members, wls):
-        if not eng.subset.check_workload(np.asarray(wl.op),
-                                         n_remotes=e.remotes):
-            raise ValueError(
-                f"fleet member workload outside subset "
-                f"'{eng.subset.name}' guarantee (allowed ops: "
-                f"{sorted(eng.subset.allowed_ops(e.remotes))})")
-        if np.asarray(wl.op).shape[1] != e.remotes:
-            raise ValueError(f"fleet member workload has "
-                             f"{np.asarray(wl.op).shape[1]} remotes, "
-                             f"engine {e.remotes}")
-    for eng in engines[1:]:
-        assert torch.equal(eng.delays, engines[0].delays) and \
-            torch.equal(eng.credits, engines[0].credits), \
-            "fleet members share one delay and credit table"
-    R_max = max(e.remotes for e, _ in members)
-    W_max = max(s.width for _, s in members)
-    T = np.asarray(wls[0].op).shape[0]
-    dt = engines[0].init().dir.backing.dtype
+    with span("fleet.prepare"):
+        engines = [e.build(dev) for e, _ in members]
+        for eng, (e, _), wl in zip(engines, members, wls):
+            if not eng.subset.check_workload(np.asarray(wl.op),
+                                             n_remotes=e.remotes):
+                raise ValueError(
+                    f"fleet member workload outside subset "
+                    f"'{eng.subset.name}' guarantee (allowed ops: "
+                    f"{sorted(eng.subset.allowed_ops(e.remotes))})")
+            if np.asarray(wl.op).shape[1] != e.remotes:
+                raise ValueError(f"fleet member workload has "
+                                 f"{np.asarray(wl.op).shape[1]} remotes, "
+                                 f"engine {e.remotes}")
+        for eng in engines[1:]:
+            assert torch.equal(eng.delays, engines[0].delays) and \
+                torch.equal(eng.credits, engines[0].credits), \
+                "fleet members share one delay and credit table"
+        R_max = max(e.remotes for e, _ in members)
+        W_max = max(s.width for _, s in members)
+        T = np.asarray(wls[0].op).shape[0]
+        dt = engines[0].init().dir.backing.dtype
 
-    def pad_cols(a):
-        a = np.asarray(a)
-        out = np.zeros((T, R_max), a.dtype)
-        out[:, :a.shape[1]] = a
-        return out
+        def pad_cols(a):
+            a = np.asarray(a)
+            out = np.zeros((T, R_max), a.dtype)
+            out[:, :a.shape[1]] = a
+            return out
 
-    def stacked(field, dtype):
-        return torch.as_tensor(np.stack([pad_cols(getattr(w, field))
-                                         for w in wls])).to(dtype).to(dev)
+        def stacked(field, dtype):
+            return torch.as_tensor(np.stack([pad_cols(getattr(w, field))
+                                             for w in wls])).to(dtype).to(dev)
 
-    e0, s0 = members[0]
-    st = _stack([make_engine_mn_state(
-        torch.zeros((e.lines, e.block), dtype=dt, device=dev), R_max,
-        packed=e0.packed) for e, _ in members])
-    hg = tuple(e.homes for e, _ in members)
-    bw = tuple(e.home_bw for e, _ in members)
-    emulate = any(h > 1 for h in hg) or any(bw)
-    lp = _stream_loop(
-        engines[0], st, stacked("op", torch.int8),
-        stacked("line", torch.int64), stacked("value", dt), steps, W_max,
-        collect_trace=s0.collect_trace,
-        width_cap=tuple(s.width for _, s in members),
-        home_group=hg if emulate else None,
-        home_bw_t=bw if emulate else None)
+        e0, s0 = members[0]
+        st = _stack([make_engine_mn_state(
+            torch.zeros((e.lines, e.block), dtype=dt, device=dev), R_max,
+            packed=e0.packed) for e, _ in members])
+        hg = tuple(e.homes for e, _ in members)
+        bw = tuple(e.home_bw for e, _ in members)
+        emulate = any(h > 1 for h in hg) or any(bw)
+        wl_op, wl_line, wl_value = (stacked("op", torch.int8),
+                                    stacked("line", torch.int64),
+                                    stacked("value", dt))
 
-    completed = lp.completed.cpu().numpy()
-    ctr = Counters(*(x.cpu() for x in lp.counters))
-    msg_count = lp.state.msg_count.cpu().numpy().astype(np.int64)
-    payload = lp.state.payload_msgs.cpu().numpy()
-    retire = (lp.retire[..., :-1].transpose(-1, -2).cpu().numpy()
-              if s0.collect_trace else None)
-    runs = []
-    for i, ((e, s), wl) in enumerate(zip(members, wls)):
-        R_m = e.remotes
-        # the three per-remote counter planes carry padded rows: slice
-        # them off, so the record reads as the solo run's.
-        c = Counters(*(x[i] for x in ctr))
-        c = c._replace(lat_hist=c.lat_hist[:R_m], max_wait=c.max_wait[:R_m],
-                       retired=c.retired[:R_m])
-        trace = None
-        if s0.collect_trace:
-            trace = RetirementTrace(
-                retire_step=retire[i][:, :R_m], op=np.asarray(wl.op),
-                line=np.asarray(wl.line), value=np.asarray(wl.value),
-                n_lines=e.lines)
-        runs.append(StreamRun(
-            state=_member(lp.state, i), counters=c,
-            msg_count=msg_count[i], payload_msgs=int(payload[i]),
-            trace=trace, completed=bool(completed[i])))
-    return runs
+    with span("fleet.loop", flush=True):
+        lp = _stream_loop(
+            engines[0], st, wl_op, wl_line, wl_value, steps, W_max,
+            collect_trace=s0.collect_trace,
+            width_cap=tuple(s.width for _, s in members),
+            home_group=hg if emulate else None,
+            home_bw_t=bw if emulate else None)
+
+    with span("fleet.readout"):
+        completed = lp.completed.cpu().numpy()
+        ctr = Counters(*(x.cpu() for x in lp.counters))
+        msg_count = lp.state.msg_count.cpu().numpy().astype(np.int64)
+        payload = lp.state.payload_msgs.cpu().numpy()
+        retire = (lp.retire[..., :-1].transpose(-1, -2).cpu().numpy()
+                  if s0.collect_trace else None)
+        runs = []
+        for i, ((e, s), wl) in enumerate(zip(members, wls)):
+            R_m = e.remotes
+            # the three per-remote counter planes carry padded rows: slice
+            # them off, so the record reads as the solo run's.
+            c = Counters(*(x[i] for x in ctr))
+            c = c._replace(lat_hist=c.lat_hist[:R_m],
+                           max_wait=c.max_wait[:R_m], retired=c.retired[:R_m])
+            trace = None
+            if s0.collect_trace:
+                trace = RetirementTrace(
+                    retire_step=retire[i][:, :R_m], op=np.asarray(wl.op),
+                    line=np.asarray(wl.line), value=np.asarray(wl.value),
+                    n_lines=e.lines)
+            runs.append(StreamRun(
+                state=_member(lp.state, i), counters=c,
+                msg_count=msg_count[i], payload_msgs=int(payload[i]),
+                trace=trace, completed=bool(completed[i])))
+        return runs
