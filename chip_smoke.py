@@ -526,6 +526,22 @@ def wall_ms(fn, iters: int = 200, warmup: int = 10) -> float:
 PROFILE_TRIES = 3
 
 
+def engine_steps(fn):
+    """``fn()`` and the engine steps its loop ran, the calls of the
+    ``engine.step`` span (host mode): the loop stops once the run is
+    quiet, so a budget past quiescence runs fewer steps than it counts."""
+    from repro_torch import spans
+    spans.reset()
+    spans.enable()
+    try:
+        out = fn()
+    finally:
+        spans.disable()
+    ran = spans.summary().get("engine.step", {"calls": 0})["calls"]
+    spans.reset()
+    return out, ran
+
+
 def device_entries(fn, iters: int = 100, required: bool = True):
     """The profiler's device entries (kernels and memsets) over ``iters``
     calls of ``fn``, after one call to warm up.  Only device entries
@@ -3563,6 +3579,11 @@ def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
             best = min(best, time.perf_counter() - t0)
         return best
 
+    # the loop stops once the run is quiet: divide by the steps it ran.
+    ran = [engine_steps(run(n))[1] for n in (lo, hi)]
+    if ran[1] <= ran[0]:
+        fail(f"step profile {mode or 'dense'}: runs of {lo} and {hi} steps "
+             f"ran {ran[0]} and {ran[1]}: the run is quiet before step {hi}")
     tallies, kernels = [], []
     for n in (lo, hi):
         on_card = device_entries(run(n), iters=1)
@@ -3575,11 +3596,12 @@ def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
                         sum(ev.self_device_time_total for ev in on_card),
                         sum(c for c, _ in kernels[-1].values()),
                         sum(t for _, t in kernels[-1].values())))
-    d = [(b - a) / (hi - lo) for a, b in zip(*tallies)]
-    each = {k: ((kernels[1][k][0] - kernels[0][k][0]) / (hi - lo),
-                (kernels[1][k][1] - kernels[0][k][1]) / (hi - lo))
+    n = ran[1] - ran[0]
+    d = [(b - a) / n for a, b in zip(*tallies)]
+    each = {k: ((kernels[1][k][0] - kernels[0][k][0]) / n,
+                (kernels[1][k][1] - kernels[0][k][1]) / n)
             for k in STEP_KERNELS}
-    ms = (wall(hi) - wall(lo)) / (hi - lo) * 1e3
+    ms = (wall(hi) - wall(lo)) / n * 1e3
     if mode in ("grid", "homes"):
         what = (f"H={FLEET_HOMES} at R={R} W=1" if mode == "homes" else
                 f"(R, W)={FLEET_GRID}")
@@ -3589,7 +3611,7 @@ def step_profile(dev, lo: int = 8, hi: int = 24, packed: bool = False,
         label = f"packed two-home step (R={R} L={L} B={B} H={HOMES} W=1"
     else:
         label = f"{mode or 'dense'} step (R={R} L={L} B={B} W=1"
-    print(f"{label}, runs of {lo} and {hi} steps): {d[0]:g} device "
+    print(f"{label}, runs of {ran[0]} and {ran[1]} steps): {d[0]:g} device "
           f"operations per step, device time {d[1]:.3f} us; the step "
           f"kernels {d[2]:g} entries, {d[3]:.3f} us; host wall "
           f"{ms:.3f} ms per step")
@@ -3602,7 +3624,7 @@ def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
     """One run of ``ops`` per remote through ``run_stream`` (the default
     step budget unless ``steps``; ``stream`` are further ``StreamConfig``
     fields), with every launch count set to 0 just before it and read
-    just after: launches exactly ``per_step`` times the step count and,
+    just after: launches exactly ``per_step`` times the steps run and,
     with ``validate``, oracle-validated with all ops retired.  Returns
     the run and its wall time in seconds."""
     import torch
@@ -3616,11 +3638,10 @@ def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
-    run = run_stream(eng, cfg)
+    run, ran = engine_steps(lambda: run_stream(eng, cfg))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launches)
-    steps = int(run.counters.steps)
     s = summarize(run.counters, run.msg_count, run.payload_msgs)
     t1 = time.perf_counter()
     if validate:
@@ -3630,14 +3651,15 @@ def drive(dev, cfg_engine, width: int, ops: int, per_step, rows,
           f"ops_retired={s['ops_retired']} "
           f"ops_per_step={float(s['ops_per_step']):.6f} "
           f"steps={s['steps']} active_steps={s['active_steps']} "
-          f"wall_s={wall:.3f} steps_per_s={steps / wall:.1f} "
+          f"steps_run={ran} wall_s={wall:.3f} "
+          f"steps_per_s={ran / wall:.1f} "
           f"msgs={int(run.msg_count.sum())} "
           f"oracle_validate_s={t_val:.1f}")
     print(f"{label}: launches {json.dumps(counts)}")
     for name, n in counts.items():
-        if n != per_step[name] * steps:
+        if n != per_step[name] * ran:
             fail(f"{label}: kernel {name}: {n} launches, expected "
-                 f"{per_step[name]} x {steps}")
+                 f"{per_step[name]} x {ran}")
         rows[name]["launches"] += n
     if validate and s["ops_retired"] != cfg_engine.remotes * ops:
         fail(f"{label}: retired {s['ops_retired']} of "
@@ -3847,7 +3869,7 @@ def phase_open_loop(dev, rows):
           f"p99={s['sojourn_percentiles']['p99']} "
           f"p999={s['sojourn_percentiles']['p999']} admit_wait "
           f"p99={s['admit_wait_percentiles']['p99']} backlog={run.backlog} "
-          f"steps={steps} steps_per_s={steps / wall:.1f}")
+          f"steps={steps} wall_s={wall:.3f}")
     if not run.completed or run.backlog != 0:
         fail(f"open loop rate {SOJ_RATE}: completed={run.completed} "
              f"backlog={run.backlog}")
@@ -3952,15 +3974,16 @@ def drive_fleet(dev, homes: bool, rows, solo_at) -> None:
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
-    runs = run_fleet(fleet, device=dev)
+    runs, ran = engine_steps(lambda: run_fleet(fleet, device=dev))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launches)
-    print(f"{label}: launches {json.dumps(counts)}")
+    print(f"{label}: launches {json.dumps(counts)} in {ran} of {steps} "
+          f"steps (the loop stops once every member is quiet)")
     for name, n in counts.items():
-        if n != PER_STEP[name] * steps:
+        if n != PER_STEP[name] * ran:
             fail(f"{label}: kernel {name}: {n} launches, expected "
-                 f"{PER_STEP[name]} x {steps} (one per fleet step)")
+                 f"{PER_STEP[name]} x {ran} (one per fleet step)")
         rows[name]["launches"] += n
     M = len(runs)
     for (e, s), run in zip(fleet.members, runs):
@@ -3989,13 +4012,11 @@ def drive_fleet(dev, homes: bool, rows, solo_at) -> None:
         if not _same_run(runs[i], solo):
             fail(f"{label}: member {i} differs from its solo run")
         print(f"{label}: member {i} (R={e.remotes} W={s.width} "
-              f"H={e.homes}) == its solo run_stream, solo wall_s={w:.3f} "
-              f"steps_per_s={steps / w:.1f}")
-    print(f"{label}: M={M} members x {steps} steps in wall_s={wall:.3f}: "
-          f"member_steps_per_s={M * steps / wall:.1f} fleet_steps_per_s="
-          f"{steps / wall:.1f}; the {len(solo_at)} solo runs "
-          f"wall_s={solo_wall:.3f} ({len(solo_at) * steps / solo_wall:.1f}"
-          f" member-steps/s)")
+              f"H={e.homes}) == its solo run_stream, solo wall_s={w:.3f}")
+    print(f"{label}: M={M} members x {ran} steps in wall_s={wall:.3f}: "
+          f"member_steps_per_s={M * ran / wall:.1f} fleet_steps_per_s="
+          f"{ran / wall:.1f}; the {len(solo_at)} solo runs of the "
+          f"{steps}-step budget wall_s={solo_wall:.3f}")
 
 
 def phase_fleet(dev, rows):

@@ -16,6 +16,16 @@ flight.
   bookkeeping, the retirement trace and the counters are all tensor
   operations queued on the device, and the host reads the results once,
   after the last step;
+* the loop stops once the run is QUIET: no slot left in any stream,
+  nothing outstanding and the engine idle (``busy_flag_mn``).  A quiet
+  state stays quiet, and a step on it changes only ``step_no`` and
+  ``counters.steps``, so the loop adds the steps it skipped to those two
+  and the result is the full budget's, bit for bit.  Each step's quiet
+  flag is copied to pinned host memory behind a CUDA event, and the host
+  reads the flags whose events have completed before it queues a step:
+  it never waits, and stops a few steps past quiescence, as far as it
+  runs ahead of the card.  An observed run with an injection
+  (``ObserveConfig.inject``) steps the whole budget;
 * with several homes the engine state stays in the home-major
   ``[H, R, L/H]`` fold for the whole loop (``engine_mn.step_folded``):
   each step folds only its op planes and unfolds only the planes the
@@ -48,6 +58,7 @@ after the loop.
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -234,6 +245,47 @@ class _LoopOut(NamedTuple):
     obs: Optional[ObsResult] = None
 
 
+class _QuietPoll:
+    """Whether an earlier step left the loop quiet, read without waiting
+    for the device.
+
+    ``push`` takes a step's [] bool ACTIVE flag, false once the run is
+    quiet.  On a CUDA device it is copied into a pinned host bool
+    (non-blocking) with an event recorded behind it, and ``quiet`` reads
+    the oldest flags whose events have completed.  A quiet run stays
+    quiet, so a flag that finds every slot of the ring in flight is
+    dropped: a later one says the same.  On the CPU a flag is read as it
+    is pushed."""
+
+    DEPTH = 8
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.seen = False
+        self.inflight = collections.deque()
+        if self.cuda:
+            self.free = [(torch.empty((), dtype=torch.bool, pin_memory=True),
+                          torch.cuda.Event()) for _ in range(self.DEPTH)]
+            self.stream = torch.cuda.current_stream(dev)
+
+    def push(self, active: torch.Tensor) -> None:
+        if not self.cuda:
+            self.seen = not bool(active)
+        elif self.free:
+            host, ev = slot = self.free.pop()
+            host.copy_(active, non_blocking=True)
+            ev.record(self.stream)
+            self.inflight.append(slot)
+
+    def quiet(self) -> bool:
+        while not self.seen and self.inflight \
+                and self.inflight[0][1].query():
+            slot = self.inflight.popleft()
+            self.seen = not bool(slot[0])
+            self.free.append(slot)
+        return self.seen
+
+
 def _stream_loop(engine: EngineMN, st0: EngineMNState, wl_op: torch.Tensor,
                  wl_line: torch.Tensor, wl_value: torch.Tensor, steps: int,
                  W: int, *, collect_trace: bool, n_homes: int = 1,
@@ -255,6 +307,14 @@ def _stream_loop(engine: EngineMN, st0: EngineMNState, wl_op: torch.Tensor,
     the protocol tables, delays and credits; the multi-home fold
     (``n_homes``), ``home_bw``, shared credits, the open loop
     (``arrivals``, ``admission``) and observation are solo-only.
+
+    The loop stops at the first QUIET step (every member's streams
+    consumed, nothing outstanding, the engine idle), or a few steps later
+    on a CUDA device (``_QuietPoll``), and adds the steps it skipped to
+    the final ``step_no`` and ``counters.steps``; the steps after a quiet
+    one change nothing else, so the result is the whole budget's.  An
+    injection into an observed run (``ObserveConfig.inject``) may land
+    after quiescence, so such a run steps the whole budget.
     """
     dev = wl_op.device
     members = st0.msg_count.dim() == 2
@@ -334,7 +394,12 @@ def _stream_loop(engine: EngineMN, st0: EngineMNState, wl_op: torch.Tensor,
         p = torch.zeros(lead + (R, L + 1), dtype=dtype, device=dev)
         return p.scatter_(-1, tgt, src.to(dtype))[..., :L]
 
+    poll = _QuietPoll(dev) if obs is None or obs.inject is None else None
+    ran = steps
     for t in range(steps):
+        if poll is not None and poll.quiet():
+            ran = t
+            break
         with span("driver.window"):
             # ---- fetch each remote's issue window -----------------------
             idx = cursor[..., None] + wr                    # [R, W]
@@ -454,12 +519,19 @@ def _stream_loop(engine: EngineMN, st0: EngineMNState, wl_op: torch.Tensor,
                                   outstanding=outstanding,
                                   head_wait=head_wait,
                                   step_active=step_active)
+            if poll is not None:
+                # an outstanding op holds its MSHR, which ``busy_flag_mn``
+                # (in ``step_active``) already reads.
+                poll.push(step_active.any())
 
         stt, cursor = st2, cursor + shift
         issued, slot_born = issued2, slot_born2
 
     if H > 1:
         stt = _unfold_state_mn(stt, st0)
+    if ran < steps:
+        stt = stt._replace(step_no=stt.step_no + (steps - ran))
+        ctr = ctr._replace(steps=ctr.steps + (steps - ran))
     completed = ((cursor >= T).all(-1) & ~outstanding.flatten(-2).any(-1)
                  & ~busy_flag_mn(stt))
     extra = {}

@@ -20,9 +20,13 @@ What makes the members batchable (``config.FleetConfig`` has the rules):
   emulation (``engine_mn.step_folded``'s ``home_group``/``home_bw_t``).
 
 Each member's result is bit-identical to its solo ``run_stream`` at the
-fleet's shared step budget (``fleet_steps``).  ``mesh_devices > 0``
-splits the members across that many CUDA devices, each slice one
-member-batched loop; the results come back in member order.
+fleet's shared step budget (``fleet_steps``).  The loop stops once every
+member is quiet (streams consumed, nothing in flight) and adds the steps
+it skipped to ``step_no`` and ``counters.steps``, which a quiet state's
+steps alone would change: a solo run stops at its own quiescence and
+makes the same addition.  ``mesh_devices > 0`` splits the members across
+that many CUDA devices, each slice one member-batched loop that stops on
+its own; the results come back in member order.
 
 ``run_fleet`` returns one ``StreamRun`` per member; its ``state`` is the
 member's R-max-padded flat engine state (rows past the member's real

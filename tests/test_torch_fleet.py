@@ -12,6 +12,9 @@
 * The baseline keys ``fleet.grid.*`` (all 12) and ``fleet.homes.*``
   (all 3) of ``benchmarks/BENCH_baseline.json``, exact, with the
   baseline's workloads (drawn under ``jax.threefry_partitionable(False)``).
+* The loop stopping once every member is quiet, dense, packed and with
+  two homes, each member still equal to the reference's run of the whole
+  budget; a budget that ends first runs every step.
 * Every member against its solo port run at the fleet's budget, packed
   members against dense, one ``step_folded`` call per step for the whole
   fleet, and every ``FleetConfig`` refusal of ``tests/test_fleet.py``.
@@ -36,7 +39,7 @@ from repro.traffic import (EngineConfig as JEngineConfig,  # noqa: E402
                            StreamConfig as JStreamConfig,
                            WorkloadSpec as JWorkloadSpec,
                            run_fleet as j_run_fleet)
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, spans  # noqa: E402
 from repro_torch.core import engine_mn  # noqa: E402
 from repro_torch.core.engine_mn import EngineMN, step_mn  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -235,21 +238,84 @@ def test_fleet_matches_reference_run_fleet(kind):
                                  torch.device("cpu"))
     for i, (a, b) in enumerate(zip(j_run_fleet(jf), got)):
         assert a.completed and b.completed
-        np.testing.assert_array_equal(b.msg_count, a.msg_count)
-        assert b.payload_msgs == a.payload_msgs
-        np.testing.assert_array_equal(b.trace.retire_step,
-                                      a.trace.retire_step)
-        jc = _np_tree(a.counters)
-        tc = convert.counters_to_reference(b.counters)
-        for f in jc._fields:
-            np.testing.assert_array_equal(tc[f], getattr(jc, f),
-                                          err_msg=f"member {i}: {f}")
-        sa, sb = convert.flatten(_np_tree(a.state)), convert.flatten(
-            b.state)
-        for k in sa:
-            np.testing.assert_array_equal(sb[k], sa[k],
-                                          err_msg=f"member {i}: {k}")
+        _assert_member_equals_reference(i, b, a)
         validate_run(b, n_homes=tf.members[i][0].homes)
+
+
+def _assert_member_equals_reference(i, b, a):
+    """The port's member ``b`` equals the reference's ``a``: completion,
+    messages, trace, every counter and the state leaf by leaf."""
+    assert b.completed == a.completed
+    np.testing.assert_array_equal(b.msg_count, a.msg_count)
+    assert b.payload_msgs == a.payload_msgs
+    np.testing.assert_array_equal(b.trace.retire_step, a.trace.retire_step)
+    jc = _np_tree(a.counters)
+    tc = convert.counters_to_reference(b.counters)
+    for f in jc._fields:
+        np.testing.assert_array_equal(tc[f], getattr(jc, f),
+                                      err_msg=f"member {i}: {f}")
+    sa, sb = convert.flatten(_np_tree(a.state)), convert.flatten(b.state)
+    for k in sa:
+        np.testing.assert_array_equal(sb[k], sa[k],
+                                      err_msg=f"member {i}: {k}")
+
+
+def _engine_steps(fn):
+    """``fn()`` and the engine steps its loop ran: the calls of the
+    ``engine.step`` span."""
+    spans.reset()
+    spans.enable()
+    try:
+        out = fn()
+    finally:
+        spans.disable()
+    ran = spans.summary()["engine.step"]["calls"]
+    spans.reset()
+    return out, ran
+
+
+#: kind -> (packed, members as (remotes, width, homes, home_bw, seed),
+#: budget (0: the fleet's)), at 64 lines, B=4, 4 ops a remote.
+QUIET_FLEETS = {
+    "dense": (False, ((3, 1, 1, 0, 21), (3, 2, 1, 0, 22),
+                      (2, 1, 1, 0, 23)), 0),
+    "packed": (True, ((3, 1, 1, 0, 21), (3, 2, 1, 0, 22),
+                      (2, 2, 1, 0, 23), (3, 1, 1, 0, 24)), 0),
+    "homes2": (False, ((3, 1, 2, 1, 25), (3, 2, 1, 0, 26)), 0),
+    "short_budget": (False, ((3, 1, 1, 0, 21), (3, 2, 1, 0, 22)), 6),
+}
+
+
+@pytest.mark.parametrize("kind", list(QUIET_FLEETS))
+def test_fleet_loop_stops_at_quiescence_as_the_full_budget(kind):
+    """The fleet's loop stops once every member is quiet (fewer
+    ``engine.step`` calls than the budget; a budget that ends first runs
+    every step), and each member equals the reference's fleet run of the
+    whole budget, ``step_no`` and ``counters.steps`` among the leaves."""
+    packed, spec, steps = QUIET_FLEETS[kind]
+    lines, ops = 64, 4
+
+    def members(E, S, W):
+        return tuple((E(remotes=r, lines=lines, block=4, homes=h,
+                        home_bw=bw, packed=packed),
+                      S(workload=W("zipfian", ops=ops, seed=sd), width=w,
+                        collect_trace=True))
+                     for r, w, h, bw, sd in spec)
+
+    jf = JFleetConfig(members=members(JEngineConfig, JStreamConfig,
+                                      JWorkloadSpec), steps=steps)
+    tf = FleetConfig(members=members(EngineConfig, StreamConfig,
+                                     WorkloadSpec), steps=steps)
+    wls = [_ref_workload(e.remotes, ops, s.workload.seed, lines=lines)
+           for e, s in tf.members]
+    budget = fleet_steps(tf)
+    got, ran = _engine_steps(lambda: fleet_mod._run_members(
+        tf.members, wls, budget, torch.device("cpu")))
+    assert (ran == budget) if steps else (ran < budget), (ran, budget)
+    for i, (a, b) in enumerate(zip(j_run_fleet(jf), got)):
+        assert b.completed == (steps == 0)
+        assert int(b.counters.steps) == int(b.state.step_no) == budget
+        _assert_member_equals_reference(i, b, a)
 
 
 @pytest.fixture(scope="module")
@@ -341,8 +407,9 @@ def test_fleet_runs_one_batched_step_per_step(monkeypatch):
 
     monkeypatch.setattr(driver_mod, "step_folded", spy)
     fleet = FleetConfig(members=_fleet(trace=False).members, steps=40)
-    runs = run_fleet(fleet, device="cpu")
-    assert calls == [(4, 16)] * 40
+    runs, ran = _engine_steps(lambda: run_fleet(fleet, device="cpu"))
+    # the loop may stop at quiescence, before the budget's 40 steps.
+    assert 0 < ran <= 40 and calls == [(4, 16)] * ran
     assert [int(r.counters.steps) for r in runs] == [40] * 4
 
 

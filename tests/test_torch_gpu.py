@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import spans  # noqa: E402
 from repro_torch.core import pushdown as PD  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import coherency_step as K  # noqa: E402
@@ -46,6 +47,20 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     return torch.device("cuda")
+
+
+def _engine_steps(fn):
+    """``fn()`` and the engine steps its loop ran: the calls of the
+    ``engine.step`` span (the loop stops once the run is quiet)."""
+    spans.reset()
+    spans.enable()
+    try:
+        out = fn()
+    finally:
+        spans.disable()
+    ran = spans.summary()["engine.step"]["calls"]
+    spans.reset()
+    return out, ran
 
 
 def _bools(rng, shape, p):
@@ -215,9 +230,9 @@ def test_fleet_card_equals_cpu(cuda, packed):
     member its solo run on the card."""
     fleet = _small_fleet(packed)
     K.reset_launches()
-    gpu = run_fleet(fleet, device=cuda)
+    gpu, ran = _engine_steps(lambda: run_fleet(fleet, device=cuda))
     steps = fleet_steps(fleet)
-    assert K.launches["count_fold"] == 5 * steps
+    assert K.launches["count_fold"] == 5 * ran and ran <= steps
     cpu = run_fleet(fleet, device="cpu")
     for (e, s), a, b in zip(fleet.members, gpu, cpu):
         assert a.completed and b.completed
@@ -247,6 +262,50 @@ def test_fleet_loop_makes_no_host_sync(cuda):
                 torch.cuda.set_sync_debug_mode("default")
         counts.append(sum("synchroniz" in str(w.message) for w in caught))
     assert counts[2] > 0 and counts[1] == counts[2]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_fleet_loop_stops_near_quiescence_without_a_sync(cuda, monkeypatch,
+                                                         packed):
+    """From its second step on, the loop runs under CUDA's sync debug
+    mode "error", so a blocking read of the quiet flag raises; it stops
+    within 4 steps of the step after which every member is quiet (the CPU
+    loop reads each flag as it is made and stops right there), and its
+    members equal the CPU's."""
+    from repro_torch.traffic import driver
+    from repro_torch.traffic import fleet as fleet_mod
+    fleet = _small_fleet(packed)
+    real = driver.step_folded
+    calls = []
+
+    def strict(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        return real(*a, **kw)
+
+    run_fleet(fleet, device=cuda)       # builds the cached constants
+    loop = driver._stream_loop
+
+    def checked(*a, **kw):
+        try:
+            return loop(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(driver, "step_folded", strict)
+    monkeypatch.setattr(fleet_mod, "_stream_loop", checked)
+    gpu = run_fleet(fleet, device=cuda)
+    monkeypatch.undo()
+    cpu, quiet = _engine_steps(lambda: run_fleet(fleet, device="cpu"))
+    assert quiet < fleet_steps(fleet)
+    assert quiet <= len(calls) <= quiet + 4, (len(calls), quiet)
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_array_equal(a.msg_count, b.msg_count)
+        np.testing.assert_array_equal(a.trace.retire_step,
+                                      b.trace.retire_step)
+        for x, y in zip(a.counters, b.counters):
+            assert torch.equal(x.cpu(), y.cpu())
 
 
 def test_fleet_mesh_devices_equals_one_device(cuda):
@@ -653,8 +712,10 @@ def test_open_loop_and_observed_card_equals_cpu(cuda, case):
     cfg = StreamConfig(workload=WorkloadSpec("zipfian", ops=12, seed=4),
                        collect_trace=True, **skw)
     K.reset_launches()
-    gpu = run_stream(EngineConfig(lines=16, block=4, **kw).build(cuda), cfg)
-    assert K.launches["count_fold"] == 5 * int(gpu.counters.steps)
+    gpu, ran = _engine_steps(lambda: run_stream(
+        EngineConfig(lines=16, block=4, **kw).build(cuda), cfg))
+    assert K.launches["count_fold"] == 5 * ran
+    assert ran <= int(gpu.counters.steps)
     cpu = run_stream(EngineConfig(lines=16, block=4, **kw).build("cpu"),
                      cfg)
     _same_open_and_observed(gpu, cpu)

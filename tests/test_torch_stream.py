@@ -7,6 +7,11 @@
 * On one small config per case it matches ``repro``'s ``run_stream``
   directly: counters, message counts and the retirement trace,
   bit-identical.
+* The loop stops at quiescence (fewer ``engine.step`` calls than the
+  budget) and still equals the reference's run of the whole budget,
+  dense, packed, two homes, open loop under admission and observed; a
+  budget that ends first, and an observed run with an injection, step
+  every step.
 
 The committed baseline was generated with JAX's pre-0.5 random-bit
 layout, so its workloads are drawn with ``jax.threefry_partitionable``
@@ -21,13 +26,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro import traffic as J  # noqa: E402
 from repro.traffic import (EngineConfig as JEngineConfig,  # noqa: E402
                            StreamConfig as JStreamConfig,
                            WorkloadSpec as JWorkloadSpec,
                            run_stream as j_run_stream,
                            summarize as j_summarize)
-from repro_torch import convert  # noqa: E402
-from repro_torch.traffic import (EngineConfig, StreamConfig,  # noqa: E402
+from repro_torch import convert, spans  # noqa: E402
+from repro_torch.traffic import (ArrivalSchedule,  # noqa: E402
+                                 EngineConfig, ObserveConfig, StreamConfig,
                                  Workload, WorkloadSpec, default_steps,
                                  run_stream, summarize, validate_run)
 
@@ -170,3 +177,92 @@ def test_stream_continues_from_state():
     assert first.completed and second.completed
     assert int(second.state.step_no) == 2 * default_steps(8, 3)
     assert second.msg_count.sum() > 0
+
+
+#: case -> (engine fields, stream fields, budget (0: the default), whether
+#: the loop stops before the budget); R=3, L=64, B=4, 4 ops a remote.
+#: ``observe`` holds ``ObserveConfig`` fields, ``arrivals`` a Poisson
+#: rate; an injection lands 4 steps before the budget ends, long after
+#: the stream has gone quiet.
+QUIET = {
+    "dense_w1": ({}, {"width": 1}, 0, True),
+    "dense_w2": ({}, {"width": 2}, 0, True),
+    "packed_w2": ({"packed": True}, {"width": 2}, 0, True),
+    "homes2_w2": ({"homes": 2, "home_bw": 1}, {"width": 2}, 0, True),
+    "open_admission": ({}, {"width": 2, "arrivals": 0.3,
+                            "admission": (4, 1)}, 0, True),
+    "observed": ({}, {"observe": {"capacity": 256}}, 0, True),
+    "observed_inject": ({}, {"observe": {"capacity": 256, "inject": -4}},
+                        0, False),
+    "short_budget": ({}, {"width": 2}, 6, False),
+}
+
+
+@pytest.mark.parametrize("case", list(QUIET))
+def test_loop_stops_at_quiescence_as_the_full_budget(case):
+    """The loop's steps, read as the ``engine.step`` span's calls, and
+    the run against the reference's whole budget: state leaf by leaf,
+    every counter (``steps`` among them), messages, trace, completion,
+    the open loop's histograms and backlog, the observation digest."""
+    ekw, skw, steps, stops = QUIET[case]
+    R, L, ops = 3, 64, 4
+    wl = JWorkloadSpec("zipfian", ops=ops, seed=11).materialize(R, L)
+    jkw, tkw = dict(skw), dict(skw)
+    last = 0
+    if "arrivals" in skw:
+        arr = J.ArrivalSpec("poisson", rate=skw["arrivals"],
+                            seed=1).materialize(ops, R)
+        last = int(np.asarray(arr.step).max())
+        jkw["arrivals"], tkw["arrivals"] = arr, ArrivalSchedule(
+            np.array(arr.step))
+    budget = steps or default_steps(ops, R, last)
+    if "observe" in skw:
+        o = dict(skw["observe"])
+        if "inject" in o:
+            o["inject"] = (budget + o["inject"], 5, 1)
+        jkw["observe"], tkw["observe"] = J.ObserveConfig(**o), \
+            ObserveConfig(**o)
+    jrun = j_run_stream(
+        JEngineConfig(remotes=R, lines=L, block=4, **ekw).build(),
+        JStreamConfig(workload=wl, steps=steps, collect_trace=True, **jkw))
+    spans.reset()
+    spans.enable()
+    try:
+        trun = run_stream(
+            EngineConfig(remotes=R, lines=L, block=4, **ekw).build("cpu"),
+            StreamConfig(workload=Workload(*(np.array(x) for x in wl)),
+                         steps=steps, collect_trace=True, **tkw))
+    finally:
+        spans.disable()
+    ran = spans.summary()["engine.step"]["calls"]
+    spans.reset()
+    assert (ran < budget) if stops else (ran == budget), (ran, budget)
+    assert int(trun.counters.steps) == int(trun.state.step_no) == budget
+    assert trun.completed == jrun.completed == (steps == 0)
+    np.testing.assert_array_equal(trun.msg_count, jrun.msg_count)
+    assert trun.payload_msgs == jrun.payload_msgs
+    np.testing.assert_array_equal(trun.trace.retire_step,
+                                  jrun.trace.retire_step)
+    jctr = jax.tree_util.tree_map(np.asarray, jrun.counters)
+    got = convert.counters_to_reference(trun.counters)
+    for f in jctr._fields:
+        np.testing.assert_array_equal(got[f], getattr(jctr, f), err_msg=f)
+    a = convert.flatten(jax.tree_util.tree_map(np.asarray, jrun.state))
+    b = convert.flatten(trun.state)
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    for f in ("sojourn_hist", "admit_wait_hist"):
+        if getattr(jrun, f) is None:
+            assert getattr(trun, f) is None
+        else:
+            np.testing.assert_array_equal(getattr(trun, f),
+                                          np.asarray(getattr(jrun, f)))
+    assert trun.backlog == jrun.backlog
+    if "observe" in skw:
+        np.testing.assert_array_equal(trun.obs.words,
+                                      np.asarray(jrun.obs.words))
+        assert trun.obs.metrics() == jrun.obs.metrics()
+        assert [vars(v) for v in trun.obs.violations] == \
+            [vars(v) for v in jrun.obs.violations]
+        np.testing.assert_array_equal(trun.obs.phase_hist,
+                                      jrun.obs.phase_hist)
